@@ -1,0 +1,451 @@
+"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py      # needs one CUDA card; takes about a minute on an H100
+
+Phases, each printing a line; any failure exits non-zero:
+
+1. the card: ``nvidia-smi`` name and power limit, TF32 settings (both off);
+2. build: ``nvcc`` for every kernel source in ``multimodal_av_model_tpu_torch/csrc``,
+   all started together;
+3. K1 (log-mel) and K2 (lip preprocess) at their serving shapes: each kernel
+   against its plain PyTorch version on the same inputs, with the stated
+   tolerance, then timed with CUDA events beside its plain version, a library
+   yardstick and its bound;
+4. reference: the whole path at a small width in f32, on the card (kernels)
+   and on the CPU (plain versions), log-probs compared and the decoder's ids
+   held exactly;
+5. serving: the flagship at full width (12x512 Conformer, ResNet-18, fusion 512,
+   2-layer BiLSTM, vocab 800, bf16, seeded random weights): three requests of
+   4 pairs at bucket 128 and one at bucket 64, each through
+   ``preprocess_batch_device`` -> ``Transcriber.transcribe`` (prefix beam 5,
+   top-k 8), with launch counts read just after; then, outside the counted
+   run, one more request timed by layer with CUDA events, and one under
+   ``torch.profiler`` (its table of ops by device time is printed).
+
+The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
+``{"ok": true, "device": ...}``.  Nothing of JAX is imported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# Published H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, inputs, iters: int) -> float:
+    """Mean device time of ``fn(*inputs[i % len])`` over ``iters`` launches,
+    after a warm-up, by CUDA events."""
+    import torch
+
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*inputs[i % len(inputs)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_phase(torch, rng):
+    """Log-mel kernel at the serving shape [4, 68352] (bucket 128)."""
+    from multimodal_av_model_tpu_torch.ops import logmel
+
+    B, S = 4, 128 * 534
+    t = np.arange(S) / 16000.0
+    wave = (0.3 * np.sin(2 * np.pi * 220 * t) + 0.1 * rng.standard_normal((B, S)))
+    x = torch.from_numpy(wave.astype(np.float32)).cuda()
+    got = logmel.log_mel_spectrogram_cuda(x)
+    ref = logmel.log_mel_spectrogram(x)
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    ok = torch.allclose(got, ref, rtol=2e-3, atol=2e-3)
+    log(f"[k1] log-mel {tuple(x.shape)} -> {tuple(got.shape)}: max|kernel-plain| = {err:.3g} "
+        f"(tolerance rtol=atol=2e-3) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("K1 disagrees with its plain version")
+
+    fb = torch.from_numpy(logmel.mel_filterbank(201, 80, 16000)).cuda()
+    window = torch.hann_window(400, periodic=True, device="cuda")
+
+    def library(sig):
+        spec = torch.stft(sig, 400, 160, window=window, center=True, pad_mode="reflect",
+                          return_complex=True)
+        return torch.log((spec.abs() ** 2).transpose(1, 2) @ fb + 1e-6)
+
+    lib_err = (library(x) - ref).abs().max().item()
+    ms = cuda_ms(logmel.log_mel_spectrogram_cuda, [(x,)], 200)
+    plain_ms = cuda_ms(logmel.log_mel_spectrogram, [(x,)], 50)
+    lib_ms = cuda_ms(library, [(x,)], 50)
+    T = got.shape[1]
+    flops = B * T * (4 * 400 * 201 + 2 * 201 * 80)
+    nbytes = x.numel() * 4 + got.numel() * 4
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"[k1] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stft+matmul {lib_ms:.4f} ms "
+        f"(max|lib-plain| {lib_err:.3g}); bound {b_ms:.4f} ms by {b_by} "
+        f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    return {"name": "logmel", "route": "cuda",
+            "source": "multimodal_av_model_tpu_torch/csrc/logmel.cu",
+            "replaces": "multimodal_av_model_tpu/ops/pallas/logmel_kernel.py:110",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def k2_phase(torch, rng):
+    """Lip kernel at the serving shape: 512 = 4 x 128 uint8 crops of 128x128x3."""
+    import torch.nn.functional as F
+
+    from multimodal_av_model_tpu_torch.ops import resize
+
+    N, H, W, C, O = 512, 128, 128, 3, 96
+    # Four distinct batches (100 MB) so timed launches do not find their
+    # input in the 50 MB L2, as the serving path does not.
+    inputs = [torch.from_numpy(rng.integers(0, 256, size=(N, H, W, C), dtype=np.uint8)).cuda()
+              for _ in range(4)]
+    x = inputs[0]
+    got = resize.lip_preprocess_cuda(x, O)
+    ref = resize.lip_frames_preprocess(x, O)
+    got_f32 = resize.lip_preprocess_cuda(x.float(), O)
+    torch.cuda.synchronize()
+    err = max((got - ref).abs().max().item(), (got_f32 - ref).abs().max().item())
+    ok = (torch.allclose(got, ref, rtol=1e-4, atol=1e-3)
+          and torch.allclose(got_f32, ref, rtol=1e-4, atol=1e-3))
+    log(f"[k2] lip {tuple(x.shape)} uint8 and f32 -> {tuple(got.shape)}: max|kernel-plain| = "
+        f"{err:.3g} (tolerance rtol=1e-4, atol=1e-3) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("K2 disagrees with its plain version")
+
+    def library(frames):
+        gray = frames.float().mean(dim=-1)[:, None]
+        return F.interpolate(gray, size=(O, O), mode="bilinear", align_corners=False) / 255.0
+
+    lib_err = (library(x) - ref).abs().max().item()
+    args = [(f, O) for f in inputs]
+    ms = cuda_ms(resize.lip_preprocess_cuda, args, 100)
+    plain_ms = cuda_ms(resize.lip_frames_preprocess, args, 20)
+    lib_ms = cuda_ms(library, [(f,) for f in inputs], 20)
+    nbytes = x.numel() + got.numel() * 4
+    flops = N * O * O * (4 * C + 10)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"[k2] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, mean+F.interpolate {lib_ms:.4f} ms "
+        f"(max|lib-plain| {lib_err:.3g}); bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+    return {"name": "lip_preprocess", "route": "cuda",
+            "source": "multimodal_av_model_tpu_torch/csrc/lip_preprocess.cu",
+            "replaces": "multimodal_av_model_tpu/ops/pallas/lip_kernel.py:48",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms}
+
+
+def make_request(rng, B: int, spec, crop: int = 128):
+    """B raw two-speaker samples at ``spec``'s bucket, made with numpy, then
+    collated on the host (uint8 crops, per-speaker waveforms, lengths)."""
+    from multimodal_av_model_tpu_torch.data.collate import collate_pairs_raw
+
+    samples = []
+    for _ in range(B):
+        s = {}
+        for k in ("1", "2"):
+            T = int(rng.integers(spec.video_frames // 2, spec.video_frames + 1))
+            n = min(T * 534, spec.audio_samples)
+            tt = np.arange(n) / 16000.0
+            f0 = rng.uniform(100, 300)
+            s["lip" + k + "_raw"] = rng.integers(0, 256, size=(T, crop, crop, 3), dtype=np.uint8)
+            s["audio" + k] = (0.3 * np.sin(2 * np.pi * f0 * tt)
+                              + 0.05 * rng.standard_normal(n)).astype(np.float32)
+            s["label" + k] = rng.integers(4, 800, size=int(rng.integers(5, 30)))
+        samples.append(s)
+    return collate_pairs_raw(samples, spec)
+
+
+def tiny_model_config():
+    from multimodal_av_model_tpu_torch.config import Config
+
+    cfg = Config()
+    a, v, f = cfg.model.audio, cfg.model.visual, cfg.model.fusion
+    a.d_model, a.num_layers, a.num_heads, a.ffn_dim = 32, 3, 2, 64
+    a.conv_kernel_size, a.middle_layers, a.output_dim = 7, (1, 2), 48
+    v.frontend_channels, v.resnet_layers = 8, (1, 1, 1, 1)
+    v.resnet_channels, v.output_dim, v.norm = (8, 12, 16, 24), 24, "batch"
+    f.fused_dim, f.num_heads = 16, 2
+    cfg.model.decoder.vocab_size = 40
+    cfg.model.contrastive.projection_dim = 8
+    cfg.model.dtype = "float32"
+    return cfg
+
+
+def reference_phase(torch, rng):
+    """The whole path at a small width in f32: card (kernels) vs CPU (plain)."""
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.device_pipeline import preprocess_batch_device
+    from multimodal_av_model_tpu_torch.infer import decode_ids
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
+
+    cfg = tiny_model_config()
+    spec = make_bucket_specs((16,), 534, 8)[0]
+    raw = make_request(rng, 2, spec, crop=48)
+    model = init_weights(MultiSpeakerAVModel(cfg.model), torch.Generator().manual_seed(1))
+    g = torch.Generator().manual_seed(2)
+    for name, buf in model.named_buffers():        # non-trivial BatchNorm statistics
+        buf.copy_(torch.rand(buf.shape, generator=g) + (0.5 if "var" in name else -0.5))
+    keys = ("lip1", "lip2", "audio", "mask1", "mask2", "lip1_lengths", "lip2_lengths")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        m = model.to(dev).eval()
+        batch = preprocess_batch_device(raw["lip1_raw"], raw["lip2_raw"], raw["audio1"],
+                                        raw["audio2"], raw["audio1_len"], raw["audio2_len"],
+                                        out_size=24, device=dev)
+        batch["lip1_lengths"] = torch.from_numpy(raw["lip1_lengths"]).to(dev)
+        batch["lip2_lengths"] = torch.from_numpy(raw["lip2_lengths"]).to(dev)
+        with torch.no_grad():
+            outs[dev] = (batch, m(*[batch[k] for k in keys]))
+    (b_cpu, o_cpu), (b_gpu, o_gpu) = outs["cpu"], outs["cuda"]
+    lip_err = max((b_gpu[k].cpu() - b_cpu[k]).abs().max().item() for k in ("lip1", "lip2"))
+    lp_err = 0.0
+    for s in ("1", "2"):
+        if not torch.equal(o_gpu["input_lengths" + s].cpu(), o_cpu["input_lengths" + s]):
+            raise SystemExit("reference: input_lengths differ between card and CPU")
+        for b, n in enumerate(o_cpu["input_lengths" + s].tolist()):
+            d = (o_gpu["log_probs" + s][b, :n].cpu() - o_cpu["log_probs" + s][b, :n]).abs()
+            lp_err = max(lp_err, d.max().item() if n else 0.0)
+    lp = torch.cat([o_cpu["log_probs1"], o_cpu["log_probs2"]])
+    lens = torch.cat([o_cpu["input_lengths1"], o_cpu["input_lengths2"]])
+    ids_cpu, n_cpu = decode_ids(cfg, lp, lens)
+    ids_gpu, n_gpu = decode_ids(cfg, lp.cuda(), lens.cuda())
+    same_ids = torch.equal(ids_cpu, ids_gpu.cpu()) and torch.equal(n_cpu, n_gpu.cpu())
+    ok = lip_err <= 1e-3 and lp_err <= 1e-3 and same_ids
+    log(f"[reference] small f32 model, card vs CPU: max|lips| {lip_err:.3g} (<= 1e-3), "
+        f"max|log_probs| on valid frames {lp_err:.3g} (<= 1e-3), prefix-beam ids "
+        f"{'equal' if same_ids else 'DIFFER'} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("reference phase failed")
+
+
+def serving_phase(torch, rng, tok):
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.device_pipeline import preprocess_batch_device
+    from multimodal_av_model_tpu_torch.infer import Transcriber
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+
+    cfg = Config()                                  # the shipped flagship defaults
+    dtype = torch_dtype(cfg.model.dtype)
+    t0 = time.perf_counter()
+    model = init_weights(MultiSpeakerAVModel(cfg.model, dtype), torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    transcriber = Transcriber(cfg, tok, model, device="cuda")
+    log(f"[serving] flagship {n_params / 1e6:.1f}M params ({cfg.model.dtype} compute, f32 "
+        f"params), seeded init + to(cuda) {time.perf_counter() - t0:.1f} s")
+    specs = {s.video_frames: s for s in make_bucket_specs(cfg.data.video_buckets,
+                                                          cfg.data.audio_samples_per_video_frame,
+                                                          cfg.data.max_label_len)}
+    plan = [128, 128, 128, 64]
+    requests = [make_request(rng, 4, specs[T]) for T in plan]
+    captured = []
+    model.register_forward_hook(lambda mod, args, out: captured.append(out))
+
+    def serve(raw):
+        batch = preprocess_batch_device(raw["lip1_raw"], raw["lip2_raw"], raw["audio1"],
+                                        raw["audio2"], raw["audio1_len"], raw["audio2_len"],
+                                        device="cuda")
+        batch["lip1_lengths"], batch["lip2_lengths"] = raw["lip1_lengths"], raw["lip2_lengths"]
+        return transcriber.transcribe(batch)
+
+    for T in sorted(set(plan)):                     # warm-up, one per bucket shape
+        serve(requests[plan.index(T)])
+    torch.cuda.synchronize()
+    captured.clear()
+
+    torch.cuda.reset_peak_memory_stats()
+    log_mel_spectrogram_cuda.launches = 0
+    lip_preprocess_cuda.launches = 0
+    lat, all_texts, per_request = [], [], []
+    for raw in requests:                            # the main path
+        before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+        t0 = time.perf_counter()
+        texts = serve(raw)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        all_texts.append(texts)
+        per_request.append((log_mel_spectrogram_cuda.launches - before[0],
+                            lip_preprocess_cuda.launches - before[1]))
+    launches = {"logmel": log_mel_spectrogram_cuda.launches,
+                "lip_preprocess": lip_preprocess_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    n_req = len(requests)
+    if any(k1 < 1 or k2 < 2 for k1, k2 in per_request):
+        raise SystemExit(f"serving: kernels not on the main path, launches {per_request}")
+    if len(captured) != n_req:
+        raise SystemExit(f"serving: {len(captured)} forwards for {n_req} requests")
+    for raw, texts, out in zip(requests, all_texts, captured):
+        T_v = raw["lip1_raw"].shape[1]
+        for s in ("1", "2"):
+            lp = out["log_probs" + s].float()
+            if lp.shape[:2] != (4, T_v) or lp.shape[2] != cfg.model.decoder.vocab_size:
+                raise SystemExit(f"serving: log_probs shape {tuple(lp.shape)}")
+            if not torch.isfinite(lp).all():
+                raise SystemExit("serving: non-finite log-probs")
+            if (lp.logsumexp(-1).abs() > 1e-3).any():
+                raise SystemExit("serving: log-prob rows do not normalise")
+            if (out["input_lengths" + s] > T_v).any():
+                raise SystemExit("serving: input_lengths exceed T_v")
+        if len(texts) != 4 or any(len(p) != 2 or not all(isinstance(x, str) for x in p)
+                                  for p in texts):
+            raise SystemExit("serving: expected one text per speaker")
+    for T, dt in zip(plan, lat):
+        log(f"[serving] request B=4 bucket {T}: {dt * 1e3:.1f} ms, {4 / dt:.2f} utt/s "
+            f"(utt = one two-speaker mixture)")
+    log(f"[serving] {n_req} requests, {4 * n_req} mixtures in {sum(lat):.3f} s: "
+        f"{4 * n_req / sum(lat):.2f} utt/s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches}; first texts "
+        f"{json.dumps(all_texts[0][0])[:120]}")
+    wall = layer_breakdown(torch, transcriber, serve, requests[0])
+    kernel_profile(torch, serve, requests[0], wall)
+    return launches
+
+
+def layer_breakdown(torch, transcriber, serve, raw):
+    """Device-stream time per layer for one bucket-128 request, by CUDA events
+    recorded from forward hooks (after the main path, not counted in it)."""
+    model = transcriber.model
+    parts = {"forward": model, "visual_encoder": model.visual_encoder,
+             "audio_encoder": model.audio_encoder, "fusion": model.fusion,
+             "decoder": model.decoder}
+    events, handles = {}, []
+
+    def new_event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def hooks(name):
+        def pre(mod, args):
+            events[name] = (new_event(), new_event())
+            events[name][0].record()
+
+        def post(mod, args, out):
+            events[name][1].record()
+        return pre, post
+
+    for name, mod in parts.items():
+        pre, post = hooks(name)
+        handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    start, end = new_event(), new_event()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        serve(raw)
+        end.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for h in handles:
+            h.remove()
+    fwd = events.pop("forward")
+    row = {"preprocess (H2D + mixing + K2)": start.elapsed_time(fwd[0])}
+    row.update({k: a.elapsed_time(b) for k, (a, b) in events.items()})
+    row["prefix-beam decode + readback"] = fwd[1].elapsed_time(end)
+    log(f"[layers] one bucket-128 request, {wall:.1f} ms wall; stream time by layer (ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in row.items())
+        + f"; total {start.elapsed_time(end):.2f}")
+    return wall
+
+
+def kernel_profile(torch, serve, raw, plain_wall_ms: float):
+    """torch.profiler over one request: device time by op and the device's
+    busy share of the wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(raw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    stats = prof.key_averages()
+    key = "device_time_total" if hasattr(stats[0], "device_time_total") else "cuda_time_total"
+    busy = sum(getattr(e, "self_" + key) for e in stats       # device rows only, as
+               if e.device_type == DeviceType.CUDA            # the table's total
+               and not getattr(e, "is_user_annotation", False)) / 1e3
+    table = stats.table(sort_by=key, row_limit=30, max_name_column_width=60)
+    log("[profile] ops by device time:\n" + table)
+    log(f"[profile] one bucket-128 request: device busy {busy:.2f} ms; idle share "
+        f"{1 - busy / plain_wall_ms:.3f} of the {plain_wall_ms:.1f} ms unprofiled wall "
+        f"({1 - busy / wall:.3f} of the {wall:.1f} ms wall under the profiler)")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.ops import cuda_build
+    from multimodal_av_model_tpu_torch.text import CharTokenizer
+
+    # Features and the f32 reference are held at full f32: no TF32 anywhere.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    log(f"[card] {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {name} | "
+        f"count {torch.cuda.device_count()} | matmul.allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
+        f"{torch.backends.cudnn.allow_tf32}")
+
+    t0 = time.perf_counter()
+    logs = cuda_build.build()
+    for k, text in logs.items():
+        info = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+        log(f"[build] {k}: " + (" | ".join(info) or text.strip()[:200]))
+    log(f"[build] {len(logs)} kernels built in {time.perf_counter() - t0:.1f} s (sm_90a)")
+
+    rng = np.random.default_rng(0)
+    tok = CharTokenizer(os.path.join(REPO, Config().data.vocab_path))
+    kernels = [k1_phase(torch, rng), k2_phase(torch, rng)]
+    reference_phase(torch, rng)
+    launches = serving_phase(torch, rng, tok)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,21 @@
+"""multimodal_av_model_tpu_torch: the PyTorch / CUDA port of multimodal_av_model_tpu.
+
+The JAX package ``multimodal_av_model_tpu`` stays the reference; this package
+mirrors its layout and names, imports nothing from it, and runs on an NVIDIA
+H100.  Its two hand-written CUDA kernels (``csrc/``) replace the JAX package's
+two Pallas kernels.  The serving slice so far:
+
+    data/       bucketed raw collation, on-device mixing + lip preprocessing (K2)
+    ops/        log-mel frontend (K1), bilinear resize (K2), CTC collapse and
+                greedy decode, prefix beam search, the kernels' nvcc build step
+    models/     AudioEncoder, VisualEncoder, CrossAttentionFusion, CTCDecoder,
+                MultiSpeakerAVModel (eval forward)
+    compat/     flax variables -> state_dict bridge
+    text/       character tokenizer
+    infer.py    Transcriber: batch -> per-speaker texts
+
+Entry points run on the card unless the caller passes ``device="cpu"``; the
+path through each kernel is chosen by the tensor's device alone.
+"""
+
+__version__ = "0.1.0"

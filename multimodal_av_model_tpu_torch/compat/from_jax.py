@@ -1,0 +1,240 @@
+"""Weight bridge: flax ``{"params", "batch_stats"}`` -> the port's ``state_dict``.
+
+The inverse direction of ``multimodal_av_model_tpu/compat/torch_import.py:11-37``
+for the flagship ``MultiSpeakerAVModel``, written from the layouts alone (that
+module is not imported):
+
+* Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed);
+* attention ``query/key/value kernel [E, H, hd]`` -> ``[H*hd, E]``, ``out
+  kernel [H, hd, E]`` -> ``[E, H*hd]``;
+* LSTM ``ii..io`` / ``hi..ho`` kernels -> ``w_ih`` / ``w_hh`` in gate order
+  i, f, g, o, forward and backward stacked; the recurrent biases -> ``b_hh``;
+* conv ``HWIO`` -> ``OIHW`` (1D: ``[k, I, O]`` -> ``[O, I, k]``; the
+  depthwise conv keeps ``I = 1`` for groups = d);
+* BatchNorm ``scale, bias`` + ``batch_stats mean, var`` -> ``weight, bias,
+  running_mean, running_var``; GroupNorm ``scale, bias`` -> ``weight, bias``;
+* both PReLU sites of each block map to ``act1`` / ``act2``.
+
+Input leaves are numpy arrays (``jax.device_get`` of the variables).  Every
+flax leaf must be consumed: an unknown or left-over key raises.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def _p(*parts) -> str:
+    """Flax path from parts, skipping an empty root."""
+    return "/".join(str(p) for p in parts if p != "")
+
+
+def _d(*parts) -> str:
+    """state_dict key from parts, skipping an empty root."""
+    return ".".join(str(p) for p in parts if p != "")
+
+
+class _Tree:
+    """Reads leaves of the flax tree by path and records which were read."""
+
+    def __init__(self, variables: dict):
+        self.leaves: dict[str, np.ndarray] = {}
+        for col, tree in variables.items():
+            if col not in ("params", "batch_stats"):
+                raise KeyError(f"unknown variable collection {col!r}")
+            self._flatten(tree, col)
+        self.used: set[str] = set()
+
+    def _flatten(self, tree, prefix):
+        for k, v in tree.items():
+            if hasattr(v, "items"):
+                self._flatten(v, _p(prefix, k))
+            else:
+                self.leaves[_p(prefix, k)] = np.asarray(v, dtype=np.float32)
+
+    def get(self, *parts) -> np.ndarray:
+        path = _p(*parts)
+        if path not in self.leaves:
+            raise KeyError(f"missing flax leaf {path!r}")
+        self.used.add(path)
+        return self.leaves[path]
+
+    def has(self, *parts) -> bool:
+        return _p(*parts) in self.leaves
+
+    def children(self, *parts) -> list[str]:
+        pre = _p(*parts) + "/"
+        return sorted({k[len(pre):].split("/", 1)[0] for k in self.leaves if k.startswith(pre)})
+
+    def check_all_used(self):
+        left = sorted(set(self.leaves) - self.used)
+        if left:
+            raise KeyError(f"unconsumed flax leaves: {left}")
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _dense(tree, sd, src, dst):
+    sd[_d(dst, "weight")] = _t(tree.get("params", src, "kernel").T)
+    sd[_d(dst, "bias")] = _t(tree.get("params", src, "bias"))
+
+
+def _layer_norm(tree, sd, src, dst):
+    sd[_d(dst, "weight")] = _t(tree.get("params", src, "scale"))
+    sd[_d(dst, "bias")] = _t(tree.get("params", src, "bias"))
+
+
+def _mha(tree, sd, src, dst):
+    for name in ("query", "key", "value"):
+        k = tree.get("params", src, name, "kernel")                  # [E, H, hd]
+        sd[_d(dst, name, "weight")] = _t(k.reshape(k.shape[0], -1).T)
+        sd[_d(dst, name, "bias")] = _t(tree.get("params", src, name, "bias").reshape(-1))
+    k = tree.get("params", src, "out", "kernel")                     # [H, hd, E]
+    sd[_d(dst, "out", "weight")] = _t(k.reshape(-1, k.shape[-1]).T)
+    sd[_d(dst, "out", "bias")] = _t(tree.get("params", src, "out", "bias"))
+
+
+def _norm(tree, sd, parent, index, dst):
+    """``BatchNorm_{index}`` or ``_AdaptiveGroupNorm_{index}`` under ``parent``."""
+    bn = _p(parent, f"BatchNorm_{index}")
+    if tree.has("params", bn, "scale"):
+        sd[_d(dst, "weight")] = _t(tree.get("params", bn, "scale"))
+        sd[_d(dst, "bias")] = _t(tree.get("params", bn, "bias"))
+        sd[_d(dst, "running_mean")] = _t(tree.get("batch_stats", bn, "mean"))
+        sd[_d(dst, "running_var")] = _t(tree.get("batch_stats", bn, "var"))
+    else:
+        _layer_norm(tree, sd, _p(parent, f"_AdaptiveGroupNorm_{index}", "GroupNorm_0"), dst)
+
+
+def _act(tree, sd, parent, index, dst):
+    if tree.has("params", parent, f"PReLU_{index}", "alpha"):    # absent for "relu"
+        sd[_d(dst, "alpha")] = _t(tree.get("params", parent, f"PReLU_{index}", "alpha"))
+
+
+def _conv2d(tree, sd, src, dst):
+    sd[_d(dst, "weight")] = _t(tree.get("params", src, "kernel").transpose(3, 2, 0, 1))
+
+
+def _conv1d(tree, sd, src, dst_weight, dst_bias):
+    sd[dst_weight] = _t(tree.get("params", src, "kernel").transpose(2, 1, 0))
+    sd[dst_bias] = _t(tree.get("params", src, "bias"))
+
+
+def _visual(tree, sd, src, dst):
+    _conv2d(tree, sd, _p(src, "frontend_conv"), _d(dst, "frontend_conv"))
+    _norm(tree, sd, src, 0, _d(dst, "frontend_norm"))
+    _act(tree, sd, src, 0, _d(dst, "frontend_act"))
+    names = tree.children("params", src, "trunk")
+    for name in names:
+        if not re.fullmatch(r"layer\d+_\d+", name):
+            raise KeyError(f"unknown trunk child {name!r}")
+    order = sorted(names, key=lambda n: tuple(int(x) for x in re.findall(r"\d+", n)))
+    for i, name in enumerate(order):
+        s, d = _p(src, "trunk", name), _d(dst, "trunk", "blocks", i)
+        _conv2d(tree, sd, _p(s, "Conv_0"), _d(d, "conv1"))
+        _norm(tree, sd, s, 0, _d(d, "norm1"))
+        _act(tree, sd, s, 0, _d(d, "act1"))
+        _conv2d(tree, sd, _p(s, "Conv_1"), _d(d, "conv2"))
+        _norm(tree, sd, s, 1, _d(d, "norm2"))
+        if tree.has("params", s, "Conv_2", "kernel"):
+            _conv2d(tree, sd, _p(s, "Conv_2"), _d(d, "downsample", 0))
+            _norm(tree, sd, s, 2, _d(d, "downsample", 1))
+        _act(tree, sd, s, 1, _d(d, "act2"))
+    if tree.has("params", src, "Dense_0", "kernel"):
+        _dense(tree, sd, _p(src, "Dense_0"), _d(dst, "proj"))
+
+
+def _audio(tree, sd, src, dst):
+    _conv1d(tree, sd, _p(src, "subsample"), _d(dst, "subsample_weight"),
+            _d(dst, "subsample_bias"))
+    for name in tree.children("params", src):
+        if not re.fullmatch(r"block\d+", name):
+            continue                          # subsample / out_proj; leftovers raise
+        s, d = _p(src, name), _d(dst, "blocks", int(name[5:]))
+        for ff, dff in (("FeedForwardModule_0", "ff1"), ("FeedForwardModule_1", "ff2")):
+            _layer_norm(tree, sd, _p(s, ff, "LayerNorm_0"), _d(d, dff, "norm"))
+            _dense(tree, sd, _p(s, ff, "Dense_0"), _d(d, dff, "fc1"))
+            _dense(tree, sd, _p(s, ff, "Dense_1"), _d(d, dff, "fc2"))
+        _layer_norm(tree, sd, _p(s, "LayerNorm_0"), _d(d, "attn_norm"))
+        _mha(tree, sd, _p(s, "self_attention"), _d(d, "attn"))
+        c, dc = _p(s, "ConvModule_0"), _d(d, "conv")
+        _layer_norm(tree, sd, _p(c, "LayerNorm_0"), _d(dc, "norm"))
+        _dense(tree, sd, _p(c, "Dense_0"), _d(dc, "pointwise_in"))
+        _conv1d(tree, sd, _p(c, "Conv_0"), _d(dc, "depthwise_weight"),
+                _d(dc, "depthwise_bias"))
+        _layer_norm(tree, sd, _p(c, "LayerNorm_1"), _d(dc, "depthwise_norm"))
+        _dense(tree, sd, _p(c, "Dense_1"), _d(dc, "pointwise_out"))
+        _layer_norm(tree, sd, _p(s, "LayerNorm_1"), _d(d, "final_norm"))
+    _dense(tree, sd, _p(src, "out_proj"), _d(dst, "out_proj"))
+
+
+def _bilstm(tree, sd, src, dst):
+    for name in tree.children("params", src):
+        if not re.fullmatch(r"layer\d+", name):
+            raise KeyError(f"unknown BiLSTM child {name!r}")
+        s, d = _p(src, name), _d(dst, "layers", int(name[5:]))
+        w_ih, w_hh, b_hh = [], [], []
+        for direction in ("fwd", "bwd"):
+            p = _p(s, direction)
+            w_ih.append(np.concatenate([tree.get("params", p, f"i{g}", "kernel")
+                                        for g in "ifgo"], 1).T)
+            w_hh.append(np.concatenate([tree.get("params", p, f"h{g}", "kernel")
+                                        for g in "ifgo"], 1).T)
+            b_hh.append(np.concatenate([tree.get("params", p, f"h{g}", "bias")
+                                        for g in "ifgo"]))
+        sd[_d(d, "w_ih")] = _t(np.stack(w_ih))
+        sd[_d(d, "w_hh")] = _t(np.stack(w_hh))
+        sd[_d(d, "b_hh")] = _t(np.stack(b_hh))
+
+
+def _fusion(tree, sd, src, dst):
+    _dense(tree, sd, _p(src, "visual_proj"), _d(dst, "visual_proj"))
+    _dense(tree, sd, _p(src, "audio_proj"), _d(dst, "audio_proj"))
+    _mha(tree, sd, _p(src, "cross_attn_audio"), _d(dst, "cross_attn_audio"))
+    _dense(tree, sd, _p(src, "fusion_proj"), _d(dst, "fusion_proj"))
+    _bilstm(tree, sd, _p(src, "temporal_bilstm"), _d(dst, "temporal_bilstm"))
+
+
+def _convert(variables, fill) -> dict[str, torch.Tensor]:
+    tree = _Tree(variables)
+    sd: dict[str, torch.Tensor] = {}
+    fill(tree, sd)
+    tree.check_all_used()
+    return sd
+
+
+def audio_encoder_from_jax(variables) -> dict[str, torch.Tensor]:
+    """Variables of a flax ``AudioEncoder`` -> the port's ``AudioEncoder`` state_dict."""
+    return _convert(variables, lambda tree, sd: _audio(tree, sd, "", ""))
+
+
+def visual_encoder_from_jax(variables) -> dict[str, torch.Tensor]:
+    """Variables of a flax ``VisualEncoder`` -> the port's ``VisualEncoder`` state_dict."""
+    return _convert(variables, lambda tree, sd: _visual(tree, sd, "", ""))
+
+
+def bilstm_from_jax(variables) -> dict[str, torch.Tensor]:
+    """Variables of a flax ``BiLSTM`` -> the port's ``BiLSTM`` state_dict."""
+    return _convert(variables, lambda tree, sd: _bilstm(tree, sd, "", ""))
+
+
+def fusion_from_jax(variables) -> dict[str, torch.Tensor]:
+    """Variables of a flax ``CrossAttentionFusion`` -> the port's state_dict."""
+    return _convert(variables, lambda tree, sd: _fusion(tree, sd, "", ""))
+
+
+def from_jax_variables(variables_np) -> dict[str, torch.Tensor]:
+    """Flax ``MultiSpeakerAVModel`` variables -> the port's ``MultiSpeakerAVModel``
+    state_dict (load it with ``strict=True``)."""
+    def fill(tree, sd):
+        _visual(tree, sd, "visual_encoder", "visual_encoder")
+        _audio(tree, sd, "audio_encoder", "audio_encoder")
+        _fusion(tree, sd, "fusion", "fusion")
+        _dense(tree, sd, "decoder/head", "decoder.head")
+        _dense(tree, sd, "contrastive_proj", "contrastive_proj")
+    return _convert(variables_np, fill)

@@ -1,0 +1,54 @@
+"""Two-speaker waveform mixing and per-speaker sample masks, on the device.
+
+Mirrors ``multimodal_av_model_tpu/data/mixing.py:21-24,57-90``.  Both
+utterances are summed and peak-normalised by ``max|mixed| + 1e-6``; each
+speaker's mask codes ``0`` other speaker solo, ``1`` overlap, ``2`` target
+speaker solo, ``3`` batch padding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK_OTHER_SOLO = 0
+MASK_OVERLAP = 1
+MASK_TARGET_SOLO = 2
+MASK_PAD = 3
+
+
+def mix_pair_batched_device(audio1: torch.Tensor, audio2: torch.Tensor,
+                            len1: torch.Tensor, len2: torch.Tensor):
+    """Batched mixing of pre-padded inputs.
+
+    Args:
+      audio1, audio2: ``[B, S]`` float32, zero-padded past their lengths.
+      len1, len2: ``[B]`` true sample counts.
+
+    Returns ``(mixed [B,S] f32, mask1 [B,S] int32, mask2 [B,S] int32,
+    mix_len [B] int32)``; positions past ``max(len1, len2)`` are ``MASK_PAD``.
+    """
+    audio1 = audio1.to(torch.float32)
+    audio2 = audio2.to(torch.float32)
+    len1 = len1.to(torch.int32)[:, None]
+    len2 = len2.to(torch.int32)[:, None]
+    S = audio1.shape[-1]
+    pos = torch.arange(S, dtype=torch.int32, device=audio1.device)[None, :]
+
+    in1 = pos < len1
+    in2 = pos < len2
+    zero = audio1.new_zeros(())
+    mixed = torch.where(in1, audio1, zero) + torch.where(in2, audio2, zero)
+    peak = mixed.abs().amax(dim=-1, keepdim=True) + 1e-6
+    mixed = mixed / peak
+
+    overlap = in1 & in2
+
+    def code(inside):
+        solo = torch.where(inside, MASK_TARGET_SOLO, MASK_OTHER_SOLO)
+        return torch.where(overlap, MASK_OVERLAP, solo)
+
+    mix_len = torch.maximum(len1, len2)
+    pad = pos >= mix_len
+    mask1 = torch.where(pad, MASK_PAD, code(in1)).to(torch.int32)
+    mask2 = torch.where(pad, MASK_PAD, code(in2)).to(torch.int32)
+    return mixed, mask1, mask2, mix_len[:, 0]

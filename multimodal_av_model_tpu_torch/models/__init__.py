@@ -1,0 +1,17 @@
+from .audio import AudioEncoder
+from .av_model import MultiSpeakerAVModel, downsample_mask_to, nchw_clip_to_channels_last
+from .decoder import CTCDecoder
+from .fusion import CrossAttentionFusion
+from .layers import init_weights
+from .visual import VisualEncoder
+
+__all__ = [
+    "AudioEncoder",
+    "CTCDecoder",
+    "CrossAttentionFusion",
+    "MultiSpeakerAVModel",
+    "VisualEncoder",
+    "downsample_mask_to",
+    "init_weights",
+    "nchw_clip_to_channels_last",
+]

@@ -1,0 +1,146 @@
+"""Audio encoder: log-mel frontend (kernel K1) + Conformer stack with mid-layer taps.
+
+Mirrors ``multimodal_av_model_tpu/models/audio.py:35-217``: half-step FFN,
+MHSA, GLU + depthwise-conv module, half-step FFN and a final LayerNorm per
+block; a stride-2 conv subsampler; sinusoidal positions; frame validity from
+the hop-anchor samples; the mean of the configured middle layers as a tap.
+Convolutions pad as flax ``padding="SAME"`` does, explicitly: at stride 2,
+kernel 5 and even T that is 1 on the left and 2 on the right.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import AudioEncoderConfig, AudioFrontendConfig
+from ..ops.logmel import log_mel_spectrogram_cuda
+from .layers import Dense, LayerNorm, MultiHeadAttention, _param, sinusoidal_positions
+
+
+def same_padding(n: int, kernel: int, stride: int) -> tuple[int, int]:
+    """(left, right) padding of XLA/flax ``SAME`` for a length-``n`` axis."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv1d_same(x, weight, bias, stride: int = 1, groups: int = 1):
+    """``[B, T, C_in] -> [B, T_out, C_out]`` with flax SAME padding."""
+    k = weight.shape[-1]
+    h = F.pad(x.transpose(1, 2), same_padding(x.shape[1], k, stride))
+    return F.conv1d(h, weight, bias, stride=stride, groups=groups).transpose(1, 2)
+
+
+class FeedForward(nn.Module):
+    """``audio.py:35-47`` (eval: no dropout)."""
+
+    def __init__(self, dim: int, ffn_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.norm = LayerNorm(dim, dtype)
+        self.fc1 = Dense(dim, ffn_dim, dtype=dtype)
+        self.fc2 = Dense(ffn_dim, dim, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(F.silu(self.fc1(self.norm(x))))
+
+
+class ConvModule(nn.Module):
+    """``audio.py:50-68``: LN, pointwise GLU, padded frames zeroed, depthwise
+    conv (SAME), LN, swish, pointwise."""
+
+    def __init__(self, dim: int, kernel_size: int, dtype: torch.dtype):
+        super().__init__()
+        self.norm = LayerNorm(dim, dtype)
+        self.pointwise_in = Dense(dim, 2 * dim, dtype=dtype)
+        self.depthwise_weight = _param(dim, 1, kernel_size)
+        self.depthwise_bias = _param(dim)
+        self.depthwise_norm = LayerNorm(dim, dtype)
+        self.pointwise_out = Dense(dim, dim, dtype=dtype)
+        self.dtype = dtype
+
+    def forward(self, x, valid):
+        dt = self.dtype
+        a, b = self.pointwise_in(self.norm(x)).chunk(2, dim=-1)
+        h = torch.where(valid[..., None], a * torch.sigmoid(b), 0.0)
+        h = conv1d_same(h, self.depthwise_weight.to(dt), self.depthwise_bias.to(dt),
+                        groups=h.shape[-1])
+        return self.pointwise_out(F.silu(self.depthwise_norm(h)))
+
+
+class ConformerBlock(nn.Module):
+    """``audio.py:71-103``."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int, kernel_size: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.ff1 = FeedForward(dim, ffn_dim, dtype)
+        self.attn_norm = LayerNorm(dim, dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, dtype)
+        self.conv = ConvModule(dim, kernel_size, dtype)
+        self.ff2 = FeedForward(dim, ffn_dim, dtype)
+        self.final_norm = LayerNorm(dim, dtype)
+
+    def forward(self, x, valid, attn_mask):
+        x = x + 0.5 * self.ff1(x)
+        h = self.attn_norm(x)
+        x = x + self.attn(h, h, attn_mask)
+        x = x + self.conv(x, valid)
+        x = x + 0.5 * self.ff2(x)
+        return self.final_norm(x)
+
+
+class AudioEncoder(nn.Module):
+    """Raw waveform -> ``(last [B, T_enc, output_dim], middle [B, T_enc, d_model],
+    frame_valid [B, T_enc])`` (``audio.py:106-217``, eval, no SSL masking)."""
+
+    def __init__(self, config: AudioEncoderConfig, frontend: AudioFrontendConfig,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        cfg = config
+        if cfg.middle_layers and max(cfg.middle_layers) >= cfg.num_layers:
+            raise ValueError(f"middle_layers {cfg.middle_layers} out of range for "
+                             f"num_layers={cfg.num_layers}")
+        self.config, self.frontend, self.dtype = config, frontend, dtype
+        self.subsample_weight = _param(cfg.d_model, frontend.n_mels, 5)
+        self.subsample_bias = _param(cfg.d_model)
+        self.blocks = nn.ModuleList(
+            ConformerBlock(cfg.d_model, cfg.num_heads, cfg.ffn_dim,
+                           cfg.conv_kernel_size, dtype)
+            for _ in range(cfg.num_layers))
+        self.out_proj = Dense(cfg.d_model, cfg.output_dim, dtype=dtype)
+
+    def forward(self, waveform, sample_mask=None):
+        """``waveform [B, S]`` f32; ``sample_mask [B, S]`` bool, True on valid
+        samples (None: all valid)."""
+        cfg, fe, dt = self.config, self.frontend, self.dtype
+        B, S = waveform.shape
+        # K1 on a CUDA tensor, its plain version on a CPU tensor.
+        mel = log_mel_spectrogram_cuda(
+            waveform.to(torch.float32).contiguous(), fe.sample_rate, fe.n_fft,
+            fe.hop_length, fe.win_length, fe.n_mels, fe.f_min, fe.f_max,
+            fe.log_eps, fe.center)                                  # [B, T_mel, n_mels]
+        T_mel = mel.shape[1]
+        if sample_mask is None:
+            frame_valid = torch.ones(B, T_mel, dtype=torch.bool, device=mel.device)
+        else:
+            anchors = torch.clamp(
+                torch.arange(T_mel, device=mel.device) * fe.hop_length, max=S - 1)
+            frame_valid = sample_mask.index_select(1, anchors)
+
+        f = cfg.subsample_factor
+        x = conv1d_same(mel.to(dt), self.subsample_weight.to(dt),
+                        self.subsample_bias.to(dt), stride=f)
+        x = F.silu(x)
+        T_enc = x.shape[1]
+        frame_valid = frame_valid[:, ::f][:, :T_enc]
+
+        x = x + sinusoidal_positions(T_enc, cfg.d_model, x.device).to(dt)[None]
+        attn_mask = frame_valid[:, None, None, :] & frame_valid[:, None, :, None]
+        hiddens = []
+        for block in self.blocks:
+            x = block(x, frame_valid, attn_mask)
+            hiddens.append(x)
+        middle = torch.stack([hiddens[i] for i in cfg.middle_layers]).mean(dim=0)
+        return self.out_proj(x), middle, frame_valid

@@ -1,0 +1,82 @@
+"""The flagship two-speaker audio-visual CTC model, eval forward.
+
+Mirrors ``multimodal_av_model_tpu/models/av_model.py:27-145`` with
+``shared_audio_pass=True``: both speakers run as one ``[2B]`` batch through
+the visual encoder, fusion and decoder; the mixture is encoded once, on the
+union of the two speakers' non-pad masks, and reused for both (exact in eval).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..data.mixing import MASK_PAD
+from .audio import AudioEncoder
+from .decoder import CTCDecoder
+from .fusion import CrossAttentionFusion
+from .layers import Dense
+from .visual import VisualEncoder
+
+
+def nchw_clip_to_channels_last(lips):
+    """Collate layout ``[B, T, 1, H, W]`` -> ``[B, T, H, W, 1]``."""
+    return lips.permute(0, 1, 3, 4, 2)
+
+
+def downsample_mask_to(mask, T_enc: int):
+    """Sample-rate speaker mask -> encoder frame rate, nearest, by integer
+    index math (``av_model.py:33-38``)."""
+    S = mask.shape[-1]
+    idx = torch.clamp(torch.arange(T_enc, device=mask.device) * S // T_enc, 0, S - 1)
+    return mask.index_select(-1, idx)
+
+
+class MultiSpeakerAVModel(nn.Module):
+    """Two-speaker audio-visual CTC model with contrastive feature taps."""
+
+    def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config, self.dtype = config, dtype
+        fused_out = 2 * config.fusion.fused_dim
+        self.visual_encoder = VisualEncoder(config.visual, dtype)
+        self.audio_encoder = AudioEncoder(config.audio, config.frontend, dtype)
+        self.fusion = CrossAttentionFusion(config.fusion, config.visual.output_dim,
+                                           config.audio.output_dim, dtype)
+        self.decoder = CTCDecoder(config.decoder, fused_out, dtype)
+        self.contrastive_proj = Dense(config.audio.d_model, config.contrastive.projection_dim,
+                                      dtype=torch.float32)
+
+    def forward(self, lip1, lip2, audio, mask1, mask2, lip1_len=None, lip2_len=None):
+        """Collate layouts: lips ``[B, T, 1, H, W]``, audio ``[B, S]``, masks
+        ``[B, S]``.  Returns ``log_probs{1,2} [B, T_v, V]``,
+        ``input_lengths{1,2} [B]``, ``contrast{1,2} [B, T_enc, P]`` and
+        ``mask_ds{1,2} [B, T_enc]``."""
+        B, T_v = lip1.shape[0], lip1.shape[1]
+        lips = torch.cat([nchw_clip_to_channels_last(lip1),
+                          nchw_clip_to_channels_last(lip2)], 0)
+        v = self.visual_encoder(lips)
+
+        masks = torch.cat([mask1, mask2], 0)
+        lens = None
+        if lip1_len is not None or lip2_len is not None:
+            full = torch.full((B,), T_v, dtype=torch.int32, device=lip1.device)
+            lens = torch.cat([full if lip1_len is None else lip1_len,
+                              full if lip2_len is None else lip2_len], 0)
+
+        # One audio pass on the union mask serves both speakers.
+        last_1, middle_1, _ = self.audio_encoder(
+            audio, sample_mask=(mask1 != MASK_PAD) | (mask2 != MASK_PAD))
+        last = torch.cat([last_1, last_1], 0)
+        middle = torch.cat([middle_1, middle_1], 0)
+        mask_ds = downsample_mask_to(masks, last.shape[1])
+        contrast = self.contrastive_proj(middle.to(torch.float32))
+        fused, input_lengths = self.fusion(v, last, mask_ds, visual_lengths=lens)
+        log_probs = self.decoder(fused)
+        return {
+            "log_probs1": log_probs[:B], "input_lengths1": input_lengths[:B],
+            "contrast1": contrast[:B], "mask_ds1": mask_ds[:B],
+            "log_probs2": log_probs[B:], "input_lengths2": input_lengths[B:],
+            "contrast2": contrast[B:], "mask_ds2": mask_ds[B:],
+        }

@@ -1,0 +1,101 @@
+"""Cross-attention audio-visual fusion with static-shape masked frame logic.
+
+Mirrors ``multimodal_av_model_tpu/models/fusion.py:36-141`` (BiLSTM temporal
+model).  Audio frames whose speaker mask is 0 or 3 are dropped by a stable
+argsort compaction; the kept frames are resampled to the visual length over
+the batch-max kept length ``t_in``, which stays a device tensor (no host
+sync); the mask is resampled with integer nearest-neighbour math; audio
+queries the visual stream through multi-head attention; a BiLSTM runs over the
+fused sequence.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..config import FusionConfig
+from ..data.mixing import MASK_OTHER_SOLO, MASK_PAD
+from .layers import BiLSTM, Dense, MultiHeadAttention, length_mask
+
+
+def compact_speech_frames(audio_feat, mask):
+    """Move frames with mask not in {0, 3} to the front (stable), zero the rest.
+
+    Returns ``(audio_c [B,Ta,D], mask_c [B,Ta], kept [B])``.
+    """
+    speech = (mask != MASK_OTHER_SOLO) & (mask != MASK_PAD)
+    order = torch.argsort((~speech).to(torch.int32), dim=1, stable=True)   # kept first
+    audio_c = torch.take_along_dim(audio_feat, order[..., None], dim=1)
+    mask_c = torch.take_along_dim(mask, order, dim=1)
+    kept = speech.sum(dim=1).to(torch.int32)
+    cvalid = length_mask(kept, mask.shape[1])
+    audio_c = torch.where(cvalid[..., None], audio_c, 0.0)
+    mask_c = torch.where(cvalid, mask_c, 0)
+    return audio_c, mask_c, kept
+
+
+def interp_linear_to(audio_c, t_in, T_v: int):
+    """Linear resample ``audio_c[:, :t_in] -> [:, T_v]`` with ``align_corners``;
+    ``t_in`` is a 0-d device tensor (the batch-max kept length)."""
+    t_in = torch.clamp(t_in, min=1)
+    j = torch.arange(T_v, dtype=torch.float32, device=audio_c.device)
+    scale = (t_in - 1).to(torch.float32) / max(T_v - 1, 1)
+    src = j * scale
+    lo = torch.floor(src).to(torch.int64)
+    hi = torch.minimum(lo + 1, t_in - 1)
+    frac = (src - lo).to(audio_c.dtype)
+    a_lo = audio_c.index_select(1, lo)
+    a_hi = audio_c.index_select(1, hi)
+    return a_lo + (a_hi - a_lo) * frac[None, :, None]
+
+
+def interp_nearest_mask(mask_c, t_in, T_v: int):
+    """Nearest resample of the compacted mask; integer index math is exact."""
+    t_in = torch.clamp(t_in, min=1).to(torch.int64)
+    j = torch.arange(T_v, dtype=torch.int64, device=mask_c.device)
+    idx = torch.minimum(torch.div(j * t_in, T_v, rounding_mode="floor"), t_in - 1)
+    return mask_c.index_select(1, idx)
+
+
+class CrossAttentionFusion(nn.Module):
+    """``fusion.py:78-141``: ``(fused [B, T_v, 2 fused_dim], input_lengths [B])``."""
+
+    def __init__(self, config: FusionConfig, visual_dim: int, audio_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if config.temporal_model != "bilstm":
+            raise ValueError(f"temporal model {config.temporal_model!r} is not ported; "
+                             "the port has 'bilstm'")
+        d = config.fused_dim
+        self.config, self.dtype = config, dtype
+        self.visual_proj = Dense(visual_dim, d, dtype=dtype)
+        self.audio_proj = Dense(audio_dim, d, dtype=dtype)
+        self.cross_attn_audio = MultiHeadAttention(d, config.num_heads, dtype)
+        self.fusion_proj = Dense(d, d, dtype=dtype)
+        self.temporal_bilstm = BiLSTM(d, d, config.temporal_layers, dtype)
+
+    def forward(self, visual_feat, audio_feat, mask, visual_lengths=None):
+        """Args:
+          visual_feat: ``[B, T_v, D_v]``.
+          audio_feat: ``[B, T_a, D_a]`` encoder-rate audio features.
+          mask: ``[B, T_a]`` int speaker mask at encoder rate.
+          visual_lengths: optional ``[B]``; masks padded visual keys and the
+            temporal model.
+        """
+        B, T_v, _ = visual_feat.shape
+        audio_c, mask_c, kept = compact_speech_frames(audio_feat.to(self.dtype), mask)
+        t_in = kept.max()                                          # device scalar
+        a_i = interp_linear_to(audio_c, t_in, T_v)
+        mask_i = interp_nearest_mask(mask_c, t_in, T_v)
+
+        v = self.visual_proj(visual_feat)
+        a = self.audio_proj(a_i)
+        attn_mask = None
+        if visual_lengths is not None:
+            attn_mask = length_mask(visual_lengths, T_v)[:, None, None, :]
+        a2v = self.cross_attn_audio(a, v, attn_mask)
+        fused = self.fusion_proj(a2v)
+        fused_seq = self.temporal_bilstm(fused, visual_lengths)
+        input_lengths = (mask_i != 0).sum(dim=1).to(torch.int32)
+        return fused_seq, input_lengths

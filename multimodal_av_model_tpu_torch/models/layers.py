@@ -1,0 +1,266 @@
+"""Shared building blocks: dense and norm layers, PReLU, positions, BiLSTM.
+
+Mirrors ``multimodal_av_model_tpu/models/layers.py:21-83,134-266``.  Every
+layer keeps f32 parameters and computes in its ``dtype`` (bfloat16 when
+serving), as the flax modules do: inputs and parameters are cast at use.
+Norms compute their statistics in f32.  Eps values follow flax: LayerNorm and
+GroupNorm 1e-6, BatchNorm 1e-5 (``layers.py:52-57``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _param(*shape) -> nn.Parameter:
+    # Filled by init_weights (seeded) or by load_state_dict (from_jax_variables).
+    return nn.Parameter(torch.empty(*shape))
+
+
+class Dense(nn.Module):
+    """``flax.linen.Dense``: ``y = x W^T + b`` computed in ``dtype``."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = _param(out_features, in_features)
+        self.bias = _param(out_features) if bias else None
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.Module):
+    """``flax.linen.LayerNorm`` (eps 1e-6), statistics in f32."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32, eps: float = 1e-6):
+        super().__init__()
+        self.weight = _param(dim)
+        self.bias = _param(dim)
+        self.dtype, self.eps = dtype, eps
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias, self.eps)
+        return y.to(self.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Eval-mode ``flax.linen.BatchNorm`` over dim 1 of NCHW (eps 1e-5), with
+    running statistics as buffers."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32, eps: float = 1e-5):
+        super().__init__()
+        self.weight = _param(channels)
+        self.bias = _param(channels)
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.dtype, self.eps = dtype, eps
+
+    def forward(self, x):
+        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                         self.bias, False, 0.0, self.eps)
+        return y.to(self.dtype)
+
+
+def group_size(channels: int) -> int:
+    """The adaptive group size of ``layers.py:67``."""
+    for gs in (16, 8, 4):
+        if channels % gs == 0:
+            return gs
+    return 1
+
+
+class GroupNorm(nn.Module):
+    """``layers.py:61-68`` adaptive GroupNorm over dim 1 of NCHW (eps 1e-6)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32, eps: float = 1e-6):
+        super().__init__()
+        self.weight = _param(channels)
+        self.bias = _param(channels)
+        self.groups = channels // group_size(channels)
+        self.dtype, self.eps = dtype, eps
+
+    def forward(self, x):
+        y = F.group_norm(x.float(), self.groups, self.weight, self.bias, self.eps)
+        return y.to(self.dtype)
+
+
+def make_norm(kind: str, channels: int, dtype: torch.dtype) -> nn.Module:
+    """``layers.py:48-71``: 'batch' or 'group'."""
+    if kind == "batch":
+        return BatchNorm(channels, dtype)
+    if kind == "group":
+        return GroupNorm(channels, dtype)
+    raise ValueError(f"unknown norm kind {kind!r}")
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU over dim 1 (``layers.py:21-34``, init 0.25)."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.alpha = _param(channels)
+
+    def forward(self, x):
+        alpha = self.alpha.to(x.dtype).view(1, -1, *([1] * (x.ndim - 2)))
+        return torch.clamp(x, min=0) + alpha * torch.clamp(x, max=0)
+
+
+def make_act(kind: str, channels: int) -> nn.Module:
+    """``layers.py:37-45``: 'prelu' or 'relu'."""
+    if kind == "prelu":
+        return PReLU(channels)
+    if kind == "relu":
+        return nn.ReLU()
+    raise ValueError(f"unknown activation kind {kind!r}")
+
+
+class MultiHeadAttention(nn.Module):
+    """``flax.linen.MultiHeadDotProductAttention`` in eval: q/k/v/out
+    projections, query scaled by ``1/sqrt(head_dim)``, masked logits filled
+    with ``finfo(dtype).min`` (a fully masked query row gets the mean of V,
+    as in flax), softmax, then the output projection.  Written as explicit
+    matmuls so padded rows stay finite."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.query = Dense(dim, dim, dtype=dtype)
+        self.key = Dense(dim, dim, dtype=dtype)
+        self.value = Dense(dim, dim, dtype=dtype)
+        self.out = Dense(dim, dim, dtype=dtype)
+        self.dtype = dtype
+
+    def forward(self, q_in, kv_in, mask=None):
+        """``mask`` broadcasts to ``[B, heads, Tq, Tk]``; True = attend."""
+        B, Tq, E = q_in.shape
+        H = self.num_heads
+        hd = E // H
+
+        def heads(x):
+            return x.reshape(B, -1, H, hd).transpose(1, 2)         # [B, H, T, hd]
+
+        q = heads(self.query(q_in))
+        k = heads(self.key(kv_in))
+        v = heads(self.value(kv_in))
+        q = q / math.sqrt(hd)
+        logits = q @ k.transpose(-1, -2)                           # [B, H, Tq, Tk]
+        if mask is not None:
+            logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+        weights = torch.softmax(logits, dim=-1)
+        out = (weights @ v).transpose(1, 2).reshape(B, Tq, E)
+        return self.out(out)
+
+
+def sinusoidal_positions(max_len: int, dim: int, device=None) -> torch.Tensor:
+    """Sinusoidal position table ``[max_len, dim]`` in f32 (``layers.py:74-83``)."""
+    f32 = torch.float32
+    pos = torch.arange(max_len, dtype=f32, device=device)[:, None]
+    rate = -torch.log(torch.tensor(10000.0, dtype=f32, device=device)) / dim
+    div = torch.exp(torch.arange(0, dim, 2, dtype=f32, device=device) * rate)
+    pe = torch.zeros(max_len, dim, dtype=f32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def length_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    """``[B] -> [B, T]`` boolean validity mask."""
+    return torch.arange(T, device=lengths.device)[None, :] < lengths[:, None]
+
+
+class FusedBiLSTMLayer(nn.Module):
+    """One bidirectional LSTM layer (``layers.py:182-239``).
+
+    Both directions advance in the same loop step, as one batched matmul of
+    ``[2, B, H] x [2, H, 4H]``; the input projections for all frames run before
+    the loop.  Gate order i, f, g, o with one bias on the recurrent side
+    (flax ``OptimizedLSTMCell``).  Past each length the carry freezes and the
+    output is zero.  Parameters stack the directions: index 0 forward, 1
+    backward.
+    """
+
+    def __init__(self, in_dim: int, hidden: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden = hidden
+        self.w_ih = _param(2, 4 * hidden, in_dim)
+        self.w_hh = _param(2, 4 * hidden, hidden)
+        self.b_hh = _param(2, 4 * hidden)
+        self.dtype = dtype
+
+    def forward(self, x, valid):
+        """``x [B, T, D]``, ``valid [B, T]`` bool -> ``[B, T, 2H]``."""
+        dt, H = self.dtype, self.hidden
+        B, T, _ = x.shape
+        x = x.to(dt)
+        w_ih, w_hh, b_hh = self.w_ih.to(dt), self.w_hh.to(dt), self.b_hh.to(dt)
+        zf = F.linear(x, w_ih[0]).transpose(0, 1)                  # [T, B, 4H]
+        zb = F.linear(x, w_ih[1]).transpose(0, 1).flip(0)
+        z = torch.stack([zf, zb], dim=1)                           # [T, 2, B, 4H]
+        v = valid.transpose(0, 1)                                  # [T, B]
+        keep = torch.stack([v, v.flip(0)], dim=1)[..., None]       # [T, 2, B, 1]
+        w_hh_t = w_hh.transpose(1, 2)                              # [2, H, 4H]
+        bias = b_hh[:, None, :]                                    # [2, 1, 4H]
+
+        h = x.new_zeros(2, B, H)
+        c = x.new_zeros(2, B, H)
+        ys = []
+        for t in range(T):
+            gates = z[t] + torch.baddbmm(bias, h, w_hh_t)
+            i, f, g, o = gates.chunk(4, dim=-1)
+            nc = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            nh = torch.sigmoid(o) * torch.tanh(nc)
+            k = keep[t]
+            c = torch.where(k, nc, c)
+            h = torch.where(k, nh, h)
+            ys.append(torch.where(k, nh, 0.0))
+        y = torch.stack(ys)                                        # [T, 2, B, H]
+        y = torch.cat([y[:, 0], y[:, 1].flip(0)], dim=-1)          # [T, B, 2H]
+        return y.transpose(0, 1)
+
+
+class BiLSTM(nn.Module):
+    """Stacked bidirectional LSTM ``[B, T, D] -> [B, T, 2 hidden]``
+    (``layers.py:242-266``)."""
+
+    def __init__(self, in_dim: int, hidden: int, num_layers: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dims = [in_dim] + [2 * hidden] * (num_layers - 1)
+        self.layers = nn.ModuleList(FusedBiLSTMLayer(d, hidden, dtype) for d in dims)
+
+    def forward(self, x, lengths=None):
+        B, T, _ = x.shape
+        if lengths is None:
+            valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
+        else:
+            valid = length_mask(lengths, T)
+        for layer in self.layers:
+            x = layer(x, valid)
+        return x
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fill every parameter from ``generator``: weight matrices and conv
+    kernels ``N(0, 1/fan_in)`` (flax's lecun scale), biases 0, norm scales 1,
+    PReLU slopes 0.25.  Norm running statistics keep their 0/1 defaults."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.endswith("bias") or leaf == "b_hh":
+            p.zero_()
+        elif leaf == "alpha":
+            p.fill_(0.25)
+        elif p.ndim == 1:
+            p.fill_(1.0)
+        else:
+            fan_in = p.shape[-1] if leaf in ("w_ih", "w_hh") else p[0].numel()
+            p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+    return model

@@ -1,0 +1,108 @@
+"""Visual (lipreading) encoder: time-folded conv frontend + per-frame ResNet-18.
+
+Mirrors ``multimodal_av_model_tpu/models/visual.py:27-139`` (eval).  The
+Conv3D frontend (kernel (5,7,7), temporal stride 1) is the JAX package's
+time-folded 2D convolution: the 5 temporal taps become the input channels of a
+7x7 conv over the ``B*T`` frame batch (tap k of channel c is input channel
+``k*C + c`` and reads frame ``t + k - 2``).  The flax HWIO kernel
+``[7,7,5,64]`` is this conv's OIHW ``[64,5,7,7]``.  The max-pool pads with
+-inf.  Inside, the layout is PyTorch's NCHW; the public input stays the JAX
+``[B, T, H, W, C]``.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import VisualEncoderConfig
+from .layers import Dense, _param, make_act, make_norm
+
+
+class Conv2d(nn.Module):
+    """Bias-free 2D conv with f32 weights, computed in ``dtype``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int, padding: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.weight = _param(out_ch, in_ch, kernel, kernel)
+        self.stride, self.padding, self.dtype = stride, padding, dtype
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight.to(self.dtype), None, self.stride, self.padding)
+
+
+class BasicBlock(nn.Module):
+    """ResNet BasicBlock with two activation sites (``visual.py:27-49``)."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int, norm: str, activation: str,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.conv1 = Conv2d(in_ch, out_ch, 3, stride, 1, dtype)
+        self.norm1 = make_norm(norm, out_ch, dtype)
+        self.act1 = make_act(activation, out_ch)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, 1, 1, dtype)
+        self.norm2 = make_norm(norm, out_ch, dtype)
+        self.downsample = None
+        if stride != 1 or in_ch != out_ch:
+            self.downsample = nn.Sequential(Conv2d(in_ch, out_ch, 1, stride, 0, dtype),
+                                            make_norm(norm, out_ch, dtype))
+        self.act2 = make_act(activation, out_ch)
+
+    def forward(self, x):
+        h = self.act1(self.norm1(self.conv1(x)))
+        h = self.norm2(self.conv2(h))
+        identity = x if self.downsample is None else self.downsample(x)
+        return self.act2(h + identity)
+
+
+class ResNetTrunk(nn.Module):
+    """Per-frame ResNet-18 trunk with a global mean pool (``visual.py:52-74``)."""
+
+    def __init__(self, in_ch: int, layers, channels, norm: str, activation: str,
+                 dtype: torch.dtype):
+        super().__init__()
+        blocks = []
+        for stage, (n_blocks, feats) in enumerate(zip(layers, channels)):
+            for b in range(n_blocks):
+                stride = 2 if (stage > 0 and b == 0) else 1
+                blocks.append(BasicBlock(in_ch, feats, stride, norm, activation, dtype))
+                in_ch = feats
+        self.blocks = nn.Sequential(*blocks)
+
+    def forward(self, x):
+        return self.blocks(x).mean(dim=(2, 3))
+
+
+class VisualEncoder(nn.Module):
+    """``[B, T, H, W, C] -> [B, T, output_dim]`` lip-clip encoder."""
+
+    time_taps = 5
+
+    def __init__(self, config: VisualEncoderConfig, dtype: torch.dtype = torch.float32,
+                 in_channels: int = 1):
+        super().__init__()
+        cfg = config
+        self.config, self.dtype = config, dtype
+        c0 = cfg.frontend_channels
+        self.frontend_conv = Conv2d(in_channels * self.time_taps, c0, 7, 2, 3, dtype)
+        self.frontend_norm = make_norm(cfg.norm, c0, dtype)
+        self.frontend_act = make_act(cfg.activation, c0)
+        self.trunk = ResNetTrunk(c0, cfg.resnet_layers, cfg.resnet_channels, cfg.norm,
+                                 cfg.activation, dtype)
+        self.proj = None
+        if cfg.resnet_channels[-1] != cfg.output_dim:
+            self.proj = Dense(cfg.resnet_channels[-1], cfg.output_dim, dtype=dtype)
+
+    def forward(self, lips):
+        B, T, H, W, C = lips.shape
+        K, pad = self.time_taps, self.time_taps // 2
+        x = lips.to(self.dtype).permute(0, 1, 4, 2, 3)             # [B, T, C, H, W]
+        xp = F.pad(x, (0, 0, 0, 0, 0, 0, pad, pad))                # zero frames at both ends
+        x = torch.cat([xp[:, k:k + T] for k in range(K)], dim=2)  # [B, T, K*C, H, W]
+        x = x.reshape(B * T, K * C, H, W)
+        x = self.frontend_act(self.frontend_norm(self.frontend_conv(x)))
+        x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+        x = self.trunk(x).reshape(B, T, -1)
+        return x if self.proj is None else self.proj(x)

@@ -1,0 +1,109 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  The build
+happens at first use, into ``build/kernels/`` at the repository root (listed
+in ``.gitignore``); the library's file name carries a hash of its source, so
+an edited source is rebuilt.  Nothing here runs at import time: this module is
+imported on machines that have no CUDA toolkit, where only the plain versions
+of the kernels run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+
+# Kernel name -> source file under csrc/.
+SOURCES = {
+    "logmel": "logmel.cu",
+    "lip": "lip_preprocess.cu",
+}
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: the CUDA kernels "
+                       "cannot be built")
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def _nvcc_command(name: str, lib: str) -> list[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", lib, os.path.join(CSRC_DIR, SOURCES[name])]
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named kernels (all by default) that are not built yet, one
+    ``nvcc`` process per source, all started together.  Returns each name's
+    compiler log (ptxas register and shared-memory report); raises if any
+    build fails."""
+    names = list(SOURCES) if names is None else list(names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    logs = {}
+    for name in names:
+        lib = library_path(name)
+        if os.path.isfile(lib):
+            logs[name] = "(already built)"
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"          # renamed into place when built
+        procs[name] = (lib, tmp, subprocess.Popen(
+            _nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (lib, tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"{name} (rc {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built on first use and cached per process."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            _libs[name] = lib
+        return lib
+
+
+def check_launch(lib: ctypes.CDLL, prefix: str, code: int) -> None:
+    """Raise if a launch returned a CUDA error (a refused launch never runs,
+    and a later synchronize would not report it)."""
+    if code != 0:
+        fn = getattr(lib, f"{prefix}_error_string")
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{prefix} launch failed: CUDA error {code} "
+                           f"({fn(code).decode()})")
