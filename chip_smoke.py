@@ -9,7 +9,9 @@ Phases, each printing a line; any failure exits non-zero:
    all started together;
 3. K1 (log-mel) and K2 (lip preprocess) at their serving shapes: each kernel
    against its plain PyTorch version on the same inputs, with the stated
-   tolerance, then timed with CUDA events beside its plain version, a library
+   tolerance, then timed by CUDA events around a CUDA graph of back-to-back
+   launches (the ``ms`` of the ``kernels`` JSON) and around launches issued
+   one by one (the host's rate), beside its plain version, a library
    yardstick and its bound;
 4. reference: the whole path at a small width in f32, on the card (kernels)
    and on the CPU (plain versions), log-probs compared and the decoder's ids
@@ -18,9 +20,14 @@ Phases, each printing a line; any failure exits non-zero:
    2-layer BiLSTM, vocab 800, bf16, seeded random weights): three requests of
    4 pairs at bucket 128 and one at bucket 64, each through
    ``preprocess_batch_device`` -> ``Transcriber.transcribe`` (prefix beam 5,
-   top-k 8), with launch counts read just after; then, outside the counted
-   run, one more request timed by layer with CUDA events, and one under
-   ``torch.profiler`` (its table of ops by device time is printed).
+   top-k 8), with launch counts read just after;
+6. each kernel's own device time per launch, read by ``torch.profiler``
+   (CUPTI) over launches issued one by one at the shapes of phase 3 (after
+   the timed requests, and in the process's first profiler session, which
+   catches every launch);
+7. outside the counted run, one more request timed by layer with CUDA
+   events, and one under ``torch.profiler`` (its table of ops by device time
+   is printed).
 
 The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 ``{"ok": true, "device": ...}``.  Nothing of JAX is imported.
@@ -29,6 +36,7 @@ The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -38,8 +46,11 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# Published H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, HBM3.
+# Published H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, dense
+# TF32 on the tensor cores, HBM3.  f32-accurate products on the tensor cores
+# take three TF32 passes (3xTF32), so they run at a third of the TF32 peak.
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
 
 
@@ -54,25 +65,77 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, inputs, iters: int) -> float:
-    """Mean device time of ``fn(*inputs[i % len])`` over ``iters`` launches,
-    after a warm-up, by CUDA events."""
+def cuda_ms(fn, inputs, iters: int, graph: bool = False) -> float:
+    """Mean time of ``fn(*inputs[i % len])`` over ``iters`` calls, after a
+    warm-up, by CUDA events.  Called eagerly, the calls are timed as the host
+    issues them: where the host takes longer to issue a call than the device
+    to run it, that is the host's time.  With ``graph``, the ``iters`` calls
+    are captured once in a CUDA graph and the events time its replay: the
+    device's time for the launches back to back, without the host."""
     import torch
 
     for args in inputs:
         fn(*args)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(*inputs[i % len(inputs)])
-    end.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for i in range(iters):
+                fn(*inputs[i % len(inputs)])
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def profiled_ms(fn, make_inputs, iters: int, kernel: str) -> tuple[float, int]:
+    """Mean device time of one launch of the kernel whose name holds
+    ``kernel``, read by ``torch.profiler`` (CUPTI) over ``iters`` calls of
+    ``fn(*inputs[i % len])`` issued one by one after a warm-up, with
+    ``inputs = make_inputs()`` (made here, so that nothing of it is held
+    while the requests run and count to their peak memory), and the number
+    of launches the profile caught.  Raises if it caught fewer than nine in
+    ten, or anything else on the device (a profiler session started after
+    another may miss a launch at its edge)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    inputs = make_inputs()
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    on_device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ours = [e for e in on_device if kernel in e.name]
+    if len(ours) < 0.9 * iters or len(on_device) != len(ours):
+        raise SystemExit(f"profiler: {len(ours)} launches of {kernel} and "
+                         f"{len(on_device) - len(ours)} other device events for {iters} calls")
+    return sum(e.time_range.elapsed_us() for e in ours) / len(ours) / 1e3, len(ours)
+
+
+def fft_flops(n: int) -> float:
+    """Operations of a real-input FFT of ``n`` points: half the usual
+    ``5 n log2 n`` of a complex one."""
+    return 2.5 * n * math.log2(n)
+
+
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """Least time in ms for ``flops`` at ``peak_flops`` and ``nbytes`` at the HBM
+    rate, and which of the two sets it."""
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -103,21 +166,39 @@ def k1_phase(torch, rng):
         return torch.log((spec.abs() ** 2).transpose(1, 2) @ fb + 1e-6)
 
     lib_err = (library(x) - ref).abs().max().item()
-    ms = cuda_ms(logmel.log_mel_spectrogram_cuda, [(x,)], 200)
+    ms = cuda_ms(logmel.log_mel_spectrogram_cuda, [(x,)], 200, graph=True)
+    eager_ms = cuda_ms(logmel.log_mel_spectrogram_cuda, [(x,)], 200)
     plain_ms = cuda_ms(logmel.log_mel_spectrogram, [(x,)], 50)
     lib_ms = cuda_ms(library, [(x,)], 50)
     T = got.shape[1]
-    flops = B * T * (4 * 400 * 201 + 2 * 201 * 80)
+    nnz = int(np.count_nonzero(logmel.mel_filterbank(201, 80, 16000)))
     nbytes = x.numel() * 4 + got.numel() * 4
-    b_ms, b_by = bound(flops, nbytes)
-    log(f"[k1] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.stft+matmul {lib_ms:.4f} ms "
-        f"(max|lib-plain| {lib_err:.3g}); bound {b_ms:.4f} ms by {b_by} "
-        f"({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    # The least work for the function: window, real FFT, power, the mel
+    # projection over the filterbank's nonzeros and the log, in f32.
+    least_flops = B * T * (400 + fft_flops(400) + 3 * 201 + 2 * nnz + 80)
+    b_ms, b_by = bound(least_flops, nbytes)
+    # The design bound of this kernel: the direct DFT (the algorithm of the
+    # TPU kernel) and the sparse mel step, at the 3xTF32 tensor-core rate
+    # that keeps f32 accuracy.
+    flops = B * T * (4 * 400 * 201 + 2 * nnz)
+    d_ms, d_by = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+    plan = logmel.logmel_plan(B, S)
+    log(f"[k1] kernel {ms:.4f} ms by graph replay, {eager_ms:.4f} ms per launch issued one by "
+        f"one from Python; "
+        f"plain {plain_ms:.4f} ms, torch.stft+matmul {lib_ms:.4f} ms "
+        f"(max|lib-plain| {lib_err:.3g}); bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.2f} MB; "
+        f"{least_flops / 1e9:.4f} GFLOP of real FFT + sparse mel at 67 TFLOP/s f32), "
+        f"{b_ms / ms:.3f} of it; design bound {d_ms:.4f} ms by {d_by} "
+        f"({flops / 1e9:.3f} GFLOP of direct DFT + sparse mel at the 3xTF32 tensor-core rate, "
+        f"165 TFLOP/s), {d_ms / ms:.3f} of it; achieved {flops / ms / 1e6:.1f} GFLOP/s of "
+        f"direct DFT; launch {plan['ctas']} CTAs in clusters of {logmel.CLUSTER} x "
+        f"{plan['threads']} threads, {plan['smem_bytes']} B shared memory")
     return {"name": "logmel", "route": "cuda",
             "source": "multimodal_av_model_tpu_torch/csrc/logmel.cu",
             "replaces": "multimodal_av_model_tpu/ops/pallas/logmel_kernel.py:110",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+            "bound_by": b_by, "library_ms": lib_ms}, \
+        (logmel.log_mel_spectrogram_cuda, lambda: [(x,)], 200, "logmel_kernel")
 
 
 def k2_phase(torch, rng):
@@ -150,20 +231,32 @@ def k2_phase(torch, rng):
 
     lib_err = (library(x) - ref).abs().max().item()
     args = [(f, O) for f in inputs]
-    ms = cuda_ms(resize.lip_preprocess_cuda, args, 100)
+    ms = cuda_ms(resize.lip_preprocess_cuda, args, 100, graph=True)
+    eager_ms = cuda_ms(resize.lip_preprocess_cuda, args, 100)
     plain_ms = cuda_ms(resize.lip_frames_preprocess, args, 20)
     lib_ms = cuda_ms(library, [(f,) for f in inputs], 20)
     nbytes = x.numel() + got.numel() * 4
     flops = N * O * O * (4 * C + 10)
     b_ms, b_by = bound(flops, nbytes)
-    log(f"[k2] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, mean+F.interpolate {lib_ms:.4f} ms "
+    plan = resize.lip_band_plan(H, W, C, O, O, 1)
+    log(f"[k2] kernel {ms:.4f} ms by graph replay, {eager_ms:.4f} ms per launch issued one by "
+        f"one from Python; "
+        f"plain {plain_ms:.4f} ms, mean+F.interpolate {lib_ms:.4f} ms "
         f"(max|lib-plain| {lib_err:.3g}); bound {b_ms:.4f} ms by {b_by} "
-        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+        f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP); achieved "
+        f"{nbytes / ms / 1e6:.1f} GB/s, {b_ms / ms:.3f} of the bound; launch "
+        f"{plan['n_bands'] * N} CTAs ({plan['n_bands']} bands of {plan['rows_per_band']} "
+        f"output rows x {N} frames) x 256 threads, {plan['smem_bytes']} B shared memory")
+
+    def fresh_inputs():                         # four batches again, as above
+        return [(torch.randint(0, 256, (N, H, W, C), dtype=torch.uint8, device="cuda"), O)
+                for _ in range(4)]
     return {"name": "lip_preprocess", "route": "cuda",
             "source": "multimodal_av_model_tpu_torch/csrc/lip_preprocess.cu",
             "replaces": "multimodal_av_model_tpu/ops/pallas/lip_kernel.py:48",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib_ms}
+            "bound_by": b_by, "library_ms": lib_ms}, \
+        (resize.lip_preprocess_cuda, fresh_inputs, 100, "lip_kernel")
 
 
 def make_request(rng, B: int, spec, crop: int = 128):
@@ -331,9 +424,11 @@ def serving_phase(torch, rng, tok):
         f"{4 * n_req / sum(lat):.2f} utt/s; peak device memory "
         f"{peak / 2**30:.2f} GiB; launches {launches}; first texts "
         f"{json.dumps(all_texts[0][0])[:120]}")
-    wall = layer_breakdown(torch, transcriber, serve, requests[0])
-    kernel_profile(torch, serve, requests[0], wall)
-    return launches
+
+    def profile_request():
+        wall = layer_breakdown(torch, transcriber, serve, requests[0])
+        kernel_profile(torch, serve, requests[0], wall)
+    return launches, profile_request
 
 
 def layer_breakdown(torch, transcriber, serve, raw):
@@ -429,17 +524,24 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = cuda_build.build()
     for k, text in logs.items():
-        info = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
+        info = [ln.strip()[:160] for ln in text.splitlines()
+                if "registers" in ln or "spill" in ln or "Performance Loss" in ln]
         log(f"[build] {k}: " + (" | ".join(info) or text.strip()[:200]))
     log(f"[build] {len(logs)} kernels built in {time.perf_counter() - t0:.1f} s (sm_90a)")
 
     rng = np.random.default_rng(0)
     tok = CharTokenizer(os.path.join(REPO, Config().data.vocab_path))
-    kernels = [k1_phase(torch, rng), k2_phase(torch, rng)]
+    (k1, k1_calls), (k2, k2_calls) = k1_phase(torch, rng), k2_phase(torch, rng)
     reference_phase(torch, rng)
-    launches = serving_phase(torch, rng, tok)
-    for k in kernels:
+    launches, profile_request = serving_phase(torch, rng, tok)
+    kernels = [k1, k2]
+    for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
         k["launches"] = launches[k["name"]]
+        dev_ms, caught = profiled_ms(*calls)
+        log(f"[{tag}] device time per launch by torch.profiler (CUPTI), mean of the {caught} "
+            f"of {calls[2]} launches issued one by one that it caught: {dev_ms:.4f} ms, "
+            f"{dev_ms / k['ms']:.3f} of the graph-replay {k['ms']:.4f} ms")
+    profile_request()
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

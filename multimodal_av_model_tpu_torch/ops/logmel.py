@@ -96,32 +96,163 @@ def log_mel_spectrogram(signal: torch.Tensor, sample_rate: int = 16000, n_fft: i
     return torch.log(mel + log_eps) if apply_log else mel
 
 
-@functools.lru_cache(maxsize=8)
-def _kernel_tables(n_fft: int, n_mels: int, sample_rate: int, f_min: float,
-                   f_max: float | None, device: str):
-    """Windowed cos/sin DFT bases ``[n_fft, F]`` and the filterbank ``[F, n_mels]``
-    on ``device`` (``logmel_kernel.py:47-59,155-162``, without lane padding)."""
+# Shared memory a block can use on the H100 (227 KB).
+SMEM_LIMIT = 232_448
+CLUSTER = 4        # CTAs per cluster = 16-frame m-tiles per cluster
+TILE_M = 16        # frames per m-tile; a cluster's 4 m-tiles are the 64 rows of a wgmma
+NT_CTA = 14        # 8-column n-tiles per CTA: 2 warpgroups of wgmma N = 56
+STAGE_K = 5        # k-steps (of 8) per stage of the basis pipeline (2 slots)
+MEL_WIDTH = 16     # bins per mel filter support the kernel reads
+THREADS = 256      # threads per CTA: 2 warpgroups
+# The same geometry is fixed in csrc/logmel.cu; _library checks the two agree.
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tf32_round(x: np.ndarray) -> np.ndarray:
+    """Round f32 to tf32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32`` and the K1 kernel's ``tf32_rna``; the 13
+    low bits come out zero."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def logmel_plan(B: int, S: int, n_fft: int = 400, hop_length: int = 160,
+                n_mels: int = 80, center: bool = True, sample_rate: int = 16000,
+                f_min: float = 0.0, f_max: float | None = None) -> dict:
+    """Launch plan of the K1 kernel for a ``[B, S]`` waveform.
+
+    Frames are cut into m-tiles of 16 within each row (``tiles_per_row`` per
+    row, global m-tile ``mt`` is row ``mt // tiles_per_row``); a cluster of 4
+    CTAs takes m-tiles ``4c..4c+3``, CTA ``r`` of it computes the DFT of those
+    4 m-tiles for bins ``r*bins_cta .. (r+1)*bins_cta - 1`` and stores the
+    features of m-tile ``4c + r``.
+
+    ``nt_cta`` is the CTA's count of 8-column n-tiles (4 bins each; the
+    kernel takes 14, two warpgroups of wgmma N = 56, and ``supported`` says
+    whether this n_fft gives that), ``bins`` the padded bin count,
+    ``rows_tile`` the hop rows an m-tile's waveform span takes, ``ksteps``
+    the basis's count of 8-row k-steps, zero-padded to an even number of
+    whole pipeline stages, ``mel_width`` the bins of a mel filter's support
+    as the kernel reads it, ``mel_fits`` whether that is the kernel's 16 and
+    every support lies inside the padded bins, and ``smem_bytes`` the
+    launch's dynamic shared memory: two slots of split basis tiles, the 4
+    staged spans, the ``[16, bins + 4]`` power rows and the filterbank (rows
+    of 20 floats).
+    """
+    pad = n_fft // 2 if center else 0
+    T = num_frames(S, n_fft, hop_length, center)
+    n_freqs = n_fft // 2 + 1
+    nt_cta = 2 * _cdiv(_cdiv(_cdiv(n_freqs, 4), CLUSTER), 2)
+    bins_cta = 4 * nt_cta
+    bins = CLUSTER * bins_cta
+    tiles_per_row = _cdiv(T, TILE_M)
+    n_mtiles = B * tiles_per_row
+    rows_tile = TILE_M + (n_fft - 1) // hop_length
+    hp, pm_ld = hop_length + 4, bins + 4
+    mel_lo, mel_w = mel_support(n_freqs, n_mels, sample_rate, f_min, f_max)
+    mel_width = mel_w.shape[1]
+    floats = (2 * STAGE_K * 16 * nt_cta * 8 + CLUSTER * rows_tile * hp
+              + TILE_M * pm_ld + n_mels * (MEL_WIDTH + 4) + n_mels)
+    return {"T": T, "pad": pad, "n_freqs": n_freqs, "nt_cta": nt_cta,
+            "mel_width": mel_width,
+            "mel_fits": mel_width == MEL_WIDTH and bool((mel_lo + mel_width <= bins).all()),
+            "bins_cta": bins_cta, "bins": bins, "tiles_per_row": tiles_per_row,
+            "n_mtiles": n_mtiles, "ctas": CLUSTER * _cdiv(n_mtiles, CLUSTER),
+            "threads": THREADS, "rows_tile": rows_tile, "supported": nt_cta == NT_CTA,
+            "ksteps": 2 * STAGE_K * _cdiv(n_fft // 8, 2 * STAGE_K),
+            "smem_bytes": 4 * floats}
+
+
+def logmel_cta_frames(plan: dict, cta: int):
+    """``(row, first frame, end frame)`` whose features CTA ``cta`` stores, or
+    None.  CTA ``r`` of cluster ``c`` stores m-tile ``4c + r``, which is the
+    CTA's own index (``csrc/logmel.cu`` step 5)."""
+    if cta >= plan["n_mtiles"]:
+        return None
+    b, tile = divmod(cta, plan["tiles_per_row"])
+    t0 = tile * TILE_M
+    return b, t0, min(t0 + TILE_M, plan["T"])
+
+
+def basis_tiles(mat: np.ndarray, nt_cta: int = NT_CTA) -> np.ndarray:
+    """Lay out a ``[K, N]`` f32 basis (K a multiple of 8, N of ``8 * nt_cta``)
+    in the order of the kernel's shared-memory tiles: ``[N / (8 nt_cta)
+    ranks, K/8 k-steps, nt_cta groups, 2 k-cores, 8 n, 4 k]``.  Element
+    ``mat[8 ks + 4 kc + kk, 8 nt_cta r + 8 gi + n]`` sits at ``[r, ks, gi,
+    kc, n, kk]``: each 8 x 4 core matrix is 128 contiguous bytes (the K-major
+    layout without swizzle that wgmma reads), and rank ``r``'s k-step is one
+    contiguous 3.5 KB run.  The kernel splits each value into tf32 hi and lo
+    (``tf32_round``) as it copies the run into shared memory."""
+    mat = np.asarray(mat, np.float32)
+    K, N = mat.shape
+    t = mat.reshape(K // 8, 2, 4, N // (8 * nt_cta), nt_cta, 8)   # ks, kc, kk, r, gi, n
+    return np.ascontiguousarray(t.transpose(3, 0, 4, 1, 5, 2))
+
+
+def dft_matrix(n_fft: int, bins: int, rows: int | None = None) -> np.ndarray:
+    """The kernel's windowed DFT basis before the split, ``[rows, 2*bins]``
+    f32: re and im of bin f in columns 2f, 2f+1, zero past the
+    ``n_fft // 2 + 1`` real bins and past row ``n_fft``
+    (``logmel_kernel.py:47-59,155-162``)."""
     n_freqs = n_fft // 2 + 1
     ang = 2.0 * np.pi * np.outer(np.arange(n_fft), np.arange(n_freqs)) / n_fft
     window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft))
-    wcos = (window[:, None] * np.cos(ang).astype(np.float32)).astype(np.float32)
-    wsin = (window[:, None] * -np.sin(ang).astype(np.float32)).astype(np.float32)
+    dft = np.zeros((rows or n_fft, 2 * bins), np.float32)
+    dft[:n_fft, 0:2 * n_freqs:2] = window[:, None] * np.cos(ang).astype(np.float32)
+    dft[:n_fft, 1:2 * n_freqs:2] = window[:, None] * -np.sin(ang).astype(np.float32)
+    return dft
+
+
+@functools.lru_cache(maxsize=8)
+def mel_support(n_freqs: int, n_mels: int, sample_rate: int, f_min: float = 0.0,
+                f_max: float | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """The filterbank as the kernel reads it: filter m's first bin ``lo[m]``
+    (int32) and its weights ``w[m, :]`` over the next ``width`` bins (f32,
+    zero past its support), ``width`` being the widest triangle rounded up to
+    a multiple of ``MEL_WIDTH``, the 16 bins the kernel reads."""
     fb = mel_filterbank(n_freqs, n_mels, sample_rate, f_min, f_max)
+    nz = [np.flatnonzero(fb[:, m]) for m in range(n_mels)]
+    lo = np.array([z[0] if len(z) else 0 for z in nz], np.int32)
+    widest = max(1, max(int(z[-1] - z[0] + 1) if len(z) else 0 for z in nz))
+    width = MEL_WIDTH * _cdiv(widest, MEL_WIDTH)
+    w = np.zeros((n_mels, width), np.float32)
+    for m, z in enumerate(nz):
+        if len(z):
+            w[m, :z[-1] - z[0] + 1] = fb[z[0]:z[-1] + 1, m]
+    return lo, w
+
+
+@functools.lru_cache(maxsize=8)
+def _kernel_tables(n_fft: int, n_mels: int, sample_rate: int, f_min: float,
+                   f_max: float | None, bins: int, ksteps: int, device: str):
+    """The DFT basis in tile order and the filterbank supports, on
+    ``device``."""
+    lo, w = mel_support(n_fft // 2 + 1, n_mels, sample_rate, f_min, f_max)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                 for a in (wcos, wsin, fb))
+                 for a in (basis_tiles(dft_matrix(n_fft, bins, 8 * ksteps)), lo, w))
 
 
 @functools.lru_cache(maxsize=1)
 def _library():
-    """The built kernel library and its two C functions, typed."""
+    """The built kernel library and its launch function, typed.  Raises if the
+    kernel's geometry is not the one ``logmel_plan`` lays out (the launch
+    itself refuses a shared-memory size other than its own)."""
     lib = cuda_build.load("logmel")
-    smem_bytes = lib.mmav_logmel_smem_bytes
-    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int] * 3, ctypes.c_int
+    geometry = (ctypes.c_int * 6)()
+    lib.mmav_logmel_geometry(geometry)
+    expected = (CLUSTER, TILE_M, NT_CTA, STAGE_K, MEL_WIDTH, THREADS)
+    if tuple(geometry) != expected:
+        raise RuntimeError(f"log-mel kernel: csrc/logmel.cu has geometry {tuple(geometry)}, "
+                           f"logmel_plan assumes {expected}")
     launch = lib.mmav_logmel_launch
-    launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     launch.restype = ctypes.c_int
-    return lib, smem_bytes, launch
+    return lib, launch
 
 
 def log_mel_spectrogram_cuda(signal: torch.Tensor, sample_rate: int = 16000,
@@ -149,26 +280,35 @@ def log_mel_spectrogram_cuda(signal: torch.Tensor, sample_rate: int = 16000,
         raise TypeError(f"log-mel kernel: expected float32, got {signal.dtype}")
     if signal.ndim not in (1, 2) or not signal.is_contiguous():
         raise ValueError("log-mel kernel: expected a contiguous [B, S] or [S] waveform")
+    if n_fft % 8 or hop_length % 8:
+        raise ValueError("log-mel kernel: n_fft and hop_length must be multiples of 8 "
+                         "(the wgmma k step)")
     squeeze = signal.ndim == 1
     x = signal[None] if squeeze else signal
     B, S = x.shape
-    pad = n_fft // 2 if center else 0
-    if center and S <= pad:
-        raise ValueError(f"log-mel kernel: reflect padding needs more than {pad} samples")
-    T = num_frames(S, n_fft, hop_length, center)
-    n_freqs = n_fft // 2 + 1
-    if T < 1 or n_freqs > 1024:
-        raise ValueError(f"log-mel kernel: unsupported shape S={S}, n_fft={n_fft}")
+    if center and S <= n_fft // 2:
+        raise ValueError(f"log-mel kernel: reflect padding needs more than "
+                         f"{n_fft // 2} samples")
+    plan = logmel_plan(B, S, n_fft, hop_length, n_mels, center, sample_rate, f_min, f_max)
+    if plan["T"] < 1:
+        raise ValueError(f"log-mel kernel: no frame in S={S} samples")
+    if not plan["supported"] or plan["smem_bytes"] > SMEM_LIMIT or not plan["mel_fits"]:
+        raise ValueError(f"log-mel kernel: n_fft={n_fft}, n_mels={n_mels} give "
+                         f"{plan['nt_cta']} n-tiles per CTA (the kernel takes {NT_CTA}), need "
+                         f"{plan['smem_bytes']} bytes of shared memory (at most {SMEM_LIMIT}), "
+                         f"and mel supports of {MEL_WIDTH} bins inside the padded bins: "
+                         f"{plan['mel_fits']}")
 
-    lib, smem_bytes, launch = _library()
-    if smem_bytes(n_fft, hop_length, n_freqs) > 48 * 1024:
-        raise ValueError("log-mel kernel: tile does not fit in 48 KB of shared memory")
-    wcos, wsin, fb = _kernel_tables(n_fft, n_mels, sample_rate, f_min, f_max, str(x.device))
-    out = torch.empty((B, T, n_mels), dtype=torch.float32, device=x.device)
+    lib, launch = _library()
+    basis, mel_lo, mel_w = _kernel_tables(n_fft, n_mels, sample_rate, f_min, f_max,
+                                          plan["bins"], plan["ksteps"], str(x.device))
+    out = torch.empty((B, plan["T"], n_mels), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = launch(x.data_ptr(), wcos.data_ptr(), wsin.data_ptr(), fb.data_ptr(),
-                  out.data_ptr(), B, S, T, n_fft, hop_length, n_freqs, n_mels, pad,
-                  log_eps, int(apply_log), stream)
+    code = launch(x.data_ptr(), basis.data_ptr(), mel_lo.data_ptr(), mel_w.data_ptr(),
+                  out.data_ptr(), S, plan["T"], n_fft, hop_length, plan["pad"],
+                  plan["tiles_per_row"], plan["n_mtiles"], plan["rows_tile"], n_mels,
+                  plan["ksteps"], log_eps, int(apply_log), plan["ctas"], plan["smem_bytes"],
+                  stream)
     cuda_build.check_launch(lib, "mmav_logmel", code)
     log_mel_spectrogram_cuda.launches += 1
     return out[0] if squeeze else out

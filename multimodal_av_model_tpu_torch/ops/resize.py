@@ -45,14 +45,21 @@ def resize_bilinear(images: torch.Tensor, out_h: int, out_w: int) -> torch.Tenso
     return left + (right - left) * xfrac
 
 
-def resize_matrix(out_size: int, in_size: int) -> np.ndarray:
-    """Bilinear resize as a 2-banded matrix ``[out, in]`` (cv2 INTER_LINEAR
-    weights); the plain statement of the weights the kernel lerps with."""
+def lerp_table(out_size: int, in_size: int):
+    """cv2 INTER_LINEAR source rows ``lo``, ``hi`` and weight ``frac`` (f32)
+    of each output row, computed in f64: the weights of ``resize_matrix``
+    and of the K2 kernel."""
     scale = in_size / out_size
     src = np.clip((np.arange(out_size) + 0.5) * scale - 0.5, 0, in_size - 1)
     lo = np.floor(src).astype(np.int64)
     hi = np.minimum(lo + 1, in_size - 1)
-    frac = (src - lo).astype(np.float32)
+    return lo, hi, (src - lo).astype(np.float32)
+
+
+def resize_matrix(out_size: int, in_size: int) -> np.ndarray:
+    """Bilinear resize as a 2-banded matrix ``[out, in]`` (cv2 INTER_LINEAR
+    weights); the plain statement of the weights the kernel lerps with."""
+    lo, hi, frac = lerp_table(out_size, in_size)
     m = np.zeros((out_size, in_size), np.float32)
     m[np.arange(out_size), lo] += 1.0 - frac
     m[np.arange(out_size), hi] += frac
@@ -68,13 +75,61 @@ def lip_frames_preprocess(frames: torch.Tensor, out_size: int = 96) -> torch.Ten
 
 _SUPPORTED = {torch.uint8: 1, torch.float32: 0}
 
+# Shared memory a block can use on the H100 (227 KB), and the source rows a
+# band aims to stage (32 rows of a 128-wide RGB crop are 12 KB).
+SMEM_LIMIT = 232_448
+_BAND_SOURCE_ROWS = 32
+
+
+@functools.lru_cache(maxsize=32)
+def lip_band_plan(H: int, W: int, C: int, out_h: int, out_w: int, elem_bytes: int = 1):
+    """Launch plan of the K2 kernel for ``[*, H, W, C]`` frames -> ``out_h x out_w``.
+
+    Each CTA takes one frame and one band of ``rows_per_band`` output rows and
+    stages source rows ``band_first[b]..band_last[b]`` of that frame: the rows
+    the band's lerps read (``lerp_table``, the weights of ``resize_matrix``).  Returns
+    a dict with ``rows_per_band``, ``n_bands``, ``band_first``, ``band_last``,
+    the lerp tables ``ylo``, ``yhi``, ``yfrac``, ``xlo``, ``xhi``, ``xfrac``
+    (numpy), ``stage_bytes`` (the staged rows, with 16 bytes for a ragged
+    head, rounded to 16) and ``smem_bytes`` (that plus the x table, 3 words
+    per output column, and the f32 ``[rows, out_w]`` row buffer).
+    """
+    n_bands = max(1, min(out_h, -(-H // _BAND_SOURCE_ROWS)))
+    rows_per_band = -(-out_h // n_bands)
+    n_bands = -(-out_h // rows_per_band)
+    ylo, yhi, yfrac = lerp_table(out_h, H)
+    xlo, xhi, xfrac = lerp_table(out_w, W)
+    oy0 = np.arange(n_bands) * rows_per_band
+    oy1 = np.minimum(oy0 + rows_per_band, out_h)
+    band_first = np.array([ylo[a:b].min() for a, b in zip(oy0, oy1)], np.int64)
+    band_last = np.array([yhi[a:b].max() for a, b in zip(oy0, oy1)], np.int64)
+    rows = int((band_last - band_first + 1).max())
+    stage_bytes = -(-(rows * W * C * elem_bytes + 16) // 16) * 16
+    return {"rows_per_band": rows_per_band, "n_bands": n_bands,
+            "band_first": band_first, "band_last": band_last,
+            "ylo": ylo, "yhi": yhi, "yfrac": yfrac, "xlo": xlo, "xhi": xhi, "xfrac": xfrac,
+            "stage_bytes": stage_bytes,
+            "smem_bytes": stage_bytes + 3 * out_w * 4 + rows * out_w * 4}
+
+
+@functools.lru_cache(maxsize=32)
+def _device_tables(H: int, W: int, out_h: int, out_w: int, C: int, elem_bytes: int,
+                   device: str):
+    """The plan's int32 index table and f32 weight table on ``device``, in the
+    order ``csrc/lip_preprocess.cu`` reads them."""
+    plan = lip_band_plan(H, W, C, out_h, out_w, elem_bytes)
+    idx = np.concatenate([plan[k] for k in ("ylo", "yhi", "xlo", "xhi", "band_first",
+                                            "band_last")]).astype(np.int32)
+    frac = np.concatenate([plan["yfrac"], plan["xfrac"]]).astype(np.float32)
+    return plan, torch.from_numpy(idx).to(device), torch.from_numpy(frac).to(device)
+
 
 @functools.lru_cache(maxsize=1)
 def _library():
     """The built kernel library and its launch function, typed."""
     lib = cuda_build.load("lip")
     launch = lib.mmav_lip_launch
-    launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
     launch.restype = ctypes.c_int
     return lib, launch
 
@@ -98,11 +153,17 @@ def lip_preprocess_cuda(frames: torch.Tensor, out_size: int = 96) -> torch.Tenso
     N, H, W, C = frames.shape
     if not 0 < N <= 65535 or min(H, W, C) < 1:
         raise ValueError(f"lip kernel: unsupported shape {tuple(frames.shape)}")
+    plan, idx, frac = _device_tables(H, W, out_size, out_size, C, frames.element_size(),
+                                     str(frames.device))
+    if plan["smem_bytes"] > SMEM_LIMIT:
+        raise ValueError(f"lip kernel: a band needs {plan['smem_bytes']} bytes of shared "
+                         f"memory, more than {SMEM_LIMIT}")
     out = torch.empty((N, 1, out_size, out_size), dtype=torch.float32, device=frames.device)
     lib, launch = _library()
     stream = torch.cuda.current_stream(frames.device).cuda_stream
-    code = launch(frames.data_ptr(), out.data_ptr(), N, H, W, C, out_size, out_size,
-                  _SUPPORTED[frames.dtype], stream)
+    code = launch(frames.data_ptr(), out.data_ptr(), idx.data_ptr(), frac.data_ptr(),
+                  N, H, W, C, out_size, out_size, plan["rows_per_band"], plan["n_bands"],
+                  plan["stage_bytes"], plan["smem_bytes"], _SUPPORTED[frames.dtype], stream)
     cuda_build.check_launch(lib, "mmav_lip", code)
     lip_preprocess_cuda.launches += 1
     return out
