@@ -1,6 +1,6 @@
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py      # needs one CUDA card; takes about a minute on an H100
+    python3 chip_smoke.py      # needs one CUDA card; a few minutes on an H100
 
 Phases, each printing a line; any failure exits non-zero:
 
@@ -27,10 +27,29 @@ Phases, each printing a line; any failure exits non-zero:
    catches every launch);
 7. outside the counted run, one more request timed by layer with CUDA
    events, and one under ``torch.profiler`` (its table of ops by device time
-   is printed).
+   is printed);
+8. ``[train-ref]`` (run after phase 5): one training step of a small f32
+   model (BatchNorm, no dropout, B = 2, bucket 64) from one seeded state on
+   the card (K1, K2) and on the CPU (plain versions), on the same raw batch:
+   loss, ``grad_norm``, every gradient and the BatchNorm statistics compared;
+9. ``[train]`` (after phase 8): the flagship training step at the shipped
+   defaults (bf16 compute, f32 parameters, BatchNorm, PReLU, dropout 0.1) on
+   ``bench.py``'s shapes (clips of 120 frames, labels of 20 tokens, uint8
+   128x128x3 crops at bucket 128), raw batch -> ``device_preprocessed_batches``
+   -> ``MultiSpeakerTrainer.train_step``: B = 8 without recomputation (2
+   warm-up and 10 timed steps) and B = 32 with ``visual.remat="frontend"`` (2
+   and 5), launch counts read around the timed steps, FLOPs per step by
+   ``FlopCounterMode``, utt/s as all the utterances over all the timed
+   steps' time; before each size's steps, K1 and K2 against their plain
+   versions (phase 3's bars) at the shapes that size gives them;
+10. ``[train-profile]`` (after phase 7): one B = 8 step under
+    ``torch.profiler``.
 
-The last three lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
-``{"ok": true, "device": ...}``.  Nothing of JAX is imported.
+The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5
+and the timed training steps of phase 9 (each path's own count is under
+``launches_by_path``).  The last three lines are the ``kernels`` JSON, the
+``nvidia-smi`` line and ``{"ok": true, "device": ...}``.  Nothing of JAX is
+imported.
 """
 
 from __future__ import annotations
@@ -52,6 +71,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES = 3.35e12
+# Dense bf16 on the tensor cores, the same data sheet: the `mfu` of [train].
+PEAK_BF16_FLOPS = 989e12
 
 
 def log(msg: str) -> None:
@@ -477,15 +498,15 @@ def layer_breakdown(torch, transcriber, serve, raw):
     return wall
 
 
-def kernel_profile(torch, serve, raw, plain_wall_ms: float):
-    """torch.profiler over one request: device time by op and the device's
-    busy share of the wall."""
+def device_profile(torch, tag: str, what: str, run, plain_wall_ms: float) -> None:
+    """``torch.profiler`` over one ``run()``: its table of ops by device time,
+    and the device's busy time and idle share of the wall."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(raw)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     stats = prof.key_averages()
@@ -494,10 +515,208 @@ def kernel_profile(torch, serve, raw, plain_wall_ms: float):
                if e.device_type == DeviceType.CUDA            # the table's total
                and not getattr(e, "is_user_annotation", False)) / 1e3
     table = stats.table(sort_by=key, row_limit=30, max_name_column_width=60)
-    log("[profile] ops by device time:\n" + table)
-    log(f"[profile] one bucket-128 request: device busy {busy:.2f} ms; idle share "
+    log(f"[{tag}] ops by device time:\n" + table)
+    log(f"[{tag}] {what}: device busy {busy:.2f} ms; idle share "
         f"{1 - busy / plain_wall_ms:.3f} of the {plain_wall_ms:.1f} ms unprofiled wall "
         f"({1 - busy / wall:.3f} of the {wall:.1f} ms wall under the profiler)")
+
+
+def kernel_profile(torch, serve, raw, plain_wall_ms: float):
+    """torch.profiler over one request."""
+    device_profile(torch, "profile", "one bucket-128 request", lambda: serve(raw),
+                   plain_wall_ms)
+
+
+def make_train_batch(rng, B: int, spec, crop: int = 128, frames: int = 120,
+                     label_len: int = 20, vocab: int = 800):
+    """B raw two-speaker samples with ``bench.py``'s shapes (``bench.py:24-36``):
+    clips of ``frames`` frames, ``frames * 534`` samples of speaker 1 and
+    60-100 % of that of speaker 2 (so both speakers have solo frames for the
+    contrastive loss), labels of ``label_len`` tokens below ``vocab``, uint8
+    crops; collated to ``spec``'s bucket on the host."""
+    from multimodal_av_model_tpu_torch.data.collate import collate_pairs_raw
+
+    samples = []
+    for _ in range(B):
+        s = {}
+        for k, frac in (("1", 1.0), ("2", rng.uniform(0.6, 1.0))):
+            n = int(frames * 534 * frac)
+            tt = np.arange(n) / 16000.0
+            s["lip" + k + "_raw"] = rng.integers(0, 256, size=(frames, crop, crop, 3),
+                                                 dtype=np.uint8)
+            s["audio" + k] = (0.3 * np.sin(2 * np.pi * rng.uniform(100, 300) * tt)
+                              + 0.05 * rng.standard_normal(n)).astype(np.float32)
+            s["label" + k] = rng.integers(4, vocab, size=label_len)
+        samples.append(s)
+    return collate_pairs_raw(samples, spec)
+
+
+def train_ref_phase(torch, rng, tok):
+    """One training step of a small f32 model from one seeded state: card
+    (K1, K2) vs CPU (plain versions), on the same raw batch."""
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
+
+    cfg = tiny_model_config()
+    cfg.model.audio.dropout = 0.0
+    raw = make_train_batch(rng, 2, make_bucket_specs((64,), 534, 16)[0], crop=48,
+                           frames=56, label_len=10, vocab=cfg.model.decoder.vocab_size)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        trainer = MultiSpeakerTrainer(cfg, MultiSpeakerAVModel(cfg.model), tok, device=dev)
+        state = trainer.init_state(1)
+        (batch,) = device_preprocessed_batches([raw], out_size=24, device=dev)
+        state, m = trainer.train_step(state, batch)
+        model = state.model
+        runs[dev] = ({k: v.item() for k, v in m.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     {n: b.cpu() for n, b in model.named_buffers()})
+    (m_cpu, g_cpu, s_cpu), (m_gpu, g_gpu, s_gpu) = runs["cpu"], runs["cuda"]
+    loss_rel = abs(m_gpu["loss"] - m_cpu["loss"]) / abs(m_cpu["loss"])
+    gn_rel = abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) / m_cpu["grad_norm"]
+    # Per tensor, relative to its own norm plus 1e-3 of the global norm (a
+    # gradient that is zero in exact arithmetic, as a key bias's, is noise).
+    floor = 1e-3 * m_cpu["grad_norm"]
+    g_rel, g_name = max((float((g_gpu[n] - g).norm() / (g.norm() + floor)), n)
+                        for n, g in g_cpu.items())
+    s_rel, s_name = max((float(((s_gpu[n] - b).abs() / (b.abs() + 1e-3)).max()), n)
+                        for n, b in s_cpu.items())
+    ok = loss_rel <= 1e-3 and gn_rel <= 1e-2 and g_rel <= 1e-2 and s_rel <= 1e-3
+    log(f"[train-ref] small f32 model, one step, card vs CPU: loss {m_gpu['loss']:.6f} vs "
+        f"{m_cpu['loss']:.6f} (rel {loss_rel:.3g}, <= 1e-3), grad_norm rel {gn_rel:.3g} "
+        f"(<= 1e-2), max per-tensor gradient rel {g_rel:.3g} at {g_name} (<= 1e-2, "
+        f"|dg| / (|g| + 1e-3 grad_norm)), BatchNorm statistics max rel {s_rel:.3g} at "
+        f"{s_name} (<= 1e-3) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("train-ref phase failed")
+
+
+def train_kernel_check(torch, B: int, raw) -> None:
+    """K1 and K2 on the card at the shapes a B-pair training step gives them
+    (K1 the mixture ``[B, 68352]``, K2 each speaker's ``B * 128`` crops),
+    each against its plain version with the bars of phase 3, then timed by
+    graph replay.  Called before the counted steps."""
+    from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
+    from multimodal_av_model_tpu_torch.ops import logmel, resize
+
+    (batch,) = device_preprocessed_batches([raw])
+    audio = batch["audio"].float().contiguous()     # what the audio encoder gives K1
+    got, ref = logmel.log_mel_spectrogram_cuda(audio), logmel.log_mel_spectrogram(audio)
+    k1_err = (got - ref).abs().max().item()
+    k1_ok = torch.allclose(got, ref, rtol=2e-3, atol=2e-3)
+    crops, k2_err, k2_ok = [], 0.0, True
+    for k in ("1", "2"):                            # as preprocess_batch_device reshapes them
+        c = torch.from_numpy(raw["lip" + k + "_raw"]).cuda()
+        c = c.reshape(-1, *c.shape[2:])
+        got, ref = resize.lip_preprocess_cuda(c, 96), resize.lip_frames_preprocess(c, 96)
+        k2_err = max(k2_err, (got - ref).abs().max().item())
+        k2_ok = k2_ok and torch.allclose(got, ref, rtol=1e-4, atol=1e-3)
+        crops.append(c)
+    del got, ref
+    k1_ms = cuda_ms(logmel.log_mel_spectrogram_cuda, [(audio,)], 100, graph=True)
+    k2_ms = cuda_ms(resize.lip_preprocess_cuda, [(c, 96) for c in crops], 50, graph=True)
+    ok = k1_ok and k2_ok
+    log(f"[train] B={B} kernels at the step's shapes: K1 {tuple(audio.shape)}: "
+        f"max|kernel-plain| {k1_err:.3g} (rtol=atol=2e-3), {k1_ms:.4f} ms by graph replay; "
+        f"K2 {tuple(crops[0].shape)} uint8 x 2: max|kernel-plain| {k2_err:.3g} (rtol 1e-4, "
+        f"atol 1e-3), {k2_ms:.4f} ms per launch by graph replay {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"train: a kernel disagrees with its plain version at B={B}")
+
+
+def train_phase(torch, rng, tok):
+    """The flagship training step at the shipped defaults, B = 8 and 32."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
+
+    launches = {"logmel": 0, "lip_preprocess": 0}
+    profile_step = None
+    for B, remat, n_steps in ((8, "none", 10), (32, "frontend", 5)):
+        cfg = Config()                              # the shipped flagship defaults
+        cfg.model.visual.remat = remat
+        spec = make_bucket_specs((128,), cfg.data.audio_samples_per_video_frame,
+                                 cfg.data.max_label_len)[0]
+        raw = make_train_batch(rng, B, spec)
+        train_kernel_check(torch, B, raw)
+        t0 = time.perf_counter()
+        trainer = MultiSpeakerTrainer(
+            cfg, MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)), tok)
+        state = trainer.init_state(cfg.data.seed)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        init_s = time.perf_counter() - t0
+
+        def step(trainer=trainer, state=state, raw=raw):
+            (batch,) = device_preprocessed_batches([raw])
+            return trainer.train_step(state, batch)[1]
+
+        for _ in range(2):                          # warm-up
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log_mel_spectrogram_cuda.launches = 0
+        lip_preprocess_cuda.launches = 0
+        times, metrics = [], []
+        for _ in range(n_steps):                    # the main path
+            t0 = time.perf_counter()
+            metrics.append(step())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        launches["logmel"] += k1
+        launches["lip_preprocess"] += k2
+        losses = [m["loss"].item() for m in metrics]
+        gnorms = [m["grad_norm"].item() for m in metrics]
+        with FlopCounterMode(display=False) as counter:
+            step()
+            torch.cuda.synchronize()
+        flops = counter.get_total_flops()
+        # Rates take all the work over all the time, as [serving] does: a
+        # stall in the window counts.
+        mean, med = sum(times) / n_steps, float(np.median(times))
+        log(f"[train] B={B} remat={remat}: {n_params / 1e6:.1f}M params ({cfg.model.dtype} "
+            f"compute, f32 params), init {init_s:.1f} s; {n_steps} steps in {sum(times):.3f} s: "
+            f"{B * n_steps / sum(times):.2f} utt/s (utt = one two-speaker mixture), "
+            f"{mean * 1e3:.1f} ms per step mean, {med * 1e3:.1f} median "
+            f"({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}); peak device memory "
+            f"{peak / 2**30:.2f} GiB; launches per step K1 {k1 / n_steps:g}, K2 "
+            f"{k2 / n_steps:g}; loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad_norm "
+            f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f}; {flops / 1e12:.3f} TFLOP per step "
+            f"(FlopCounterMode), mfu {flops / mean / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s "
+            f"dense bf16 at the mean step")
+        if k1 != n_steps or k2 != 2 * n_steps:
+            raise SystemExit(f"train: launches K1 {k1}, K2 {k2} over {n_steps} steps "
+                             f"(expected 1 and 2 per step)")
+        if not all(math.isfinite(x) for x in losses + gnorms):
+            raise SystemExit(f"train: non-finite losses {losses} or grad norms {gnorms}")
+        if B == 8 and not losses[-1] < losses[0]:
+            raise SystemExit(f"train: the loss did not fall over the B=8 steps: {losses}")
+        if profile_step is None:
+            profile_step = step
+        state.model.zero_grad(set_to_none=True)     # free the gradients till then
+    return launches, profile_step
+
+
+def train_profile(torch, step) -> None:
+    """One B = 8 training step timed (after one more to warm the caching
+    allocator again after the B = 32 steps), then one under
+    ``torch.profiler``."""
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    device_profile(torch, "train-profile", "one B=8 training step", step, wall)
 
 
 def main() -> int:
@@ -533,15 +752,20 @@ def main() -> int:
     tok = CharTokenizer(os.path.join(REPO, Config().data.vocab_path))
     (k1, k1_calls), (k2, k2_calls) = k1_phase(torch, rng), k2_phase(torch, rng)
     reference_phase(torch, rng)
-    launches, profile_request = serving_phase(torch, rng, tok)
+    serving_launches, profile_request = serving_phase(torch, rng, tok)
+    train_ref_phase(torch, rng, tok)
+    train_launches, train_step = train_phase(torch, rng, tok)
     kernels = [k1, k2]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
-        k["launches"] = launches[k["name"]]
+        by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]]}
+        k["launches"] = sum(by_path.values())
+        k["launches_by_path"] = by_path
         dev_ms, caught = profiled_ms(*calls)
         log(f"[{tag}] device time per launch by torch.profiler (CUPTI), mean of the {caught} "
             f"of {calls[2]} launches issued one by one that it caught: {dev_ms:.4f} ms, "
             f"{dev_ms / k['ms']:.3f} of the graph-replay {k['ms']:.4f} ms")
     profile_request()
+    train_profile(torch, train_step)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

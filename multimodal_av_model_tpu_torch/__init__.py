@@ -3,15 +3,18 @@
 The JAX package ``multimodal_av_model_tpu`` stays the reference; this package
 mirrors its layout and names, imports nothing from it, and runs on an NVIDIA
 H100.  Its two hand-written CUDA kernels (``csrc/``) replace the JAX package's
-two Pallas kernels.  The serving slice so far:
+two Pallas kernels.  The serving and training slices so far:
 
     data/       bucketed raw collation, on-device mixing + lip preprocessing (K2)
-    ops/        log-mel frontend (K1), bilinear resize (K2), CTC collapse and
-                greedy decode, prefix beam search, the kernels' nvcc build step
+    ops/        log-mel frontend (K1), bilinear resize (K2), CTC loss, collapse
+                and greedy decode, prefix beam search, the masked contrastive
+                loss, WER/CER counts, the kernels' nvcc build step
     models/     AudioEncoder, VisualEncoder, CrossAttentionFusion, CTCDecoder,
-                MultiSpeakerAVModel (eval forward)
-    compat/     flax variables -> state_dict bridge
-    text/       character tokenizer
+                MultiSpeakerAVModel (train and eval)
+    train/      MultiSpeakerTrainer (train/eval steps, epoch loop, evaluate),
+                two-group Adam, checkpoints, the finite-metrics guard
+    compat/     flax variables and TrainState -> state_dict bridge
+    text/       character tokenizer, jamo counts
     infer.py    Transcriber: batch -> per-speaker texts
 
 Entry points run on the card unless the caller passes ``device="cpu"``; the

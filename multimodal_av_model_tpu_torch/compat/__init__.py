@@ -1,5 +1,5 @@
 """Interchange with the JAX package's checkpoints."""
 
-from .from_jax import from_jax_variables
+from .from_jax import from_jax_variables, train_state_from_jax
 
-__all__ = ["from_jax_variables"]
+__all__ = ["from_jax_variables", "train_state_from_jax"]

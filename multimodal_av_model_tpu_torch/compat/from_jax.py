@@ -16,7 +16,12 @@ module is not imported):
 * both PReLU sites of each block map to ``act1`` / ``act2``.
 
 Input leaves are numpy arrays (``jax.device_get`` of the variables).  Every
-flax leaf must be consumed: an unknown or left-over key raises.
+flax leaf must be consumed: an unknown or left-over key raises.  A tree of
+``params`` alone (no ``batch_stats``) converts too, into a state dict without
+running statistics: a gradient tree or Adam moments go through the same
+(linear) bridge.  ``train_state_from_jax`` carries a whole JAX ``TrainState``
+(parameters, statistics, both Adam groups, accumulation, step) across, so a
+JAX run can resume in the port.
 """
 
 from __future__ import annotations
@@ -65,6 +70,9 @@ class _Tree:
     def has(self, *parts) -> bool:
         return _p(*parts) in self.leaves
 
+    def has_collection(self, col: str) -> bool:
+        return any(k.startswith(col + "/") for k in self.leaves)
+
     def children(self, *parts) -> list[str]:
         pre = _p(*parts) + "/"
         return sorted({k[len(pre):].split("/", 1)[0] for k in self.leaves if k.startswith(pre)})
@@ -105,8 +113,9 @@ def _norm(tree, sd, parent, index, dst):
     if tree.has("params", bn, "scale"):
         sd[_d(dst, "weight")] = _t(tree.get("params", bn, "scale"))
         sd[_d(dst, "bias")] = _t(tree.get("params", bn, "bias"))
-        sd[_d(dst, "running_mean")] = _t(tree.get("batch_stats", bn, "mean"))
-        sd[_d(dst, "running_var")] = _t(tree.get("batch_stats", bn, "var"))
+        if tree.has_collection("batch_stats"):
+            sd[_d(dst, "running_mean")] = _t(tree.get("batch_stats", bn, "mean"))
+            sd[_d(dst, "running_var")] = _t(tree.get("batch_stats", bn, "var"))
     else:
         _layer_norm(tree, sd, _p(parent, f"_AdaptiveGroupNorm_{index}", "GroupNorm_0"), dst)
 
@@ -238,3 +247,66 @@ def from_jax_variables(variables_np) -> dict[str, torch.Tensor]:
         _dense(tree, sd, "decoder/head", "decoder.head")
         _dense(tree, sd, "contrastive_proj", "contrastive_proj")
     return _convert(variables_np, fill)
+
+
+def _find_adam(tree):
+    """The ``ScaleByAdamState`` (``{count, mu, nu}``) inside one group's
+    optimizer state, or None (the frozen group's ``set_to_zero``)."""
+    if not isinstance(tree, dict):
+        return None
+    if {"count", "mu", "nu"} <= set(tree):
+        return tree
+    for v in tree.values():
+        found = _find_adam(v)
+        if found is not None:
+            return found
+    return None
+
+
+def _merge_masked(trees, params):
+    """One params-shaped tree from group trees whose leaves outside the group
+    are masked (``{}``); a leaf in no group (frozen) becomes zeros."""
+    out = {}
+    for k, p in params.items():
+        subs = [t[k] for t in trees if isinstance(t, dict) and k in t]
+        if isinstance(p, dict):
+            out[k] = _merge_masked(subs, p)
+        else:
+            leaf = next((s for s in subs if not isinstance(s, dict)), None)
+            out[k] = np.zeros_like(p) if leaf is None else leaf
+    return out
+
+
+def train_state_from_jax(state) -> dict:
+    """A JAX ``TrainState`` in state-dict form (``flax.serialization.
+    to_state_dict(jax.device_get(state))``, the tree a JAX checkpoint file
+    holds) -> the port's ``TrainState.state_dict()`` layout, without the
+    dropout generator (JAX's PRNG key has no torch counterpart).
+
+    Maps ``params`` and ``batch_stats`` to the model, each group's Adam
+    ``count``, ``mu`` and ``nu`` (the ``multi_transform`` inner states) to the
+    optimizer, an ``optax.MultiSteps`` wrapper's ``mini_step`` and
+    ``acc_grads`` to its accumulator, and ``step``."""
+    params = state["params"]
+    variables = {"params": params}
+    if state.get("batch_stats"):
+        variables["batch_stats"] = state["batch_stats"]
+    opt = state["opt_state"]
+    multi = "inner_opt_state" in opt
+    groups = (opt["inner_opt_state"] if multi else opt)["inner_states"]
+    adam = [a for a in (_find_adam(groups.get(g)) for g in ("base", "audio")) if a is not None]
+    counts = {int(np.asarray(a["count"])) for a in adam}
+    if len(counts) > 1:
+        raise ValueError(f"optimizer groups disagree on the update count: {counts}")
+    mini_step = int(np.asarray(opt["mini_step"])) if multi else 0
+    return {
+        "step": int(np.asarray(state["step"])),
+        "model": from_jax_variables(variables),
+        "optimizer": {
+            "updates": counts.pop() if counts else 0,
+            "mini_step": mini_step,
+            "mu": from_jax_variables({"params": _merge_masked([a["mu"] for a in adam], params)}),
+            "nu": from_jax_variables({"params": _merge_masked([a["nu"] for a in adam], params)}),
+            "acc": from_jax_variables({"params": opt["acc_grads"]}) if mini_step else None,
+        },
+    }

@@ -1,14 +1,17 @@
-"""Typed configuration tree of the serving slice.
+"""Typed configuration tree of the serving and training slices.
 
 Mirrors ``multimodal_av_model_tpu/config.py:18-363``, restricted to the
-fields the two-speaker serving path reads.  Every default equals the JAX
-default.  Dropped on purpose:
+fields the two-speaker serving path and the training step read.  Every
+default equals the JAX default.  Dropped on purpose:
 
 * ``frontend.use_pallas`` (``config.py:32``): the port picks the kernel or
   its plain version by the tensor's device alone;
 * ``model.shared_audio_pass`` (``config.py:171``): the port always encodes
-  the mixture once, which is exact in eval;
-* training, mesh and streaming fields, which belong to later slices.
+  the mixture once (in training both speakers share one dropout draw, as
+  the JAX default does);
+* SpecAugment, SSL, init-checkpoint, logging, async and sharded checkpoint,
+  mesh and streaming fields, and the training fields only ``fit`` and the
+  training CLI read, which belong to later slices.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ class AudioEncoderConfig:
     num_heads: int = 8
     ffn_dim: int = 2048
     conv_kernel_size: int = 15
+    dropout: float = 0.1              # FFN, conv-module and attention-weight sites
     subsample_factor: int = 2
     middle_layers: tuple[int, ...] = (6, 7, 8, 9)
     output_dim: int = 1024
@@ -56,6 +60,10 @@ class VisualEncoderConfig:
     norm: str = "batch"               # "batch" or "group"
     activation: str = "prelu"         # "prelu" or "relu"
     output_dim: int = 512
+    # Recomputation in the backward (config.py:83-92): "none", "frontend"
+    # (the frontend conv + norm + act + pool), "stage1" (also the ResNet
+    # stage-1 blocks) or "full" (the whole encoder).
+    remat: str = "none"
 
 
 @dataclass
@@ -70,7 +78,12 @@ class FusionConfig:
 
 @dataclass
 class ContrastiveConfig:
-    projection_dim: int = 128         # config.py:116
+    """Masked contrastive loss (``config.py:110-116``)."""
+
+    temperature: float = 0.07
+    weight_pos_align: float = 1.0
+    weight_neg_suppress: float = 0.3
+    projection_dim: int = 128
 
 
 @dataclass
@@ -106,18 +119,48 @@ class ModelConfig:
 
 @dataclass
 class DataConfig:
-    """Bucketing of the serving batches (``config.py:174-197``)."""
+    """Bucketing of the batches (``config.py:174-197``)."""
 
     vocab_path: str = "assets/tokenizer800.vocab"
+    sample_rate: int = 16000
     video_buckets: tuple[int, ...] = (64, 128, 256, 448)
     audio_samples_per_video_frame: int = 534
     max_label_len: int = 128
+    seed: int = 42
+
+
+@dataclass
+class TrainConfig:
+    """The fields the training step, its optimizer and ``train_epoch`` read
+    (``config.py:201-284``).  The ones only ``fit`` and the training CLI
+    read (``batch_size``, ``eval_batch_size``, ``max_epochs``,
+    ``early_stop_patience``, ``freeze_visual_trunk``, ``checkpoint_dir``,
+    ``keep_checkpoints``) come with them: until then an override of one
+    fails as an unknown field instead of changing nothing."""
+
+    learning_rate: float = 1e-4
+    audio_learning_rate: float = 2e-5
+    lambda_contrastive: float = 0.1
+    contrastive_only: bool = False    # optimise the contrastive loss alone
+    # None: the whole audio encoder trains at audio_learning_rate; a tuple
+    # freezes the audio encoder except those Conformer blocks.
+    audio_trainable_layers: tuple[int, ...] | None = None
+    lr_schedule: str = "constant"     # "constant", "warmup_cosine" or "noam"
+    warmup_steps: int = 1000
+    decay_steps: int = 50000
+    lr_min_ratio: float = 0.0
+    grad_accum_steps: int = 1         # k micro-batches averaged into one update
+    grad_clip_norm: float | None = None   # per optimizer group
+    check_finite: bool = True         # raise on non-finite metrics
+    async_dispatch: bool = True       # fold metrics on the device, sync at log points
+    log_every: int = 100
 
 
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
 
 
@@ -138,8 +181,15 @@ def _set_dotted(obj: Any, path: str, raw: str) -> None:
         value = float(raw)
     elif isinstance(current, tuple):
         value = tuple(int(x) for x in raw.strip("()").split(",") if x)
-    elif current is None:
-        value = None if raw.lower() == "none" else float(raw)
+    elif current is None:                 # as config.py:341-349
+        if raw.lower() == "none":
+            value = None
+        elif raw.lower() in ("true", "false", "yes", "no", "on", "off"):
+            value = raw.lower() in ("true", "yes", "on")
+        elif raw.startswith("("):
+            value = tuple(int(x) for x in raw.strip("()").split(",") if x)
+        else:
+            value = float(raw)
     else:
         value = raw
     setattr(obj, name, value)

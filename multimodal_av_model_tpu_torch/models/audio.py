@@ -5,7 +5,12 @@ MHSA, GLU + depthwise-conv module, half-step FFN and a final LayerNorm per
 block; a stride-2 conv subsampler; sinusoidal positions; frame validity from
 the hop-anchor samples; the mean of the configured middle layers as a tap.
 Convolutions pad as flax ``padding="SAME"`` does, explicitly: at stride 2,
-kernel 5 and even T that is 1 on the left and 2 on the right.
+kernel 5 and even T that is 1 on the left and 2 on the right.  In train mode
+(a dropout ``generator`` is given) dropout at ``config.dropout`` runs at the
+sites of ``audio.py:35-103``: twice in each FFN (after the swish and after the
+second Dense), at the conv module's output and on the attention weights.
+The log-mel frontend (K1) takes no gradient, as under ``stop_gradient``
+(``audio.py:144-153``).
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from torch import nn
 
 from ..config import AudioEncoderConfig, AudioFrontendConfig
 from ..ops.logmel import log_mel_spectrogram_cuda
-from .layers import Dense, LayerNorm, MultiHeadAttention, _param, sinusoidal_positions
+from .layers import Dense, LayerNorm, MultiHeadAttention, _param, dropout, sinusoidal_positions
 
 
 def same_padding(n: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -34,23 +39,25 @@ def conv1d_same(x, weight, bias, stride: int = 1, groups: int = 1):
 
 
 class FeedForward(nn.Module):
-    """``audio.py:35-47`` (eval: no dropout)."""
+    """``audio.py:35-47``."""
 
-    def __init__(self, dim: int, ffn_dim: int, dtype: torch.dtype):
+    def __init__(self, dim: int, ffn_dim: int, dropout_rate: float, dtype: torch.dtype):
         super().__init__()
         self.norm = LayerNorm(dim, dtype)
         self.fc1 = Dense(dim, ffn_dim, dtype=dtype)
         self.fc2 = Dense(ffn_dim, dim, dtype=dtype)
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x):
-        return self.fc2(F.silu(self.fc1(self.norm(x))))
+    def forward(self, x, generator=None):
+        h = dropout(F.silu(self.fc1(self.norm(x))), self.dropout_rate, generator)
+        return dropout(self.fc2(h), self.dropout_rate, generator)
 
 
 class ConvModule(nn.Module):
     """``audio.py:50-68``: LN, pointwise GLU, padded frames zeroed, depthwise
     conv (SAME), LN, swish, pointwise."""
 
-    def __init__(self, dim: int, kernel_size: int, dtype: torch.dtype):
+    def __init__(self, dim: int, kernel_size: int, dropout_rate: float, dtype: torch.dtype):
         super().__init__()
         self.norm = LayerNorm(dim, dtype)
         self.pointwise_in = Dense(dim, 2 * dim, dtype=dtype)
@@ -58,42 +65,43 @@ class ConvModule(nn.Module):
         self.depthwise_bias = _param(dim)
         self.depthwise_norm = LayerNorm(dim, dtype)
         self.pointwise_out = Dense(dim, dim, dtype=dtype)
-        self.dtype = dtype
+        self.dtype, self.dropout_rate = dtype, dropout_rate
 
-    def forward(self, x, valid):
+    def forward(self, x, valid, generator=None):
         dt = self.dtype
         a, b = self.pointwise_in(self.norm(x)).chunk(2, dim=-1)
         h = torch.where(valid[..., None], a * torch.sigmoid(b), 0.0)
         h = conv1d_same(h, self.depthwise_weight.to(dt), self.depthwise_bias.to(dt),
                         groups=h.shape[-1])
-        return self.pointwise_out(F.silu(self.depthwise_norm(h)))
+        h = self.pointwise_out(F.silu(self.depthwise_norm(h)))
+        return dropout(h, self.dropout_rate, generator)
 
 
 class ConformerBlock(nn.Module):
     """``audio.py:71-103``."""
 
     def __init__(self, dim: int, num_heads: int, ffn_dim: int, kernel_size: int,
-                 dtype: torch.dtype):
+                 dropout_rate: float, dtype: torch.dtype):
         super().__init__()
-        self.ff1 = FeedForward(dim, ffn_dim, dtype)
+        self.ff1 = FeedForward(dim, ffn_dim, dropout_rate, dtype)
         self.attn_norm = LayerNorm(dim, dtype)
-        self.attn = MultiHeadAttention(dim, num_heads, dtype)
-        self.conv = ConvModule(dim, kernel_size, dtype)
-        self.ff2 = FeedForward(dim, ffn_dim, dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, dtype, dropout_rate)
+        self.conv = ConvModule(dim, kernel_size, dropout_rate, dtype)
+        self.ff2 = FeedForward(dim, ffn_dim, dropout_rate, dtype)
         self.final_norm = LayerNorm(dim, dtype)
 
-    def forward(self, x, valid, attn_mask):
-        x = x + 0.5 * self.ff1(x)
+    def forward(self, x, valid, attn_mask, generator=None):
+        x = x + 0.5 * self.ff1(x, generator)
         h = self.attn_norm(x)
-        x = x + self.attn(h, h, attn_mask)
-        x = x + self.conv(x, valid)
-        x = x + 0.5 * self.ff2(x)
+        x = x + self.attn(h, h, attn_mask, generator)
+        x = x + self.conv(x, valid, generator)
+        x = x + 0.5 * self.ff2(x, generator)
         return self.final_norm(x)
 
 
 class AudioEncoder(nn.Module):
     """Raw waveform -> ``(last [B, T_enc, output_dim], middle [B, T_enc, d_model],
-    frame_valid [B, T_enc])`` (``audio.py:106-217``, eval, no SSL masking)."""
+    frame_valid [B, T_enc])`` (``audio.py:106-217``, no SSL masking or SpecAugment)."""
 
     def __init__(self, config: AudioEncoderConfig, frontend: AudioFrontendConfig,
                  dtype: torch.dtype = torch.float32):
@@ -107,20 +115,21 @@ class AudioEncoder(nn.Module):
         self.subsample_bias = _param(cfg.d_model)
         self.blocks = nn.ModuleList(
             ConformerBlock(cfg.d_model, cfg.num_heads, cfg.ffn_dim,
-                           cfg.conv_kernel_size, dtype)
+                           cfg.conv_kernel_size, cfg.dropout, dtype)
             for _ in range(cfg.num_layers))
         self.out_proj = Dense(cfg.d_model, cfg.output_dim, dtype=dtype)
 
-    def forward(self, waveform, sample_mask=None):
+    def forward(self, waveform, sample_mask=None, generator=None):
         """``waveform [B, S]`` f32; ``sample_mask [B, S]`` bool, True on valid
-        samples (None: all valid)."""
+        samples (None: all valid); ``generator``: train mode, dropout drawn
+        from it (None: eval)."""
         cfg, fe, dt = self.config, self.frontend, self.dtype
         B, S = waveform.shape
         # K1 on a CUDA tensor, its plain version on a CPU tensor.
         mel = log_mel_spectrogram_cuda(
             waveform.to(torch.float32).contiguous(), fe.sample_rate, fe.n_fft,
             fe.hop_length, fe.win_length, fe.n_mels, fe.f_min, fe.f_max,
-            fe.log_eps, fe.center)                                  # [B, T_mel, n_mels]
+            fe.log_eps, fe.center).detach()                         # [B, T_mel, n_mels]
         T_mel = mel.shape[1]
         if sample_mask is None:
             frame_valid = torch.ones(B, T_mel, dtype=torch.bool, device=mel.device)
@@ -140,7 +149,7 @@ class AudioEncoder(nn.Module):
         attn_mask = frame_valid[:, None, None, :] & frame_valid[:, None, :, None]
         hiddens = []
         for block in self.blocks:
-            x = block(x, frame_valid, attn_mask)
+            x = block(x, frame_valid, attn_mask, generator)
             hiddens.append(x)
         middle = torch.stack([hiddens[i] for i in cfg.middle_layers]).mean(dim=0)
         return self.out_proj(x), middle, frame_valid

@@ -1,9 +1,12 @@
-"""The flagship two-speaker audio-visual CTC model, eval forward.
+"""The flagship two-speaker audio-visual CTC model.
 
 Mirrors ``multimodal_av_model_tpu/models/av_model.py:27-145`` with
 ``shared_audio_pass=True``: both speakers run as one ``[2B]`` batch through
-the visual encoder, fusion and decoder; the mixture is encoded once, on the
-union of the two speakers' non-pad masks, and reused for both (exact in eval).
+the visual encoder, fusion and decoder (so train-mode BatchNorm takes its
+statistics over the joint ``2B`` batch); the mixture is encoded once, on the
+union of the two speakers' non-pad masks, and reused for both (exact in eval;
+in train mode both speakers share one dropout draw).  The fusion has no
+train-mode behaviour (its attention has no dropout, the BiLSTM none).
 """
 
 from __future__ import annotations
@@ -48,15 +51,27 @@ class MultiSpeakerAVModel(nn.Module):
         self.contrastive_proj = Dense(config.audio.d_model, config.contrastive.projection_dim,
                                       dtype=torch.float32)
 
-    def forward(self, lip1, lip2, audio, mask1, mask2, lip1_len=None, lip2_len=None):
+    def forward(self, lip1, lip2, audio, mask1, mask2, lip1_len=None, lip2_len=None,
+                train: bool = False, stop_visual_grad: bool = False, generator=None):
         """Collate layouts: lips ``[B, T, 1, H, W]``, audio ``[B, S]``, masks
         ``[B, S]``.  Returns ``log_probs{1,2} [B, T_v, V]``,
         ``input_lengths{1,2} [B]``, ``contrast{1,2} [B, T_enc, P]`` and
-        ``mask_ds{1,2} [B, T_enc]``."""
+        ``mask_ds{1,2} [B, T_enc]``.
+
+        ``train``: batch statistics in the BatchNorms (their running
+        statistics update) and dropout in the audio encoder, drawn from
+        ``generator`` (a ``torch.Generator`` on the inputs' device).
+        ``stop_visual_grad``: the visual encoder runs without autograd (its
+        parameters get no gradient; in train mode its running statistics
+        still update, as flax's ``mutable=["batch_stats"]`` does).
+        """
+        if train and generator is None and self.config.audio.dropout > 0:
+            raise ValueError("train mode with audio dropout needs a dropout generator")
         B, T_v = lip1.shape[0], lip1.shape[1]
         lips = torch.cat([nchw_clip_to_channels_last(lip1),
                           nchw_clip_to_channels_last(lip2)], 0)
-        v = self.visual_encoder(lips)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_visual_grad):
+            v = self.visual_encoder(lips, train)
 
         masks = torch.cat([mask1, mask2], 0)
         lens = None
@@ -67,7 +82,8 @@ class MultiSpeakerAVModel(nn.Module):
 
         # One audio pass on the union mask serves both speakers.
         last_1, middle_1, _ = self.audio_encoder(
-            audio, sample_mask=(mask1 != MASK_PAD) | (mask2 != MASK_PAD))
+            audio, sample_mask=(mask1 != MASK_PAD) | (mask2 != MASK_PAD),
+            generator=generator if train else None)
         last = torch.cat([last_1, last_1], 0)
         middle = torch.cat([middle_1, middle_1], 0)
         mask_ds = downsample_mask_to(masks, last.shape[1])

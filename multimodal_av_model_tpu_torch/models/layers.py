@@ -1,18 +1,21 @@
-"""Shared building blocks: dense and norm layers, PReLU, positions, BiLSTM.
+"""Shared building blocks: dense and norm layers, PReLU, dropout, positions, BiLSTM.
 
 Mirrors ``multimodal_av_model_tpu/models/layers.py:21-83,134-266``.  Every
 layer keeps f32 parameters and computes in its ``dtype`` (bfloat16 when
 serving), as the flax modules do: inputs and parameters are cast at use.
 Norms compute their statistics in f32.  Eps values follow flax: LayerNorm and
-GroupNorm 1e-6, BatchNorm 1e-5 (``layers.py:52-57``).
+GroupNorm 1e-6, BatchNorm 1e-5 (``layers.py:52-57``).  Dropout draws from an
+explicit ``torch.Generator`` on the tensor's device, never the global RNG.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -52,8 +55,17 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode ``flax.linen.BatchNorm`` over dim 1 of NCHW (eps 1e-5), with
-    running statistics as buffers."""
+    """``flax.linen.BatchNorm`` over dim 1 of NCHW (momentum 0.9, eps 1e-5),
+    with running statistics as buffers (``layers.py:48-57``).
+
+    Eval normalises with the running statistics.  Train normalises with the
+    batch statistics over N, H, W in f32 (the biased variance) and updates
+    the buffers as flax does, ``0.9 old + 0.1 batch`` with the *biased*
+    batch variance, unless ``update_stats`` is off (the recompute of a
+    checkpointed region, see ``remat``).
+    """
+
+    momentum = 0.9
 
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32, eps: float = 1e-5):
         super().__init__()
@@ -62,10 +74,26 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self.dtype, self.eps = dtype, eps
+        self.update_stats = True
 
-    def forward(self, x):
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                         self.bias, False, 0.0, self.eps)
+    def forward(self, x, train: bool = False):
+        # The f32 copy of x is an unnamed temporary: held by a local, it would
+        # stay alive beside y and its cast (one more activation at the peak).
+        if not train:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, self.eps)
+            return y.to(self.dtype)
+        # At momentum 1 the fused op writes the batch mean and the unbiased
+        # batch variance into these buffers, computed once with the output.
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x.float(), mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        if self.update_stats:
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+                self.running_var.mul_(m).add_(var, alpha=(1 - m) * (n - 1) / n)
         return y.to(self.dtype)
 
 
@@ -87,7 +115,8 @@ class GroupNorm(nn.Module):
         self.groups = channels // group_size(channels)
         self.dtype, self.eps = dtype, eps
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        """Stateless: the same in train and eval."""
         y = F.group_norm(x.float(), self.groups, self.weight, self.bias, self.eps)
         return y.to(self.dtype)
 
@@ -101,8 +130,37 @@ def make_norm(kind: str, channels: int, dtype: torch.dtype) -> nn.Module:
     raise ValueError(f"unknown norm kind {kind!r}")
 
 
+@contextlib.contextmanager
+def running_stats_frozen(modules):
+    """Within the block, the ``BatchNorm``s inside ``modules`` leave their
+    running statistics alone."""
+    norms = [m for mod in modules for m in mod.modules() if isinstance(m, BatchNorm)]
+    before = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, b in zip(norms, before):
+            m.update_stats = b
+
+
+def remat(fn, modules, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward instead of kept.  The recompute leaves the
+    running statistics of the ``BatchNorm``s in ``modules`` alone, so they
+    update once per forward, as under flax's ``nn.checkpoint``."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), running_stats_frozen(modules)))
+
+
 class PReLU(nn.Module):
-    """Per-channel PReLU over dim 1 (``layers.py:21-34``, init 0.25)."""
+    """Per-channel PReLU over dim 1 (``layers.py:21-34``, init 0.25).
+
+    Written with ``maximum``/``minimum`` against zero, as the JAX module is:
+    at x = 0 both split the gradient evenly, so the input gradient there is
+    ``(1 + alpha) / 2``, as in JAX (``clamp`` would give ``1 + alpha``)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -110,7 +168,8 @@ class PReLU(nn.Module):
 
     def forward(self, x):
         alpha = self.alpha.to(x.dtype).view(1, -1, *([1] * (x.ndim - 2)))
-        return torch.clamp(x, min=0) + alpha * torch.clamp(x, max=0)
+        zero = x.new_zeros(())
+        return torch.maximum(x, zero) + alpha * torch.minimum(x, zero)
 
 
 def make_act(kind: str, channels: int) -> nn.Module:
@@ -122,24 +181,43 @@ def make_act(kind: str, channels: int) -> nn.Module:
     raise ValueError(f"unknown activation kind {kind!r}")
 
 
-class MultiHeadAttention(nn.Module):
-    """``flax.linen.MultiHeadDotProductAttention`` in eval: q/k/v/out
-    projections, query scaled by ``1/sqrt(head_dim)``, masked logits filled
-    with ``finfo(dtype).min`` (a fully masked query row gets the mean of V,
-    as in flax), softmax, then the output projection.  Written as explicit
-    matmuls so padded rows stay finite."""
+def dropout(x, rate: float, generator: torch.Generator | None, shape=None):
+    """``flax.linen.Dropout``.  Eval (``generator`` None) or rate 0: ``x``.
+    Train: keep each element with probability ``1 - rate`` and scale it by
+    ``1 / (1 - rate)``.  The keep mask has ``shape`` (default ``x.shape``; a
+    shape that broadcasts to it shares one draw across the broadcast axes)
+    and is drawn from ``generator``, which lives on ``x``'s device."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    shape = x.shape if shape is None else shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype):
+
+class MultiHeadAttention(nn.Module):
+    """``flax.linen.MultiHeadDotProductAttention``: q/k/v/out projections,
+    query scaled by ``1/sqrt(head_dim)``, masked logits filled with
+    ``finfo(dtype).min`` (a fully masked query row gets the mean of V, as in
+    flax), softmax, then the output projection.  Written as explicit matmuls
+    so padded rows stay finite.  In train mode the attention weights take
+    dropout at ``dropout_rate`` with one ``[Tq, Tk]`` mask shared by every
+    batch row and head (flax's default ``broadcast_dropout=True``)."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.query = Dense(dim, dim, dtype=dtype)
         self.key = Dense(dim, dim, dtype=dtype)
         self.value = Dense(dim, dim, dtype=dtype)
         self.out = Dense(dim, dim, dtype=dtype)
-        self.dtype = dtype
+        self.dtype, self.dropout_rate = dtype, dropout_rate
 
-    def forward(self, q_in, kv_in, mask=None):
-        """``mask`` broadcasts to ``[B, heads, Tq, Tk]``; True = attend."""
+    def forward(self, q_in, kv_in, mask=None, generator=None):
+        """``mask`` broadcasts to ``[B, heads, Tq, Tk]``; True = attend.
+        ``generator``: train mode (dropout drawn from it); None: eval."""
         B, Tq, E = q_in.shape
         H = self.num_heads
         hd = E // H
@@ -154,7 +232,8 @@ class MultiHeadAttention(nn.Module):
         logits = q @ k.transpose(-1, -2)                           # [B, H, Tq, Tk]
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
-        weights = torch.softmax(logits, dim=-1)
+        weights = dropout(torch.softmax(logits, dim=-1), self.dropout_rate, generator,
+                          (1, 1) + tuple(logits.shape[-2:]))
         out = (weights @ v).transpose(1, 2).reshape(B, Tq, E)
         return self.out(out)
 
@@ -249,9 +328,10 @@ class BiLSTM(nn.Module):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill every parameter from ``generator``: weight matrices and conv
-    kernels ``N(0, 1/fan_in)`` (flax's lecun scale), biases 0, norm scales 1,
-    PReLU slopes 0.25.  Norm running statistics keep their 0/1 defaults."""
+    """Fill every parameter from ``generator`` (a CPU generator; the draws
+    are copied to each parameter's device): weight matrices and conv kernels
+    ``N(0, 1/fan_in)`` (flax's lecun scale), biases 0, norm scales 1, PReLU
+    slopes 0.25.  Norm running statistics are reset to 0/1."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf.endswith("bias") or leaf == "b_hh":
@@ -262,5 +342,10 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             p.fill_(1.0)
         else:
             fan_in = p.shape[-1] if leaf in ("w_ih", "w_hh") else p[0].numel()
-            p.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+            p.copy_(torch.empty(p.shape).normal_(0.0, 1.0 / math.sqrt(fan_in),
+                                                 generator=generator))
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
     return model

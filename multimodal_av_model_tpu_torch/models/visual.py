@@ -1,13 +1,16 @@
 """Visual (lipreading) encoder: time-folded conv frontend + per-frame ResNet-18.
 
-Mirrors ``multimodal_av_model_tpu/models/visual.py:27-139`` (eval).  The
+Mirrors ``multimodal_av_model_tpu/models/visual.py:27-139``.  The
 Conv3D frontend (kernel (5,7,7), temporal stride 1) is the JAX package's
 time-folded 2D convolution: the 5 temporal taps become the input channels of a
 7x7 conv over the ``B*T`` frame batch (tap k of channel c is input channel
 ``k*C + c`` and reads frame ``t + k - 2``).  The flax HWIO kernel
 ``[7,7,5,64]`` is this conv's OIHW ``[64,5,7,7]``.  The max-pool pads with
 -inf.  Inside, the layout is PyTorch's NCHW; the public input stays the JAX
-``[B, T, H, W, C]``.
+``[B, T, H, W, C]``.  ``train`` selects batch statistics in the BatchNorms
+(and updates their running statistics); ``config.remat`` recomputes part of
+the encoder in the backward (``visual.py:60-73,123-130``,
+``av_model.py:49-62``), the running statistics still updating once.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import VisualEncoderConfig
-from .layers import Dense, _param, make_act, make_norm
+from .layers import Dense, _param, make_act, make_norm, remat
+
+REMAT_MODES = ("none", "frontend", "stage1", "full")
 
 
 class Conv2d(nn.Module):
@@ -50,10 +55,13 @@ class BasicBlock(nn.Module):
                                             make_norm(norm, out_ch, dtype))
         self.act2 = make_act(activation, out_ch)
 
-    def forward(self, x):
-        h = self.act1(self.norm1(self.conv1(x)))
-        h = self.norm2(self.conv2(h))
-        identity = x if self.downsample is None else self.downsample(x)
+    def forward(self, x, train: bool = False):
+        h = self.act1(self.norm1(self.conv1(x), train))
+        h = self.norm2(self.conv2(h), train)
+        identity = x
+        if self.downsample is not None:
+            conv, norm = self.downsample
+            identity = norm(conv(x), train)
         return self.act2(h + identity)
 
 
@@ -69,10 +77,16 @@ class ResNetTrunk(nn.Module):
                 stride = 2 if (stage > 0 and b == 0) else 1
                 blocks.append(BasicBlock(in_ch, feats, stride, norm, activation, dtype))
                 in_ch = feats
-        self.blocks = nn.Sequential(*blocks)
+        self.blocks = nn.ModuleList(blocks)
+        self.stage1_blocks = layers[0]
 
-    def forward(self, x):
-        return self.blocks(x).mean(dim=(2, 3))
+    def forward(self, x, train: bool = False, remat_stage1: bool = False):
+        for i, block in enumerate(self.blocks):
+            if remat_stage1 and i < self.stage1_blocks:
+                x = remat(block, [block], x, train)
+            else:
+                x = block(x, train)
+        return x.mean(dim=(2, 3))
 
 
 class VisualEncoder(nn.Module):
@@ -84,6 +98,8 @@ class VisualEncoder(nn.Module):
                  in_channels: int = 1):
         super().__init__()
         cfg = config
+        if cfg.remat not in REMAT_MODES:
+            raise ValueError(f"unknown visual.remat {cfg.remat!r}")
         self.config, self.dtype = config, dtype
         c0 = cfg.frontend_channels
         self.frontend_conv = Conv2d(in_channels * self.time_taps, c0, 7, 2, 3, dtype)
@@ -95,14 +111,26 @@ class VisualEncoder(nn.Module):
         if cfg.resnet_channels[-1] != cfg.output_dim:
             self.proj = Dense(cfg.resnet_channels[-1], cfg.output_dim, dtype=dtype)
 
-    def forward(self, lips):
+    def forward(self, lips, train: bool = False):
+        mode = self.config.remat if torch.is_grad_enabled() else "none"
+        if mode == "full":
+            return remat(self._forward, [self], lips, train, "none")
+        return self._forward(lips, train, mode)
+
+    def _frontend(self, x, train: bool):
+        x = self.frontend_act(self.frontend_norm(self.frontend_conv(x), train))
+        return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
+
+    def _forward(self, lips, train: bool, mode: str):
         B, T, H, W, C = lips.shape
         K, pad = self.time_taps, self.time_taps // 2
         x = lips.to(self.dtype).permute(0, 1, 4, 2, 3)             # [B, T, C, H, W]
         xp = F.pad(x, (0, 0, 0, 0, 0, 0, pad, pad))                # zero frames at both ends
         x = torch.cat([xp[:, k:k + T] for k in range(K)], dim=2)  # [B, T, K*C, H, W]
         x = x.reshape(B * T, K * C, H, W)
-        x = self.frontend_act(self.frontend_norm(self.frontend_conv(x)))
-        x = F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
-        x = self.trunk(x).reshape(B, T, -1)
+        if mode in ("frontend", "stage1"):
+            x = remat(self._frontend, [self.frontend_norm], x, train)
+        else:
+            x = self._frontend(x, train)
+        x = self.trunk(x, train, remat_stage1=(mode == "stage1")).reshape(B, T, -1)
         return x if self.proj is None else self.proj(x)

@@ -1,2 +1,3 @@
 """Compute primitives: the log-mel (K1) and lip-preprocess (K2) kernels with
-their plain versions, CTC collapse/greedy decode and prefix beam search."""
+their plain versions, the CTC loss, collapse and greedy decode, prefix beam
+search, the masked contrastive loss and the error-rate counts."""

@@ -1,12 +1,43 @@
-"""CTC collapse and greedy decoding on the device.
+"""CTC loss, collapse and greedy decoding on the device.
 
-Mirrors ``multimodal_av_model_tpu/ops/ctc.py:140-185``.  The CTC loss belongs
-to the training slice and is not ported yet.
+Mirrors ``multimodal_av_model_tpu/ops/ctc.py:39-130,140-185``.  The JAX loss
+is a ``lax.scan`` forward recursion, not a Pallas kernel; here it is ATen's
+``F.ctc_loss`` (its native kernel: cuDNN's takes blank 0 only).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch.Tensor,
+             label_lengths: torch.Tensor, blank_id: int = 0, reduction: str = "mean",
+             zero_infinity: bool = True) -> torch.Tensor:
+    """CTC negative log-likelihood with the JAX function's semantics.
+
+    ``log_probs [B, T, V]`` log-softmaxed scores (computed in f32),
+    ``labels [B, L]`` padded arbitrarily past ``label_lengths [B]``,
+    ``input_lengths [B]``.  ``zero_infinity``: an impossible alignment gives
+    0.  ``reduction``: "none" (per sample), "sum", or "mean" (per-sample loss
+    over its label length, at least 1, then the batch mean).
+
+    The value and the gradient with respect to the logits before a
+    ``log_softmax`` are JAX's; the gradient with respect to ``log_probs``
+    itself is not (ATen returns ``exp(log_probs) - posterior``, which is the
+    true gradient only through a ``log_softmax``).  The CUDA backward adds
+    with atomics, so repeats may differ in the last bits.
+    """
+    per = F.ctc_loss(log_probs.float().transpose(0, 1), labels.long(), input_lengths.long(),
+                     label_lengths.long(), blank=blank_id, reduction="none",
+                     zero_infinity=zero_infinity)
+    if reduction == "none":
+        return per
+    if reduction == "sum":
+        return per.sum()
+    if reduction == "mean":
+        return (per / label_lengths.clamp(min=1).float()).mean()
+    raise ValueError(f"unknown reduction {reduction!r}")
 
 
 def ctc_collapse(ids: torch.Tensor, lengths: torch.Tensor, blank_id: int, pad_id: int = -1):

@@ -1,0 +1,55 @@
+"""Word and character error-rate counts, in pure Python.
+
+Own copy of ``multimodal_av_model_tpu/ops/metrics.py:16-86``
+(``levenshtein_py``, the additive corpus counts and ``rate_from_counts``);
+the JAX package's native edit-distance kernel is not used.  A corpus rate is
+the total edit distance over the total reference length, so counts from
+several batches sum before the division.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+
+def levenshtein_py(a: Sequence, b: Sequence) -> int:
+    """Edit distance (O(len(a) * len(b)), two rows)."""
+    if len(a) < len(b):
+        a, b = b, a
+    if not b:
+        return len(a)
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i] + [0] * len(b)
+        for j, cb in enumerate(b, 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (ca != cb))
+        prev = cur
+    return prev[-1]
+
+
+def corpus_counts(ref_seqs: list, hyp_seqs: list) -> tuple[int, int]:
+    """(total edit distance, total reference length)."""
+    return (sum(levenshtein_py(r, h) for r, h in zip(ref_seqs, hyp_seqs)),
+            sum(len(r) for r in ref_seqs))
+
+
+def rate_from_counts(total_dist: float, total_len: float) -> float:
+    if total_len == 0:
+        return 0.0 if total_dist == 0 else float("inf")
+    return total_dist / total_len
+
+
+def wer_counts(references: Sequence[str], hypotheses: Sequence[str]) -> tuple[int, int]:
+    """Word-level counts over whitespace-split words."""
+    return corpus_counts([r.split() for r in references], [h.split() for h in hypotheses])
+
+
+def cer_counts(references: Sequence[str], hypotheses: Sequence[str],
+               remove_spaces: bool = False) -> tuple[int, int]:
+    """Character-level counts; whitespace runs collapse to one space."""
+    def norm(s: str) -> str:
+        s = " ".join(s.split())
+        return s.replace(" ", "") if remove_spaces else s
+
+    return corpus_counts([list(norm(r)) for r in references],
+                         [list(norm(h)) for h in hypotheses])

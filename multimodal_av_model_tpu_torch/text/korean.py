@@ -1,0 +1,47 @@
+"""Jamo-level error counts for Korean text.
+
+Own copy of ``multimodal_av_model_tpu/text/korean.py:36-92``: each Hangul
+syllable decomposes into its choseong, jungseong and (if any) jongseong, so a
+wrong vowel costs a third of a syllable rather than a whole character.
+"""
+
+from __future__ import annotations
+
+from ..ops.metrics import corpus_counts
+
+_HANGUL_START = 0xAC00
+_HANGUL_END = 0xD7A3  # inclusive
+_N_JUNG, _N_JONG = 21, 28
+
+_CHOSEONG = ["ㄱ", "ㄲ", "ㄴ", "ㄷ", "ㄸ", "ㄹ", "ㅁ", "ㅂ", "ㅃ", "ㅅ",
+             "ㅆ", "ㅇ", "ㅈ", "ㅉ", "ㅊ", "ㅋ", "ㅌ", "ㅍ", "ㅎ"]
+_JUNGSEONG = ["ㅏ", "ㅐ", "ㅑ", "ㅒ", "ㅓ", "ㅔ", "ㅕ", "ㅖ", "ㅗ", "ㅘ",
+              "ㅙ", "ㅚ", "ㅛ", "ㅜ", "ㅝ", "ㅞ", "ㅟ", "ㅠ", "ㅡ", "ㅢ", "ㅣ"]
+_JONGSEONG = ["", "ㄱ", "ㄲ", "ㄳ", "ㄴ", "ㄵ", "ㄶ", "ㄷ", "ㄹ", "ㄺ",
+              "ㄻ", "ㄼ", "ㄽ", "ㄾ", "ㄿ", "ㅀ", "ㅁ", "ㅂ", "ㅄ", "ㅅ",
+              "ㅆ", "ㅇ", "ㅈ", "ㅊ", "ㅋ", "ㅌ", "ㅍ", "ㅎ"]
+
+
+def syllable_to_jamo(ch: str) -> list[str]:
+    """One Hangul syllable -> its jamo; other characters pass through."""
+    if not _HANGUL_START <= ord(ch) <= _HANGUL_END:
+        return [ch]
+    cho, rem = divmod(ord(ch) - _HANGUL_START, _N_JUNG * _N_JONG)
+    jung, jong = divmod(rem, _N_JONG)
+    out = [_CHOSEONG[cho], _JUNGSEONG[jung]]
+    if jong:
+        out.append(_JONGSEONG[jong])
+    return out
+
+
+def text_to_jamo(text: str) -> list[str]:
+    return [j for ch in text for j in syllable_to_jamo(ch)]
+
+
+def jamo_counts(references, hypotheses) -> tuple[int, int]:
+    """(edit distance, reference length) at the jamo level, whitespace runs
+    collapsed to one space."""
+    if isinstance(references, str):
+        references, hypotheses = [references], [hypotheses]
+    return corpus_counts([text_to_jamo(" ".join(r.split())) for r in references],
+                         [text_to_jamo(" ".join(h.split())) for h in hypotheses])

@@ -1,0 +1,410 @@
+"""Training runtime of the flagship two-speaker model.
+
+Mirrors ``multimodal_av_model_tpu/train/trainer.py:44-493`` (``fit`` is not
+ported yet):
+
+* total loss ``(ctc1 + ctc2) / 2 + lambda_contrastive * (contrast1 +
+  contrast2) / 2``, each CTC term per sample over its label length, flush
+  rows (``valid`` 0) weighted out;
+* Adam in two groups, ``learning_rate`` and ``audio_learning_rate`` for the
+  audio encoder (``trainer.py:52-84,141-161``).  Frozen parameters are left
+  out of the optimizer but keep their gradient, which the ``grad_norm``
+  metric counts as optax's ``global_norm(grads)`` does (``trainer.py:303``);
+  only the visual encoder under ``stop_visual_grad`` takes none;
+* optax's placement inside each group: clipping by that group's norm, the
+  learning-rate schedule read at the update count before it is incremented,
+  and gradient accumulation as ``optax.MultiSteps`` (a running mean over k
+  micro-batches, the schedule advancing once per update);
+* bf16 compute with f32 parameters needs no loss scaling (bf16 has f32's
+  exponent range).
+
+The trainer runs on the card unless built with ``device="cpu"``.  Its state
+lives in a ``TrainState``; ``train_step(state, batch)`` updates it in place
+and returns it with the step's metrics as device tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Iterable
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..infer import decode_ids, load_fusion_lm
+from ..models.av_model import MultiSpeakerAVModel
+from ..models.layers import init_weights
+from ..ops.contrastive import contrastive_loss_with_mask
+from ..ops.ctc import ctc_greedy_decode, ctc_loss
+from ..ops.metrics import cer_counts, rate_from_counts, wer_counts
+from ..text.korean import jamo_counts
+from .logging_utils import StepTimer
+from .profiling import NonFiniteLossError, check_finite
+
+GROUPS = ("base", "audio")
+METRIC_KEYS = ("loss", "ctc1", "ctc2", "contrast1", "contrast2", "grad_norm")
+
+
+def label_params(names: Iterable[str], frozen_prefixes: tuple[str, ...] = (),
+                 audio_trainable_layers: tuple[int, ...] | None = None) -> dict[str, str]:
+    """Parameter name -> "base", "audio" (the audio encoder) or "frozen"
+    (``trainer.py:52-84``).  Names and prefixes are the port's dotted
+    parameter names.  With ``audio_trainable_layers`` only those Conformer
+    blocks of the audio encoder stay "audio"; the rest of it is frozen."""
+    trainable = (None if audio_trainable_layers is None
+                 else tuple(f"audio_encoder.blocks.{i}." for i in audio_trainable_layers))
+    labels = {}
+    for name in names:
+        if any(name.startswith(p) for p in frozen_prefixes):
+            labels[name] = "frozen"
+        elif name.startswith("audio_encoder."):
+            labels[name] = "audio" if trainable is None or name.startswith(trainable) else "frozen"
+        else:
+            labels[name] = "base"
+    return labels
+
+
+def make_lr_schedule(tcfg, base_lr: float) -> Callable[[int], float]:
+    """The group's learning rate as a function of its update count
+    (``trainer.py:87-110``, optax's schedules written out)."""
+    if tcfg.lr_schedule == "constant":
+        return lambda count: base_lr
+    warm = max(tcfg.warmup_steps, 1)
+    if tcfg.lr_schedule == "warmup_cosine":
+        # optax.warmup_cosine_decay_schedule: linear 0 -> peak over `warm`
+        # updates, then cosine decay to lr_min_ratio * peak at `decay`.
+        decay = max(tcfg.decay_steps, tcfg.warmup_steps + 1) - warm
+        end = base_lr * tcfg.lr_min_ratio
+        alpha = 0.0 if base_lr == 0.0 else end / base_lr
+
+        def warmup_cosine(count: int) -> float:
+            if count < warm:
+                return base_lr * count / warm
+            t = min(count - warm, decay)
+            cosine = 0.5 * (1.0 + math.cos(math.pi * t / decay))
+            return base_lr * ((1.0 - alpha) * cosine + alpha)
+
+        return warmup_cosine
+    if tcfg.lr_schedule == "noam":
+        def noam(count: int) -> float:
+            s = max(count, 1)
+            return base_lr * math.sqrt(warm) * min(s ** -0.5, s * warm ** -1.5)
+
+        return noam
+    raise ValueError(f"unknown lr_schedule {tcfg.lr_schedule!r}")
+
+
+class GroupAdam:
+    """Adam over the "base" and "audio" groups (b1 0.9, b2 0.999, eps 1e-8
+    outside the square root, as optax places it), with per-group clipping,
+    schedules and optax ``MultiSteps`` accumulation.  Call ``step()`` after
+    each micro-batch's backward; it returns whether it applied an update.
+    Its state dict is keyed by parameter name."""
+
+    def __init__(self, named_params: list[tuple[str, torch.nn.Parameter]],
+                 labels: dict[str, str], tcfg):
+        self.tcfg = tcfg
+        self.names = {g: [n for n, _ in named_params if labels[n] == g] for g in GROUPS}
+        by_name = dict(named_params)
+        self.params = {g: [by_name[n] for n in self.names[g]] for g in GROUPS}
+        base_lr = {"base": tcfg.learning_rate, "audio": tcfg.audio_learning_rate}
+        self.schedules = {g: make_lr_schedule(tcfg, base_lr[g]) for g in GROUPS}
+        self.adam = torch.optim.Adam(
+            [{"params": self.params[g], "lr": 0.0, "name": g} for g in GROUPS if self.params[g]],
+            betas=(0.9, 0.999), eps=1e-8)
+        self.updates = 0            # optax's count: updates applied so far
+        self.mini_step = 0          # micro-batches in the accumulator
+        self._acc: list[torch.Tensor] | None = None
+
+    def _named(self) -> list[tuple[str, torch.nn.Parameter]]:
+        return [(n, p) for g in GROUPS for n, p in zip(self.names[g], self.params[g])]
+
+    def step(self) -> bool:
+        params = [p for _, p in self._named()]
+        for p in params:
+            if p.grad is None:          # cut by stop_visual_grad: optax sees zeros
+                p.grad = torch.zeros_like(p)
+        k = self.tcfg.grad_accum_steps
+        if k > 1:
+            grads = [p.grad for p in params]
+            if self._acc is None:
+                self._acc = [g.clone() for g in grads]
+            else:                       # running mean, as MultiSteps' _acc_update
+                n = self.mini_step
+                torch._foreach_mul_(self._acc, float(n))
+                torch._foreach_add_(self._acc, grads)
+                torch._foreach_div_(self._acc, float(n + 1))
+            self.mini_step += 1
+            if self.mini_step < k:
+                return False
+            for p, a in zip(params, self._acc):
+                p.grad = a
+            self._acc, self.mini_step = None, 0
+        clip = self.tcfg.grad_clip_norm
+        for group in self.adam.param_groups:
+            if clip:                    # optax.clip_by_global_norm over this group
+                grads = [p.grad for p in group["params"]]
+                norm = torch.nn.utils.get_total_norm(grads)
+                torch._foreach_mul_(grads, torch.where(norm < clip, 1.0, clip / norm))
+            group["lr"] = self.schedules[group["name"]](self.updates)
+        self.adam.step()
+        self.updates += 1
+        return True
+
+    def state_dict(self) -> dict:
+        mu, nu = {}, {}
+        for n, p in self._named():
+            st = self.adam.state.get(p)
+            if st:
+                mu[n], nu[n] = st["exp_avg"], st["exp_avg_sq"]
+        acc = None if self._acc is None else {
+            n: a for (n, _), a in zip(self._named(), self._acc)}
+        return {"updates": self.updates, "mini_step": self.mini_step, "mu": mu, "nu": nu,
+                "acc": acc}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.updates, self.mini_step = int(sd["updates"]), int(sd["mini_step"])
+        for n, p in self._named():
+            if n in sd["mu"]:
+                self.adam.state[p] = {
+                    "step": torch.tensor(float(self.updates)),
+                    "exp_avg": sd["mu"][n].to(p.device, p.dtype).clone(),
+                    "exp_avg_sq": sd["nu"][n].to(p.device, p.dtype).clone()}
+            else:
+                self.adam.state.pop(p, None)
+        acc = sd.get("acc")
+        self._acc = None if acc is None else [
+            acc[n].to(p.device, p.dtype).clone() for n, p in self._named()]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``step`` counts ``train_step`` calls (micro-batches); the model holds
+    the parameters and BatchNorm statistics; ``generator`` draws dropout."""
+
+    step: int
+    model: MultiSpeakerAVModel
+    optimizer: GroupAdam
+    generator: torch.Generator
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.step = int(sd["step"])
+        self.model.load_state_dict(sd["model"], strict=True)
+        self.optimizer.load_state_dict(sd["optimizer"])
+        if "generator" in sd:
+            self.generator.set_state(sd["generator"])
+
+
+@dataclasses.dataclass
+class MultiSpeakerTrainer:
+    """The train and eval steps and the epoch loops of the flagship model."""
+
+    config: Config
+    model: MultiSpeakerAVModel
+    tokenizer: Any
+    frozen_prefixes: tuple[str, ...] = ()
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        self.model = self.model.to(self.device)
+        self.lm = load_fusion_lm(self.config.decode.lm_path, self.device)
+
+    # -- state ---------------------------------------------------------------
+
+    def make_optimizer(self) -> GroupAdam:
+        named = list(self.model.named_parameters())
+        labels = label_params([n for n, _ in named], self.frozen_prefixes,
+                              self.config.train.audio_trainable_layers)
+        return GroupAdam(named, labels, self.config.train)
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        """Parameters from ``init_weights`` with a generator seeded by
+        ``seed``, a fresh optimizer, and a dropout generator on the device
+        seeded by ``seed`` as well."""
+        init_weights(self.model, torch.Generator().manual_seed(seed))
+        return TrainState(0, self.model, self.make_optimizer(),
+                          torch.Generator(device=self.device).manual_seed(seed))
+
+    # -- loss ----------------------------------------------------------------
+
+    def _place(self, batch: dict) -> dict:
+        return {k: (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.asarray(v))).to(self.device)
+                for k, v in batch.items() if k != "num_real"}
+
+    def _losses(self, model, batch: dict, generator, train: bool):
+        """``trainer.py:222-287``: the total loss, the metrics and the model
+        outputs, on a placed batch."""
+        frozen_visual = any(p.startswith("visual_encoder") for p in self.frozen_prefixes)
+        out = model(batch["lip1"], batch["lip2"], batch["audio"], batch["mask1"],
+                    batch["mask2"], batch["lip1_lengths"], batch["lip2_lengths"],
+                    train=train, stop_visual_grad=frozen_visual, generator=generator)
+        ccfg = self.config.model.contrastive
+        blank = self.config.model.decoder.blank_id
+        valid = batch.get("valid")
+        mask_ds1, mask_ds2 = out["mask_ds1"], out["mask_ds2"]
+        if valid is not None:
+            # Flush rows (valid 0) become pad for the contrastive loss and get
+            # no CTC weight: a flush batch gives its unpadded batch's loss.
+            row_ok = (valid > 0)[:, None]
+            mask_ds1 = torch.where(row_ok, mask_ds1, 3)
+            mask_ds2 = torch.where(row_ok, mask_ds2, 3)
+        con1 = contrastive_loss_with_mask(out["contrast1"], mask_ds1, ccfg.temperature,
+                                          ccfg.weight_pos_align, ccfg.weight_neg_suppress)
+        con2 = contrastive_loss_with_mask(out["contrast2"], mask_ds2, ccfg.temperature,
+                                          ccfg.weight_pos_align, ccfg.weight_neg_suppress)
+
+        def weighted_ctc(lp, labels, il, ll):
+            per = ctc_loss(lp, labels, il, ll, blank, reduction="none")
+            per = per / ll.clamp(min=1).float()
+            if valid is None:
+                return per.mean()
+            return (per * valid).sum() / valid.sum().clamp(min=1.0)
+
+        if self.config.train.contrastive_only:
+            ctc1 = ctc2 = torch.zeros((), device=con1.device)
+            total = (con1 + con2) / 2
+        else:
+            ctc1 = weighted_ctc(out["log_probs1"], batch["text1"], out["input_lengths1"],
+                                batch["text1_lengths"])
+            ctc2 = weighted_ctc(out["log_probs2"], batch["text2"], out["input_lengths2"],
+                                batch["text2_lengths"])
+            lam = self.config.train.lambda_contrastive
+            total = (ctc1 + ctc2) / 2 + lam * (con1 + con2) / 2
+        metrics = {"loss": total, "ctc1": ctc1, "ctc2": ctc2,
+                   "contrast1": con1, "contrast2": con2}
+        return total, metrics, out
+
+    # -- steps ---------------------------------------------------------------
+
+    def train_step(self, state: TrainState, batch: dict):
+        """Forward, backward and (every ``grad_accum_steps``-th call) an
+        optimizer update -> ``(state, metrics)``, the metrics ``loss, ctc1,
+        ctc2, contrast1, contrast2, grad_norm`` as device scalars: reading
+        them is left to the caller.  The step is not free of host syncs:
+        ``F.ctc_loss`` copies its two length tensors to the host once per
+        speaker.  The gradients stay in the parameters' ``.grad`` until the
+        next step (clipped in place when ``grad_clip_norm`` is set)."""
+        model = state.model
+        model.zero_grad(set_to_none=True)
+        total, metrics, _ = self._losses(model, self._place(batch), state.generator, True)
+        total.backward()
+        metrics["grad_norm"] = torch.nn.utils.get_total_norm(
+            [p.grad for p in model.parameters() if p.grad is not None])
+        state.optimizer.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def eval_step(self, state: TrainState, batch: dict):
+        """Eval-mode losses and outputs, with greedy ids (``trainer.py:312-331``)."""
+        _, metrics, out = self._losses(state.model, self._place(batch), None, False)
+        blank = self.config.model.decoder.blank_id
+        res = {k: out[k] for k in ("log_probs1", "input_lengths1", "log_probs2",
+                                   "input_lengths2", "contrast1", "mask_ds1",
+                                   "contrast2", "mask_ds2")}
+        for s in ("1", "2"):
+            res["greedy" + s], res[f"greedy{s}_len"] = ctc_greedy_decode(
+                out["log_probs" + s], out["input_lengths" + s], blank)
+        return metrics, res
+
+    # -- host orchestration --------------------------------------------------
+
+    def train_epoch(self, batches: Iterable[dict], log_every: int | None = None,
+                    log_fn: Callable[[str], None] = print, state: TrainState | None = None,
+                    stop=None):
+        """``trainer.py:367-436`` -> ``(state, mean loss, throughput)``.  With
+        ``async_dispatch`` the metrics (and the audio length) fold into sums
+        on the device with an all-finite flag, and the host reads them only at
+        log points and at the end, where ``check_finite`` raises."""
+        if state is None:
+            raise ValueError("train_epoch needs a state (init_state)")
+        log_every = log_every or self.config.train.log_every
+        timer = StepTimer()
+        sr = self.config.data.sample_rate
+        guard = self.config.train.check_finite
+        deferred = self.config.train.async_dispatch
+        total, n = 0.0, 0
+        acc = ok = None
+        last_drained = -1
+        for i, batch in enumerate(batches):
+            if stop is not None and stop.requested:
+                break
+            state, metrics = self.train_step(state, batch)
+            audio_len = torch.as_tensor(batch["audio_lengths"], device=self.device)
+            if deferred:
+                packed = torch.stack([metrics[k].float() for k in METRIC_KEYS]
+                                     + [audio_len.sum().float()])
+                acc = packed if acc is None else acc + packed
+                good = torch.isfinite(packed[:-1]).all()
+                ok = good if ok is None else ok & good
+                timer.tick(batch["audio"].shape[0])
+            else:
+                loss = float(metrics["loss"])
+                if guard:
+                    check_finite({"loss": loss}, step=i)
+                total += loss
+                timer.tick(batch["audio"].shape[0], float(audio_len.sum()) / sr)
+            n += 1
+            if i % log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}         # host sync
+                if deferred:
+                    if guard and not bool(ok):
+                        raise NonFiniteLossError(
+                            f"non-finite metrics in steps {last_drained + 1}..{i}")
+                    timer.audio_seconds = float(acc[-1]) / sr
+                last_drained = i
+                tp = timer.summary()
+                log_fn(f"[batch {i}] loss={m['loss']:.4f} ctc1={m['ctc1']:.4f} "
+                       f"ctc2={m['ctc2']:.4f} con1={m['contrast1']:.4f} "
+                       f"con2={m['contrast2']:.4f} gnorm={m['grad_norm']:.3f} "
+                       f"utt/s={tp['utterances_per_sec']:.2f} rtf={tp['rtf']:.2f}")
+        if deferred and acc is not None:
+            if guard and not bool(ok):
+                raise NonFiniteLossError(
+                    f"non-finite metrics in steps {last_drained + 1}..{n - 1}")
+            total = float(acc[0])
+            timer.audio_seconds = float(acc[-1]) / sr
+        return state, total / max(n, 1), timer.summary()
+
+    def evaluate(self, batches: Iterable[dict], state: TrainState, use_beam: bool = True):
+        """``trainer.py:441-493`` -> ``(avg_loss, avg_wer, cer, {"wer1",
+        "wer2", "jer"})``; the loss is the CTC mean, decoding per
+        ``config.decode`` (or greedy), rates from summed error counts."""
+        refs1, hyps1, refs2, hyps2 = [], [], [], []
+        total, n = 0.0, 0
+        for batch in batches:
+            num_real = int(batch.get("num_real", batch["audio"].shape[0]))
+            metrics, out = self.eval_step(state, batch)
+            total += (float(metrics["ctc1"]) + float(metrics["ctc2"])) / 2
+            n += 1
+            decoded = []
+            for s in ("1", "2"):
+                if use_beam:
+                    ids, lens = decode_ids(self.config, out["log_probs" + s],
+                                           out["input_lengths" + s], True, self.lm)
+                else:
+                    ids, lens = out["greedy" + s], out[f"greedy{s}_len"]
+                decoded.append((ids.cpu().numpy(), lens.cpu().numpy()))
+            t1, l1 = np.asarray(batch["text1"]), np.asarray(batch["text1_lengths"])
+            t2, l2 = np.asarray(batch["text2"]), np.asarray(batch["text2_lengths"])
+            (ids1, len1), (ids2, len2) = decoded
+            for b in range(num_real):
+                hyps1.append(self.tokenizer.decode(ids1[b, : len1[b]].tolist()))
+                refs1.append(self.tokenizer.decode(t1[b, : l1[b]].tolist()))
+                hyps2.append(self.tokenizer.decode(ids2[b, : len2[b]].tolist()))
+                refs2.append(self.tokenizer.decode(t2[b, : l2[b]].tolist()))
+        w1, w2 = wer_counts(refs1, hyps1), wer_counts(refs2, hyps2)
+        c = cer_counts(refs1 + refs2, hyps1 + hyps2)
+        j = jamo_counts(refs1 + refs2, hyps1 + hyps2)
+        wer1, wer2 = rate_from_counts(*w1), rate_from_counts(*w2)
+        return (total / max(n, 1), (wer1 + wer2) / 2, rate_from_counts(*c),
+                {"wer1": wer1, "wer2": wer2, "jer": rate_from_counts(*j)})
