@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port's serving path, training step and training run on one
+NVIDIA GPU (H100).
 
     python3 chip_smoke.py      # needs one CUDA card; a few minutes on an H100
 
@@ -42,12 +43,26 @@ Phases, each printing a line; any failure exits non-zero:
    ``FlopCounterMode``, utt/s as all the utterances over all the timed
    steps' time; before each size's steps, K1 and K2 against their plain
    versions (phase 3's bars) at the shapes that size gives them;
-10. ``[train-profile]`` (after phase 7): one B = 8 step under
+10. ``[fit]`` (after phase 9): the training run through the port's CLI at the
+    same full width, on a corpus written to a temporary directory in the
+    AI-Hub layout (8 speakers x 6 sentences of 3.0-4.2 s: 48 kHz wavs, uint8
+    128x128x3 crops, texts, JSON): ``main`` trains 2 epochs (B = 8, 32 pairs
+    an epoch, 8 eval pairs at B = 4, asynchronous checkpoints), resumes to
+    epoch 3, then ``--eval``, ``--infer``, one ``--synthetic`` epoch of 16
+    pairs and one epoch of 128 pairs from disk in a fresh directory.  It
+    prints each call's seconds, peak memory and launches (K1 1 and K2 2 per
+    train step, eval batch and infer batch; K2 0 on ``--synthetic``), and
+    per epoch the losses, utt/s and the time the step loop waited for its
+    input, split into the first batch and the others; it checks finite
+    losses, 3 rows of
+    ``eval_log.csv``, ``last.ckpt`` at epoch 3, the ``--eval`` JSON and 8
+    transcribed pairs;
+11. ``[train-profile]`` (after phase 7): one B = 8 step under
     ``torch.profiler``.
 
-The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5
-and the timed training steps of phase 9 (each path's own count is under
-``launches_by_path``).  The last three lines are the ``kernels`` JSON, the
+The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
+the timed training steps of phase 9 and the CLI calls of phase 10 (each
+path's own count is under ``launches_by_path``).  The last three lines are the ``kernels`` JSON, the
 ``nvidia-smi`` line and ``{"ok": true, "device": ...}``.  Nothing of JAX is
 imported.
 """
@@ -706,6 +721,192 @@ def train_phase(torch, rng, tok):
     return launches, profile_step
 
 
+class _Tee:
+    """Writes to the real stdout and keeps a copy of the text."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, text):
+        self.text.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def fit_phase(torch, tok, smi: str):
+    """[fit]: the training run at full width through the port's CLI on a
+    corpus written in the AI-Hub layout, then a resume, --eval, --infer and
+    a --synthetic epoch and one longer epoch from disk.  Returns the
+    kernels' launches over these calls."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch import main as cli
+    from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.data.manifest import (
+        build_data_list,
+        speaker_id_of,
+        train_val_test_split,
+    )
+    from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
+    from multimodal_av_model_tpu_torch.infer import Transcriber
+    from multimodal_av_model_tpu_torch.ops import logmel
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
+
+    # K1 at the one shape of this phase no other phase holds: a --synthetic
+    # step's [8, 64 * 534] mixture (bucket 64).  Not counted.
+    x = torch.randn(8, 64 * 534, generator=torch.Generator().manual_seed(5)).cuda() * 0.3
+    got, ref = log_mel_spectrogram_cuda(x), logmel.log_mel_spectrogram(x)
+    err = (got - ref).abs().max().item()
+    if not torch.allclose(got, ref, rtol=2e-3, atol=2e-3):
+        raise SystemExit(f"fit: K1 disagrees with its plain version at {tuple(x.shape)}: {err}")
+    log(f"[fit] K1 {tuple(x.shape)} (a --synthetic step): max|kernel-plain| {err:.3g} "
+        f"(rtol=atol=2e-3) ok")
+    del x, got, ref
+
+    # Launches per call of each entry that runs a kernel.
+    calls = {"train_step": 0, "eval_step": 0, "transcribe": 0}
+    wrapped = [(MultiSpeakerTrainer, "train_step"), (MultiSpeakerTrainer, "eval_step"),
+               (Transcriber, "transcribe")]
+    originals = {name: getattr(cls, name) for cls, name in wrapped}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            before = log_mel_spectrogram_cuda.launches
+            out = originals[name](*args, **kwargs)
+            if log_mel_spectrogram_cuda.launches - before != 1:
+                raise SystemExit(f"fit: {name} launched K1 "
+                                 f"{log_mel_spectrogram_cuda.launches - before} times")
+            calls[name] += 1
+            return out
+        return call
+
+    root = tempfile.mkdtemp(prefix="mmav_fit_")
+    try:
+        t0 = time.perf_counter()
+        dirs = write_synthetic_corpus(os.path.join(root, "corpus"), tok, n_videos=8,
+                                      sentences_per_video=6, sentence_dur=(3.0, 4.2), seed=0)
+        nbytes = sum(os.path.getsize(os.path.join(d, n)) for d in dirs.values()
+                     for n in os.listdir(d))
+        entries, _ = build_data_list(dirs["json_folder"], dirs["npy_dir"], dirs["text_dir"],
+                                     dirs["wav_dir"])
+        train_set, val_set, _ = train_val_test_split(entries, seed=Config().data.seed)
+        speakers = sorted({speaker_id_of(e.text_path) for e in val_set})
+        log(f"[fit] corpus in the AI-Hub layout: {len(entries)} sentences of 3.0-4.2 s (8 "
+            f"speakers x 6; 48 kHz wavs, uint8 [T, 128, 128, 3] crops), {nbytes / 1e6:.0f} MB "
+            f"written in {time.perf_counter() - t0:.1f} s; split {len(train_set)} train, "
+            f"{len(val_set)} val over {len(speakers)} speakers")
+        if len(speakers) < 2:
+            raise SystemExit("fit: the val split needs two speakers for the fixed eval pairs")
+        ckpt = os.path.join(root, "ckpt")
+        vocab = os.path.join(REPO, Config().data.vocab_path)
+        common = ([f"data.{k}={v}" for k, v in dirs.items()]
+                  + [f"data.vocab_path={vocab}", "train.batch_size=8", "train.eval_batch_size=4",
+                     "data.num_pairs_per_epoch=32", "data.eval_pairs=8",
+                     "train.async_checkpoint=true", "--device=cuda"])
+
+        def run(tag, args, k2_per_call=2):
+            """One CLI call, its seconds, peak memory, output and launches."""
+            for k in calls:
+                calls[k] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tee = _Tee(sys.stdout)
+            log_mel_spectrogram_cuda.launches = 0
+            lip_preprocess_cuda.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                cli.main(args)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+            n = sum(calls.values())
+            log(f"[fit] {tag}: {dt:.1f} s; peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {calls['train_step']} "
+                f"train steps, {calls['eval_step']} eval batches, {calls['transcribe']} infer "
+                f"batches; launches K1 {k1}, K2 {k2} ({k1 / max(n, 1):g} and "
+                f"{k2 / max(n, 1):g} per call)")
+            if n == 0 or k1 != n or k2 != k2_per_call * n:
+                raise SystemExit(f"fit: {tag}: launches K1 {k1}, K2 {k2} over {n} calls "
+                                 f"(expected 1 and {k2_per_call} per call)")
+            return "".join(tee.text), k1, k2
+
+        def epochs(text):
+            rows = []
+            for line in text.splitlines():
+                if line.startswith("[epoch "):
+                    kv = dict(f.split("=", 1) for f in line.split()[2:])
+                    rows.append((int(line.split()[1].rstrip("]")), float(kv["train_loss"]),
+                                 float(kv["eval_loss"]), float(kv["utt/s"]),
+                                 float(kv["input_wait"].rstrip("s")),
+                                 float(kv["first_batch_wait"].rstrip("s")),
+                                 float(kv["train_s"])))
+            return rows
+
+        for cls, name in wrapped:
+            setattr(cls, name, counting(name))
+        launches = {"logmel": 0, "lip_preprocess": 0}
+        rows = []
+        try:
+            for tag, extra, k2_per_call in (
+                    ("train, 2 epochs", [f"train.checkpoint_dir={ckpt}", "train.max_epochs=2"], 2),
+                    ("resume to epoch 3", [f"train.checkpoint_dir={ckpt}", "train.max_epochs=3"], 2),
+                    ("--eval", [f"train.checkpoint_dir={ckpt}", "--eval"], 2),
+                    ("--infer", [f"train.checkpoint_dir={ckpt}", "--infer"], 2),
+                    ("--synthetic, 1 epoch of 16 pairs",
+                     [f"train.checkpoint_dir={os.path.join(root, 'synthetic')}", "--synthetic",
+                      "train.max_epochs=1", "data.num_pairs_per_epoch=16"], 0),
+                    # One epoch of 16 steps from disk: its wait past the first
+                    # batch says whether loading keeps up with the steps.
+                    ("train, 1 epoch of 128 pairs",
+                     [f"train.checkpoint_dir={os.path.join(root, 'long')}", "train.max_epochs=1",
+                      "data.num_pairs_per_epoch=128"], 2)):
+                text, k1, k2 = run(tag, common + extra, k2_per_call)
+                launches["logmel"] += k1
+                launches["lip_preprocess"] += k2
+                rows += [(tag,) + r for r in epochs(text)]
+                if tag == "resume to epoch 3" and "at epoch 3" not in text:
+                    raise SystemExit("fit: the second call did not resume at epoch 3")
+                if tag == "--eval":
+                    report = json.loads(text.strip().splitlines()[-1])
+                    if set(report["decode"]) != {"greedy", "prefix_beam"}:
+                        raise SystemExit(f"fit: --eval report {report}")
+                if tag == "--infer":
+                    lines = [ln for ln in text.splitlines() if ln.startswith("[utt ")]
+                    if len(lines) != 16 or "transcribed 8 pairs" not in text:
+                        raise SystemExit(f"fit: --infer printed {len(lines)} transcript lines")
+        finally:
+            for (cls, name) in wrapped:
+                setattr(cls, name, originals[name])
+
+        with open(os.path.join(ckpt, "eval_log.csv")) as f:
+            eval_rows = f.read().split()[1:]
+        last = torch.load(os.path.join(ckpt, "last.ckpt"), map_location="cpu",
+                          weights_only=True)["epoch"]
+        for tag, epoch, train_loss, eval_loss, ups, wait, first, train_s in rows:
+            rest = train_s - first
+            log(f"[fit] {tag}, epoch {epoch}: train_loss {train_loss:.4f}, eval_loss "
+                f"{eval_loss:.4f}, {ups:.2f} utt/s (fit's own rate: utterances over the epoch's "
+                f"wall time, loading included), waiting on the input {wait:.3f} s of "
+                f"{train_s:.3f} s: the first batch {first:.3f} s, the others {wait - first:.3f} s "
+                f"({(wait - first) / max(rest, 1e-9):.3f} of the epoch past the first batch)")
+        if len(rows) != 5 or not all(math.isfinite(r[2]) and math.isfinite(r[3]) for r in rows):
+            raise SystemExit(f"fit: epochs {rows}")
+        if len(eval_rows) != 3 or last != 3:
+            raise SystemExit(f"fit: eval_log.csv rows {eval_rows}, last.ckpt epoch {last}")
+        log(f"[fit] 3 epochs from disk, eval_log.csv rows {len(eval_rows)}, last.ckpt at epoch "
+            f"{last}; launches over the phase K1 {launches['logmel']}, K2 "
+            f"{launches['lip_preprocess']}; card {smi}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def train_profile(torch, step) -> None:
     """One B = 8 training step timed (after one more to warm the caching
     allocator again after the B = 32 steps), then one under
@@ -755,9 +956,11 @@ def main() -> int:
     serving_launches, profile_request = serving_phase(torch, rng, tok)
     train_ref_phase(torch, rng, tok)
     train_launches, train_step = train_phase(torch, rng, tok)
+    fit_launches = fit_phase(torch, tok, smi)
     kernels = [k1, k2]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
-        by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]]}
+        by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
+                   "fit": fit_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         dev_ms, caught = profiled_ms(*calls)

@@ -1,17 +1,22 @@
-"""Typed configuration tree of the serving and training slices.
+"""Typed configuration tree of the two-speaker serving and training run.
 
 Mirrors ``multimodal_av_model_tpu/config.py:18-363``, restricted to the
-fields the two-speaker serving path and the training step read.  Every
-default equals the JAX default.  Dropped on purpose:
+fields the serving path, the training run (``fit``, the data pipeline) and
+the port's CLI read.  Every default equals the JAX default.  Dropped on
+purpose:
 
 * ``frontend.use_pallas`` (``config.py:32``): the port picks the kernel or
   its plain version by the tensor's device alone;
 * ``model.shared_audio_pass`` (``config.py:171``): the port always encodes
   the mixture once (in training both speakers share one dropout draw, as
   the JAX default does);
-* SpecAugment, SSL, init-checkpoint, logging, async and sharded checkpoint,
-  mesh and streaming fields, and the training fields only ``fit`` and the
-  training CLI read, which belong to later slices.
+* ``train.keep_checkpoints`` (``config.py:284``): nothing reads it, in
+  either package, so an override fails as an unknown field;
+* the fields of parts not ported yet: SpecAugment, the SSL family and
+  ``train.audio_init_ckpt``, ``decode.quantize`` and streaming, the mesh and
+  ``compile_cache_dir``.  The CLI refuses each of them with the
+  ``ROADMAP.md`` item that brings it (``main.py``); elsewhere an override of
+  one fails as an unknown field instead of changing nothing.
 """
 
 from __future__ import annotations
@@ -119,29 +124,42 @@ class ModelConfig:
 
 @dataclass
 class DataConfig:
-    """Bucketing of the batches (``config.py:174-197``)."""
+    """The AI-Hub corpus layout, pair sampling and bucketing (``config.py:174-197``)."""
 
+    json_folder: str = "input_texts"
+    npy_dir: str = "npy"
+    text_dir: str = "processed_dataset/text"
+    wav_dir: str = "input_wav/input_wav"
     vocab_path: str = "assets/tokenizer800.vocab"
     sample_rate: int = 16000
+    num_pairs_per_epoch: int = 10000
+    eval_pairs: int = 500
     video_buckets: tuple[int, ...] = (64, 128, 256, 448)
     audio_samples_per_video_frame: int = 534
     max_label_len: int = 128
+    prefetch_depth: int = 2
+    # Raw uint8 crops and per-speaker waveforms go to the device, where
+    # mixing and K2 run (data/device_pipeline.py); False preprocesses on the
+    # host (FilePairSource.load_pair).
+    device_preprocess: bool = True
     seed: int = 42
 
 
 @dataclass
 class TrainConfig:
-    """The fields the training step, its optimizer and ``train_epoch`` read
-    (``config.py:201-284``).  The ones only ``fit`` and the training CLI
-    read (``batch_size``, ``eval_batch_size``, ``max_epochs``,
-    ``early_stop_patience``, ``freeze_visual_trunk``, ``checkpoint_dir``,
-    ``keep_checkpoints``) come with them: until then an override of one
-    fails as an unknown field instead of changing nothing."""
+    """The training step, its optimizer, ``fit`` and the training CLI
+    (``config.py:201-284``), without the SSL fields and ``audio_init_ckpt``."""
 
+    batch_size: int = 8
+    eval_batch_size: int = 4
     learning_rate: float = 1e-4
     audio_learning_rate: float = 2e-5
     lambda_contrastive: float = 0.1
     contrastive_only: bool = False    # optimise the contrastive loss alone
+    max_epochs: int = 50
+    early_stop_patience: int = 5
+    freeze_visual_trunk: bool = False # -> frozen_prefixes=("visual_encoder",)
+    visual_init_ckpt: str = ""        # a port checkpoint whose visual encoder is grafted in
     # None: the whole audio encoder trains at audio_learning_rate; a tuple
     # freezes the audio encoder except those Conformer blocks.
     audio_trainable_layers: tuple[int, ...] | None = None
@@ -153,6 +171,11 @@ class TrainConfig:
     grad_clip_norm: float | None = None   # per optimizer group
     check_finite: bool = True         # raise on non-finite metrics
     async_dispatch: bool = True       # fold metrics on the device, sync at log points
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_layout: str = "file"   # "sharded" is not ported (ROADMAP Queue 1 item 7)
+    async_checkpoint: bool = False    # snapshot to host, then write on a background thread
+    handle_signals: bool = True       # SIGTERM/SIGINT in fit -> save last.ckpt and return
+    tensorboard_dir: str = ""         # per-epoch scalars (tensorboardX, no-op if absent)
     log_every: int = 100
 
 

@@ -1,1 +1,4 @@
-"""Serving-side data path: bucketed raw collation and on-device preprocessing."""
+"""Data: the AI-Hub corpus manifest, WAV decode and resampling, pair
+sampling, bucketed collation (raw and processed), the prefetching host
+pipeline, on-device mixing and lip preprocessing (K2), and a synthetic
+corpus writer."""

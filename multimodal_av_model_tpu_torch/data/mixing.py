@@ -1,19 +1,48 @@
-"""Two-speaker waveform mixing and per-speaker sample masks, on the device.
+"""Two-speaker waveform mixing and per-speaker sample masks.
 
-Mirrors ``multimodal_av_model_tpu/data/mixing.py:21-24,57-90``.  Both
-utterances are summed and peak-normalised by ``max|mixed| + 1e-6``; each
-speaker's mask codes ``0`` other speaker solo, ``1`` overlap, ``2`` target
-speaker solo, ``3`` batch padding.
+Mirrors ``multimodal_av_model_tpu/data/mixing.py:21-90``: one pair on the
+host (numpy, ``mix_pair``) and a padded batch on the device
+(``mix_pair_batched_device``).  Both utterances are summed and
+peak-normalised by ``max|mixed| + 1e-6``; each speaker's mask codes ``0``
+other speaker solo, ``1`` overlap, ``2`` target speaker solo, ``3`` batch
+padding.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK_OTHER_SOLO = 0
 MASK_OVERLAP = 1
 MASK_TARGET_SOLO = 2
 MASK_PAD = 3
+
+
+def make_speaker_masks(len1: int, len2: int) -> tuple[np.ndarray, np.ndarray]:
+    """Masks over ``max(len1, len2)`` samples for each speaker."""
+    max_len, min_len = max(len1, len2), min(len1, len2)
+    mask1 = np.zeros(max_len, dtype=np.int64)
+    mask2 = np.zeros(max_len, dtype=np.int64)
+    mask1[:min_len] = MASK_OVERLAP
+    mask2[:min_len] = MASK_OVERLAP
+    if len1 > len2:
+        mask1[len2:len1] = MASK_TARGET_SOLO
+    elif len2 > len1:
+        mask2[len1:len2] = MASK_TARGET_SOLO
+    return mask1, mask2
+
+
+def mix_pair(a1: np.ndarray, a2: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Mix two mono waveforms of any lengths -> ``(mixed, mask1, mask2)``,
+    each ``max(len(a1), len(a2))`` long."""
+    len1, len2 = len(a1), len(a2)
+    max_len = max(len1, len2)
+    mixed = (np.pad(np.asarray(a1, dtype=np.float32), (0, max_len - len1))
+             + np.pad(np.asarray(a2, dtype=np.float32), (0, max_len - len2)))
+    mixed /= np.max(np.abs(mixed)) + 1e-6
+    mask1, mask2 = make_speaker_masks(len1, len2)
+    return mixed.astype(np.float32), mask1, mask2
 
 
 def mix_pair_batched_device(audio1: torch.Tensor, audio2: torch.Tensor,

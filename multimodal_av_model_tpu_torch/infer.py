@@ -1,13 +1,15 @@
 """Serving surface: model weights -> per-speaker transcripts.
 
 Mirrors ``multimodal_av_model_tpu/infer.py:43-157`` (``decode_ids`` for
-"greedy" and "prefix_beam", ``Transcriber.transcribe``).  The forward and the
-decode run on ``device`` (the card unless the caller asks for the CPU); the
-host reads back only the decoded ids, to turn them into text.
+"greedy" and "prefix_beam", ``Transcriber.from_checkpoint`` and
+``transcribe``).  The forward and the decode run on ``device`` (the card
+unless the caller asks for the CPU); the host reads back only the decoded
+ids, to turn them into text.
 
     model = MultiSpeakerAVModel(cfg.model, dtype)
     model.load_state_dict(from_jax_variables(variables))   # or init_weights
     t = Transcriber(cfg, tokenizer, model)
+    t = Transcriber.from_checkpoint(cfg, tokenizer, "ckpt/best_wer.ckpt")
     texts = t.transcribe(batch)     # [(speaker1_text, speaker2_text), ...]
 """
 
@@ -19,7 +21,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .config import Config
+from .config import Config, torch_dtype
 from .models.av_model import MultiSpeakerAVModel
 from .ops.ctc import ctc_greedy_decode
 from .ops.prefix_beam_search import prefix_beam_search_decode
@@ -66,6 +68,23 @@ class Transcriber:
     def __post_init__(self):
         self.model = self.model.to(self.device).eval()
         self.lm = load_fusion_lm(self.config.decode.lm_path, self.device)
+
+    @classmethod
+    def from_checkpoint(cls, config: Config, tokenizer, path, device: str = "cuda",
+                        dtype: torch.dtype | None = None) -> "Transcriber":
+        """A Transcriber on the model of a port checkpoint (parameters and
+        BatchNorm statistics, loaded strictly by name).  ``path`` may be a
+        list of checkpoint files of one run, averaged first
+        (``train.checkpoints.average_checkpoints``).  The compute dtype is
+        ``config.model.dtype`` unless given."""
+        from .train.checkpoints import average_checkpoints, restore_checkpoint
+
+        ckpt = (average_checkpoints(list(path)) if isinstance(path, (list, tuple))
+                else restore_checkpoint(path))
+        state = ckpt.get("state", ckpt)
+        model = MultiSpeakerAVModel(config.model, dtype or torch_dtype(config.model.dtype))
+        model.load_state_dict(state.get("model", state), strict=True)
+        return cls(config, tokenizer, model, device)
 
     @torch.no_grad()
     def transcribe(self, batch: dict, use_beam: bool = True):

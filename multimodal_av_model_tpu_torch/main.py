@@ -1,0 +1,256 @@
+"""The port's command line: train, evaluate or transcribe the flagship
+two-speaker model.
+
+    python -m multimodal_av_model_tpu_torch.main [--synthetic] [--eval | --infer]
+        [--device=cuda|cpu] [key.path=value ...]
+
+Mirrors ``multimodal_av_model_tpu/main.py`` for the ``av`` family:
+``build_data`` (``main.py:27-110``), ``run_infer`` and ``run_eval``
+(``main.py:113-205``) and ``main`` (``main.py:578-752``):
+
+* the real-data branch reads the AI-Hub layout (``data.json_folder``,
+  ``npy_dir``, ``text_dir``, ``wav_dir``): manifest, seeded 90/5/5 split,
+  speaker-distinct pairs, length buckets, a prefetch thread, and with
+  ``data.device_preprocess`` (the default) the raw crops and waveforms go to
+  the device, where mixing and K2 run; ``--synthetic`` trains on seeded
+  random pairs preprocessed on the host;
+* training: ``train.freeze_visual_trunk`` freezes the visual encoder,
+  ``train.visual_init_ckpt`` grafts the visual encoder of a port checkpoint,
+  and an existing ``last.ckpt`` under ``train.checkpoint_dir`` resumes the run
+  at its next epoch with everything but the dropout generator, which starts
+  afresh from ``data.seed`` (as JAX keeps its fresh PRNG key); then ``fit``;
+* ``--eval`` prints one JSON line with greedy and ``decode.algorithm``
+  scores of ``best_wer.ckpt`` (else ``last.ckpt``); ``--infer`` prints
+  ``[utt n] speaker1: ...`` lines for the eval pairs.
+
+Differences from the JAX CLI: ``--device`` (default ``cuda``; with no card
+and no ``--device=cpu`` it fails), checkpoints are the port's ``torch.save``
+files (not JAX msgpack), and the train sampler draws no example batch before
+``fit`` (torch needs no shapes to build the model).  What is not ported
+fails with the ``ROADMAP.md`` item that brings it (``REFUSED``; sharded
+checkpoints in ``CheckpointManager``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+# Flags and overrides of the JAX CLI that the port does not take yet, each
+# with the ROADMAP.md item that brings it.
+REFUSED = {
+    "--stream": "Queue 1 item 4 (inference extras: streaming.py)",
+    "--export": "Queue 1 item 4 (inference extras: the serving export)",
+    "decode.quantize": "Queue 1 item 4 (inference extras: ops/quantize.py)",
+    "decode.stream_": "Queue 1 item 4 (inference extras: streaming.py)",
+    "train.audio_init_ckpt": "Queue 1 item 6 (other families: the SSL family)",
+    "train.ssl_": "Queue 1 item 6 (other families: the SSL family)",
+    "model.audio.specaug_": "Queue 1 item 6 (other families: ops/specaugment.py)",
+    "mesh.": "Queue 1 item 7 (parallel layouts)",
+    "compile_cache_dir": "Queue 1 item 8 (runtime and CLI)",
+}
+FAMILIES_ITEM = "Queue 1 item 6 (other families)"
+
+
+def _refuse(what: str, item: str):
+    raise SystemExit(f"{what} is not ported to the PyTorch package yet: ROADMAP.md {item}")
+
+
+def build_data(cfg, tokenizer, synthetic: bool, device="cuda", device_put: bool = True):
+    """``(train_factory, val_factory)``, each returning an epoch's batches.
+    Processed batches are placed on ``device`` by the prefetch thread when
+    ``device_put``; raw batches are preprocessed on ``device``."""
+    from .data.collate import collate_pairs_raw, make_bucket_specs
+    from .data.device_pipeline import device_preprocessed_batches
+    from .data.manifest import build_data_list, train_val_test_split
+    from .data.pairs import FixedPairSampler, RandomPairSampler, generate_fixed_pairs
+    from .data.pipeline import (
+        FilePairSource,
+        PrefetchingLoader,
+        SyntheticPairSource,
+        bucketed_batches,
+    )
+
+    specs = make_bucket_specs(cfg.data.video_buckets, cfg.data.audio_samples_per_video_frame,
+                              cfg.data.max_label_len)
+    put = device if device_put else None
+
+    if synthetic:
+        def synthetic_factory(src, n_pairs, batch_size):
+            def factory():
+                it = (src.load_pair() for _ in range(n_pairs))
+                return PrefetchingLoader(lambda: bucketed_batches(it, specs, batch_size),
+                                         depth=cfg.data.prefetch_depth, device=put)
+            return factory
+
+        return (synthetic_factory(SyntheticPairSource(tokenizer, seed=cfg.data.seed),
+                                  cfg.data.num_pairs_per_epoch, cfg.train.batch_size),
+                synthetic_factory(SyntheticPairSource(tokenizer, seed=cfg.data.seed + 1),
+                                  cfg.data.eval_pairs, cfg.train.eval_batch_size))
+
+    entries, skipped = build_data_list(cfg.data.json_folder, cfg.data.npy_dir,
+                                       cfg.data.text_dir, cfg.data.wav_dir)
+    if skipped:
+        print(f"manifest: skipped {len(skipped)} sentences with missing artifacts")
+    if len(entries) < 2:
+        raise SystemExit("no usable data found (the bundled corpus is metadata-only); "
+                         "run with --synthetic or point data.* config at a prepared dataset")
+    train_set, val_set, _ = train_val_test_split(entries, seed=cfg.data.seed)
+    source = FilePairSource(tokenizer, cfg.data.sample_rate)
+    on_device = cfg.data.device_preprocess
+    load_fn = source.load_pair_raw if on_device else source.load_pair
+    train_sampler = RandomPairSampler(train_set, load_fn, cfg.data.num_pairs_per_epoch,
+                                      seed=cfg.data.seed)
+    val_sampler = FixedPairSampler(
+        generate_fixed_pairs(val_set, cfg.data.eval_pairs, seed=cfg.data.seed), load_fn)
+
+    def make_factory(sampler, batch_size):
+        if on_device:
+            def factory():
+                loader = PrefetchingLoader(
+                    lambda: bucketed_batches(iter(sampler), specs, batch_size,
+                                             collate_fn=collate_pairs_raw),
+                    depth=cfg.data.prefetch_depth)
+                return device_preprocessed_batches(loader, device=device)
+            return factory
+
+        def factory():
+            return PrefetchingLoader(lambda: bucketed_batches(iter(sampler), specs, batch_size),
+                                     depth=cfg.data.prefetch_depth, device=put)
+        return factory
+
+    return (make_factory(train_sampler, cfg.train.batch_size),
+            make_factory(val_sampler, cfg.train.eval_batch_size))
+
+
+def _checkpoint(cfg) -> str:
+    """``best_wer.ckpt``, else ``last.ckpt``, under ``train.checkpoint_dir``."""
+    for name in ("best_wer.ckpt", "last.ckpt"):
+        path = os.path.join(cfg.train.checkpoint_dir, name)
+        if os.path.isfile(path):
+            return path
+    raise SystemExit(f"no checkpoint under {cfg.train.checkpoint_dir}")
+
+
+def run_infer(cfg, tokenizer, synthetic: bool, device="cuda") -> None:
+    """``--infer``: the checkpoint's transcripts of the eval pairs."""
+    from .infer import Transcriber
+
+    _, val_factory = build_data(cfg, tokenizer, synthetic, device, device_put=False)
+    ckpt = _checkpoint(cfg)
+    transcriber = Transcriber.from_checkpoint(cfg, tokenizer, ckpt, device=device)
+    print(f"transcribing with {ckpt}")
+    n = 0
+    for batch in val_factory():
+        texts = transcriber.transcribe(batch)
+        for t1, t2 in texts[: int(batch.get("num_real", len(texts)))]:
+            print(f"[utt {n}] speaker1: {t1}")
+            print(f"[utt {n}] speaker2: {t2}")
+            n += 1
+    print(f"transcribed {n} pairs")
+
+
+def run_eval(cfg, tokenizer, synthetic: bool, device="cuda") -> None:
+    """``--eval``: eval-split loss, WER and CER of the checkpoint, greedy and
+    by ``decode.algorithm``, as one JSON line."""
+    from .config import torch_dtype
+    from .models import MultiSpeakerAVModel
+    from .train import MultiSpeakerTrainer
+    from .train.checkpoints import restore_checkpoint
+
+    _, val_factory = build_data(cfg, tokenizer, synthetic, device, device_put=False)
+    ckpt = _checkpoint(cfg)
+    trainer = MultiSpeakerTrainer(cfg, MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)),
+                                  tokenizer, device=device)
+    state = trainer.init_state(cfg.data.seed)
+    payload = restore_checkpoint(ckpt, template={"state": state, "epoch": 0})
+    report = {"checkpoint": ckpt, "epoch": int(payload.get("epoch", 0)), "decode": {}}
+    for name, use_beam in (("greedy", False), (cfg.decode.algorithm, True)):
+        loss, wer, cer, _ = trainer.evaluate(val_factory(), state, use_beam=use_beam)
+        report["decode"][name] = {"eval_loss": round(float(loss), 4),
+                                  "wer": round(float(wer), 4), "cer": round(float(cer), 4)}
+        print(f"[eval] {name}: loss={loss:.4f} wer={wer:.4f} cer={cer:.4f}", flush=True)
+    print(json.dumps(report))
+
+
+def main(argv: list[str] | None = None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    flags = {a for a in argv if a in ("--synthetic", "--infer", "--eval")}
+    device, overrides = "cuda", []
+    for a in argv:
+        if a in flags:
+            continue
+        name, _, value = a.partition("=")
+        if name == "--device":
+            device = value
+        elif name == "--family":
+            if value != "av":
+                _refuse(f"--family={value}", FAMILIES_ITEM)
+        elif name in REFUSED:
+            _refuse(name, REFUSED[name])
+        elif a.startswith("--"):
+            raise SystemExit(f"unknown flag {a}")
+        else:
+            refused = next((k for k in REFUSED if not k.startswith("--") and
+                            (name == k or k.endswith(("_", ".")) and name.startswith(k))), None)
+            if refused:
+                _refuse(name, REFUSED[refused])
+            overrides.append(a)
+    if device not in ("cuda", "cpu"):
+        raise SystemExit(f"--device must be cuda or cpu, got {device!r}")
+
+    import torch
+
+    from .config import from_flat_overrides, torch_dtype
+    from .models import MultiSpeakerAVModel
+    from .text import CharTokenizer
+    from .train import MultiSpeakerTrainer
+    from .train.checkpoints import CheckpointManager, graft_subtree, restore_checkpoint
+
+    if device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the port runs on the card; pass --device=cpu "
+                         "to run on the CPU")
+    cfg = from_flat_overrides(overrides)
+
+    vocab = cfg.data.vocab_path
+    if not os.path.exists(vocab):
+        vocab = os.path.join(os.path.dirname(__file__), "..", "assets", "tokenizer800.vocab")
+    tokenizer = CharTokenizer(vocab)
+    cfg.model.decoder.vocab_size = tokenizer.vocab_size
+    synthetic = "--synthetic" in flags
+
+    if "--eval" in flags:
+        run_eval(cfg, tokenizer, synthetic, device)
+        return
+    if "--infer" in flags:
+        run_infer(cfg, tokenizer, synthetic, device)
+        return
+
+    ckpts = CheckpointManager(cfg.train.checkpoint_dir, layout=cfg.train.checkpoint_layout)
+    model = MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype))
+    frozen = ("visual_encoder",) if cfg.train.freeze_visual_trunk else ()
+    trainer = MultiSpeakerTrainer(cfg, model, tokenizer, frozen_prefixes=frozen, device=device)
+    train_factory, val_factory = build_data(cfg, tokenizer, synthetic, device)
+    state = trainer.init_state(cfg.data.seed)
+
+    if cfg.train.visual_init_ckpt:
+        src = restore_checkpoint(cfg.train.visual_init_ckpt)
+        src_state = src.get("state", src)
+        state.model.load_state_dict(graft_subtree(
+            state.model.state_dict(), src_state.get("model", src_state), ["visual_encoder"]))
+        print(f"grafted visual encoder from {cfg.train.visual_init_ckpt}")
+
+    fresh_dropout = state.generator.get_state()
+    resumed = ckpts.try_resume(template={"state": state, "epoch": 0})
+    start_epoch = 1
+    if resumed is not None:
+        start_epoch = int(resumed["epoch"]) + 1
+        print(f"resuming from {ckpts.last} at epoch {start_epoch}")
+        state.generator.set_state(fresh_dropout)
+
+    trainer.fit(state, train_factory, val_factory, start_epoch=start_epoch)
+
+
+if __name__ == "__main__":
+    main()

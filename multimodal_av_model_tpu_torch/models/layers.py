@@ -59,10 +59,10 @@ class BatchNorm(nn.Module):
     with running statistics as buffers (``layers.py:48-57``).
 
     Eval normalises with the running statistics.  Train normalises with the
-    batch statistics over N, H, W in f32 (the biased variance) and updates
-    the buffers as flax does, ``0.9 old + 0.1 batch`` with the *biased*
-    batch variance, unless ``update_stats`` is off (the recompute of a
-    checkpointed region, see ``remat``).
+    batch statistics over N, H, W in f32, or in f64 for an f64 input (the
+    biased variance) and updates the buffers as flax does, ``0.9 old + 0.1
+    batch`` with the *biased* batch variance, unless ``update_stats`` is off
+    (the recompute of a checkpointed region, see ``remat``).
     """
 
     momentum = 0.9
@@ -80,14 +80,16 @@ class BatchNorm(nn.Module):
         # The f32 copy of x is an unnamed temporary: held by a local, it would
         # stay alive beside y and its cast (one more activation at the peak).
         if not train:
-            y = F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                             self.bias, False, 0.0, self.eps)
+            y = F.batch_norm(x.to(torch.promote_types(x.dtype, torch.float32)),
+                             self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.eps)
             return y.to(self.dtype)
         # At momentum 1 the fused op writes the batch mean and the unbiased
         # batch variance into these buffers, computed once with the output.
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x.float(), mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        y = F.batch_norm(x.to(torch.promote_types(x.dtype, torch.float32)), mean, var,
+                         self.weight, self.bias, True, 1.0, self.eps)
         if self.update_stats:
             n = x.numel() // x.shape[1]
             m = self.momentum

@@ -1,7 +1,8 @@
 """Training runtime of the flagship two-speaker model.
 
-Mirrors ``multimodal_av_model_tpu/train/trainer.py:44-493`` (``fit`` is not
-ported yet):
+Mirrors ``multimodal_av_model_tpu/train/trainer.py:44-578``, the training
+step up to the whole run (``fit``: epochs, eval, rolling checkpoints, CSV
+logs, early stop, preemption):
 
 * total loss ``(ctc1 + ctc2) / 2 + lambda_contrastive * (contrast1 +
   contrast2) / 2``, each CTC term per sample over its label length, flush
@@ -26,7 +27,9 @@ and returns it with the step's metrics as device tensors.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+import time
 from typing import Any, Callable, Iterable
 
 import numpy as np
@@ -40,11 +43,18 @@ from ..ops.contrastive import contrastive_loss_with_mask
 from ..ops.ctc import ctc_greedy_decode, ctc_loss
 from ..ops.metrics import cer_counts, rate_from_counts, wer_counts
 from ..text.korean import jamo_counts
-from .logging_utils import StepTimer
+from .checkpoints import CheckpointManager
+from .logging_utils import CsvLogger, StepTimer, TensorBoardLogger
+from .preempt import GracefulShutdown
 from .profiling import NonFiniteLossError, check_finite
 
 GROUPS = ("base", "audio")
 METRIC_KEYS = ("loss", "ctc1", "ctc2", "contrast1", "contrast2", "grad_norm")
+
+
+def _host(x) -> np.ndarray:
+    """A batch entry (numpy array or tensor on any device) as numpy."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def label_params(names: Iterable[str], frozen_prefixes: tuple[str, ...] = (),
@@ -324,7 +334,11 @@ class MultiSpeakerTrainer:
         """``trainer.py:367-436`` -> ``(state, mean loss, throughput)``.  With
         ``async_dispatch`` the metrics (and the audio length) fold into sums
         on the device with an all-finite flag, and the host reads them only at
-        log points and at the end, where ``check_finite`` raises."""
+        log points and at the end, where ``check_finite`` raises.  The
+        throughput's ``input_wait_s`` is the time spent getting each next
+        batch (the loader's queue, and for device-preprocessed batches their
+        copy to the device and K2's launch), ``first_input_wait_s`` that of
+        the first batch alone, and ``elapsed_s`` the epoch's seconds."""
         if state is None:
             raise ValueError("train_epoch needs a state (init_state)")
         log_every = log_every or self.config.train.log_every
@@ -335,7 +349,13 @@ class MultiSpeakerTrainer:
         total, n = 0.0, 0
         acc = ok = None
         last_drained = -1
-        for i, batch in enumerate(batches):
+        batch_iter = iter(batches)
+        for i in itertools.count():
+            t_wait = time.perf_counter()
+            batch = next(batch_iter, None)
+            timer.input_waits.append(time.perf_counter() - t_wait)
+            if batch is None:
+                break
             if stop is not None and stop.requested:
                 break
             state, metrics = self.train_step(state, batch)
@@ -394,8 +414,8 @@ class MultiSpeakerTrainer:
                 else:
                     ids, lens = out["greedy" + s], out[f"greedy{s}_len"]
                 decoded.append((ids.cpu().numpy(), lens.cpu().numpy()))
-            t1, l1 = np.asarray(batch["text1"]), np.asarray(batch["text1_lengths"])
-            t2, l2 = np.asarray(batch["text2"]), np.asarray(batch["text2_lengths"])
+            t1, l1 = _host(batch["text1"]), _host(batch["text1_lengths"])
+            t2, l2 = _host(batch["text2"]), _host(batch["text2_lengths"])
             (ids1, len1), (ids2, len2) = decoded
             for b in range(num_real):
                 hyps1.append(self.tokenizer.decode(ids1[b, : len1[b]].tolist()))
@@ -408,3 +428,67 @@ class MultiSpeakerTrainer:
         wer1, wer2 = rate_from_counts(*w1), rate_from_counts(*w2)
         return (total / max(n, 1), (wer1 + wer2) / 2, rate_from_counts(*c),
                 {"wer1": wer1, "wer2": wer2, "jer": rate_from_counts(*j)})
+
+    def fit(self, state: TrainState, train_factory: Callable[[], Iterable[dict]],
+            val_factory: Callable[[], Iterable[dict]], log_fn: Callable[[str], None] = print,
+            start_epoch: int = 1) -> TrainState:
+        """The training run (``trainer.py:495-578``): for each epoch from
+        ``start_epoch`` to ``max_epochs``, ``train_epoch`` over
+        ``train_factory()``, ``evaluate`` over ``val_factory()``, one
+        ``[epoch N]`` line, a row in ``train_log.csv`` and ``eval_log.csv``
+        (appended to when resuming), the rolling checkpoints of
+        ``{"state", "epoch"}``, and early stop after ``early_stop_patience``
+        epochs without a better eval loss (the count survives a resume in
+        ``best.json``).  A SIGTERM or SIGINT (``handle_signals``) ends the
+        epoch at the next step, saves ``last.ckpt`` as the previous epoch, so
+        a resume redoes it, and returns."""
+        tcfg = self.config.train
+        resume = start_epoch > 1
+        ckpts = CheckpointManager(tcfg.checkpoint_dir, async_io=tcfg.async_checkpoint,
+                                  layout=tcfg.checkpoint_layout)
+        train_log = CsvLogger(f"{tcfg.checkpoint_dir}/train_log.csv", ["epoch", "loss"],
+                              resume=resume)
+        eval_log = CsvLogger(f"{tcfg.checkpoint_dir}/eval_log.csv",
+                             ["epoch", "eval_loss", "wer1", "wer2", "average_wer", "cer", "jer"],
+                             resume=resume)
+        tb = TensorBoardLogger(tcfg.tensorboard_dir)
+        best_loss, no_improve = ckpts.early_stop_state() if resume else (float("inf"), 0)
+        with GracefulShutdown(enable=tcfg.handle_signals) as stop:
+            for epoch in range(start_epoch, tcfg.max_epochs + 1):
+                state, train_loss, throughput = self.train_epoch(
+                    train_factory(), log_fn=log_fn, state=state, stop=stop)
+                if stop.requested:
+                    ckpts.save_now({"state": state, "epoch": epoch - 1})
+                    log_fn(f"preempted: saved {ckpts.last} mid-epoch {epoch} "
+                           f"(resume will redo the epoch)")
+                    break
+                eval_loss, eval_wer, eval_cer, per = self.evaluate(val_factory(), state)
+                log_fn(f"[epoch {epoch}] train_loss={train_loss:.4f} eval_loss={eval_loss:.4f} "
+                       f"wer={eval_wer:.3f} cer={eval_cer:.3f} "
+                       f"utt/s={throughput['utterances_per_sec']:.2f} "
+                       f"input_wait={throughput['input_wait_s']:.3f}s "
+                       f"first_batch_wait={throughput['first_input_wait_s']:.3f}s "
+                       f"train_s={throughput['elapsed_s']:.3f}")
+                tb.scalars(epoch, **{
+                    "train/loss": train_loss, "eval/loss": eval_loss, "eval/wer": eval_wer,
+                    "eval/cer": eval_cer, "eval/jer": per["jer"],
+                    "throughput/utt_per_sec": throughput["utterances_per_sec"]})
+                train_log.log(epoch=epoch, loss=f"{train_loss:.4f}")
+                eval_log.log(epoch=epoch, eval_loss=f"{eval_loss:.4f}",
+                             wer1=f"{per['wer1']:.4f}", wer2=f"{per['wer2']:.4f}",
+                             average_wer=f"{eval_wer:.4f}", cer=f"{eval_cer:.4f}",
+                             jer=f"{per['jer']:.4f}")
+                ckpts.on_epoch_end({"state": state, "epoch": epoch}, eval_loss, eval_wer)
+                if eval_loss < best_loss:
+                    best_loss, no_improve = eval_loss, 0
+                else:
+                    no_improve += 1
+                ckpts.set_no_improve(no_improve)
+                if no_improve >= tcfg.early_stop_patience:
+                    log_fn(f"early stop after {no_improve} epochs without improvement")
+                    break
+        ckpts.wait()
+        train_log.close()
+        eval_log.close()
+        tb.close()
+        return state

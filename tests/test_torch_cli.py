@@ -1,0 +1,174 @@
+"""PyTorch port, the command line: ``multimodal_av_model_tpu_torch.main.main``
+with ``--device=cpu`` at tiny widths, on a corpus written in the AI-Hub
+layout and on ``--synthetic`` pairs: train, resume, ``--eval``, ``--infer``,
+the visual-encoder graft with a frozen trunk, and every flag the port
+refuses.  Numbers are compared exactly (parameters after a frozen epoch).
+"""
+
+import contextlib
+import io
+import json
+import os
+
+import pytest
+import torch
+
+from multimodal_av_model_tpu_torch import main as pmain
+from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer, restore_checkpoint
+from test_torch_fit import write_corpus
+
+VOCAB = os.path.join(os.path.dirname(__file__), "..", "assets", "tokenizer800.vocab")
+TINY = [
+    "model.audio.d_model=32", "model.audio.num_layers=2", "model.audio.num_heads=2",
+    "model.audio.ffn_dim=64", "model.audio.conv_kernel_size=7",
+    "model.audio.middle_layers=(0,1)", "model.audio.output_dim=48",
+    "model.visual.frontend_channels=8", "model.visual.resnet_layers=(1,1,1,1)",
+    "model.visual.resnet_channels=(8,12,16,24)", "model.visual.output_dim=24",
+    "model.fusion.fused_dim=16", "model.fusion.num_heads=2",
+    "model.contrastive.projection_dim=8", "model.dtype=float32",
+    f"data.vocab_path={VOCAB}", "--device=cpu",
+]
+SMALL = ["data.num_pairs_per_epoch=4", "data.eval_pairs=2", "train.batch_size=2",
+         "train.eval_batch_size=2", "train.log_every=100"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The tiny models here run many small ops, which torch's thread pool
+    slows down when the suite's workers already share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def corpus_args(tmp_path_factory):
+    dirs = write_corpus(str(tmp_path_factory.mktemp("cli") / "corpus"))
+    return TINY + SMALL + [f"data.{k}={v}" for k, v in dirs.items()] + [
+        "data.video_buckets=(32,)"]
+
+
+@pytest.fixture(scope="module")
+def trained(corpus_args, tmp_path_factory):
+    """One epoch trained, then resumed to a second; the state ``fit`` got on
+    the resume is kept."""
+    ckpt = str(tmp_path_factory.mktemp("ckpt"))
+    args = corpus_args + [f"train.checkpoint_dir={ckpt}"]
+    pmain.main(args + ["train.max_epochs=1"])
+    first = restore_checkpoint(os.path.join(ckpt, "last.ckpt"))
+    seen = {}
+    fit = MultiSpeakerTrainer.fit
+
+    def spy(self, state, *a, **kw):
+        seen["step"], seen["generator"] = state.step, state.generator.get_state()
+        seen["start_epoch"] = kw.get("start_epoch")
+        return fit(self, state, *a, **kw)
+
+    MultiSpeakerTrainer.fit = spy
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            pmain.main(args + ["train.max_epochs=2"])
+    finally:
+        MultiSpeakerTrainer.fit = fit
+    seen["out"] = out.getvalue()
+    return args, ckpt, first, seen
+
+
+def test_train_then_resume(trained, capsys):
+    args, ckpt, first, seen = trained
+    assert first["epoch"] == 1 and first["state"]["step"] == 2
+    assert seen["start_epoch"] == 2 and seen["step"] == 2
+    # Everything is restored but the dropout generator, which starts afresh
+    # from data.seed, as JAX keeps its fresh PRNG key.
+    assert torch.equal(seen["generator"], torch.Generator().manual_seed(42).get_state())
+    last = restore_checkpoint(os.path.join(ckpt, "last.ckpt"))
+    assert last["epoch"] == 2 and last["state"]["step"] == 4
+    with open(os.path.join(ckpt, "eval_log.csv")) as f:
+        assert [r.split(",")[0] for r in f.read().split()] == ["epoch", "1", "2"]
+    assert {"best_wer.ckpt", "best_loss.ckpt", "best.json", "train_log.csv"} <= \
+        set(os.listdir(ckpt))
+
+
+def test_resume_prints_where_it_resumes(trained):
+    _, ckpt, _, seen = trained
+    assert f"resuming from {ckpt}/last.ckpt at epoch 2" in seen["out"]
+    assert "[epoch 2]" in seen["out"] and "[epoch 1]" not in seen["out"]
+
+
+def test_eval_prints_one_json_line(trained, capsys):
+    args, ckpt, _, _ = trained
+    pmain.main(args + ["--eval"])
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["checkpoint"] == os.path.join(ckpt, "best_wer.ckpt")
+    assert report["epoch"] in (1, 2) and set(report["decode"]) == {"greedy", "prefix_beam"}
+    for algo in report["decode"].values():
+        assert algo["cer"] >= 0 and algo["wer"] >= 0 and algo["eval_loss"] > 0
+
+
+def test_infer_prints_transcripts(trained, capsys):
+    args, ckpt, _, _ = trained
+    pmain.main(args + ["--infer"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == f"transcribing with {os.path.join(ckpt, 'best_wer.ckpt')}"
+    assert [ln.split(":")[0] for ln in out[1:-1]] == [
+        "[utt 0] speaker1", "[utt 0] speaker2", "[utt 1] speaker1", "[utt 1] speaker2"]
+    assert out[-1] == "transcribed 2 pairs"
+
+
+def test_synthetic_training(tmp_path, capsys):
+    pmain.main(TINY + SMALL + ["--synthetic", "train.max_epochs=1", "data.video_buckets=(64,)",
+                               f"train.checkpoint_dir={tmp_path}"])
+    out = capsys.readouterr().out
+    assert "[epoch 1] train_loss=" in out
+    assert restore_checkpoint(str(tmp_path / "last.ckpt"))["state"]["step"] == 2
+    pmain.main(TINY + SMALL + ["--synthetic", "--infer", "data.video_buckets=(64,)",
+                               f"train.checkpoint_dir={tmp_path}"])
+    assert capsys.readouterr().out.strip().endswith("transcribed 2 pairs")
+
+
+def test_visual_init_ckpt_with_a_frozen_trunk(trained, tmp_path, capsys):
+    args, ckpt, _, _ = trained
+    source = os.path.join(ckpt, "last.ckpt")
+    pmain.main(args + [f"train.checkpoint_dir={tmp_path}", "train.max_epochs=1",
+                       f"train.visual_init_ckpt={source}", "train.freeze_visual_trunk=true"])
+    assert f"grafted visual encoder from {source}" in capsys.readouterr().out
+    src = restore_checkpoint(source)["state"]["model"]
+    final = restore_checkpoint(str(tmp_path / "last.ckpt"))["state"]["model"]
+    visual = [k for k in final if k.startswith("visual_encoder.")]
+    assert visual
+    for k in visual:
+        if "running" not in k:                  # BatchNorm statistics still update
+            assert torch.equal(final[k], src[k]), k
+    assert not torch.equal(final["decoder.head.weight"], src["decoder.head.weight"])
+
+
+@pytest.mark.parametrize("arg,item", [
+    ("--family=audio", "item 6"), ("--family=ssl", "item 6"), ("--stream=a.wav", "item 4"),
+    ("--export=out", "item 4"), ("decode.quantize=true", "item 4"),
+    ("decode.stream_chunk_seconds=1.0", "item 4"), ("train.audio_init_ckpt=x.ckpt", "item 6"),
+    ("model.audio.specaug_time_masks=2", "item 6"), ("mesh.fsdp=true", "item 7"),
+    ("compile_cache_dir=/x", "item 8"), ("train.checkpoint_layout=sharded", "item 7"),
+])
+def test_refused_flags_name_their_roadmap_item(arg, item, tmp_path):
+    # The CLI refuses flags itself; CheckpointManager refuses the layout.
+    with pytest.raises((SystemExit, NotImplementedError), match=f"ROADMAP.md Queue 1 {item}"):
+        pmain.main(TINY + [arg, f"train.checkpoint_dir={tmp_path}"])
+    assert not os.listdir(tmp_path)
+
+
+def test_unknown_flags_and_fields_fail(tmp_path):
+    with pytest.raises(SystemExit, match="unknown flag"):
+        pmain.main(TINY + ["--no-such-flag"])
+    with pytest.raises(AttributeError, match="unknown config field"):
+        pmain.main(TINY + ["model.frontend.use_pallas=true"])
+    with pytest.raises(SystemExit, match="--device must be"):
+        pmain.main(["--device=tpu"])
+
+
+def test_without_a_card_the_cli_needs_device_cpu(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device=cpu"):
+        pmain.main(["--synthetic", f"train.checkpoint_dir={tmp_path}"])
+    assert not os.listdir(tmp_path)

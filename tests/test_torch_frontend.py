@@ -234,9 +234,14 @@ def test_config_defaults_equal_jax_defaults():
     assert tcfg.Config().train.lr_schedule == jcfg.Config().train.lr_schedule == "constant"
     with pytest.raises(AttributeError):
         tcfg.from_flat_overrides(["model.frontend.use_pallas=true"])
-    # Fields only fit and the training CLI read are not in the port yet: an
-    # override of one fails instead of changing nothing.
-    for item in ("train.freeze_visual_trunk=true", "train.batch_size=16",
-                 "train.checkpoint_dir=ckpt"):
+    # The fields fit and the training CLI read are in the port; those of parts
+    # not ported yet are not: an override of one fails instead of changing
+    # nothing.
+    cfg = tcfg.from_flat_overrides(["train.freeze_visual_trunk=true", "train.batch_size=16",
+                                    "train.checkpoint_dir=ckpt", "data.device_preprocess=false"])
+    assert cfg.train.freeze_visual_trunk and cfg.train.batch_size == 16
+    assert cfg.train.checkpoint_dir == "ckpt" and not cfg.data.device_preprocess
+    for item in ("train.audio_init_ckpt=x.ckpt", "decode.quantize=true", "mesh.fsdp=true",
+                 "compile_cache_dir=cache"):
         with pytest.raises(AttributeError):
             tcfg.from_flat_overrides([item])
