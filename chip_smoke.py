@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port's serving path, training step and training run on one
-NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port's serving surface, training step and training run on
+one NVIDIA GPU (H100).
 
     python3 chip_smoke.py      # needs one CUDA card; a few minutes on an H100
 
@@ -58,11 +58,37 @@ Phases, each printing a line; any failure exits non-zero:
     ``eval_log.csv``, ``last.ckpt`` at epoch 3, the ``--eval`` JSON and 8
     transcribed pairs;
 11. ``[train-profile]`` (after phase 7): one B = 8 step under
-    ``torch.profiler``.
+    ``torch.profiler``;
+12. ``[beam-ref]`` (after phase 5): ``decode.algorithm="reference_beam"`` on
+    one bucket-128 request; the card's ids equal a CPU run of the reference
+    beam on the same log-probs, and the decode's ms;
+13. ``[quant]``: the int8 ``Transcriber`` (``decode.quantize``) on phase 5's
+    requests: every dequantized tensor equal to the plain dequantization on
+    the CPU, K1 1 and K2 2 per request; bytes held against the fp copy,
+    latency, peak memory, and the share of ids equal to the fp
+    ``Transcriber``'s (reported);
+14. ``[stream-ref]``: the pairing gates in f32 at a small width (three pooled
+    streams equal three single-stream runs, every ``AudioService`` answer a
+    direct transcription);
+15. ``[stream-audio]``: ``AudioOnlyCTC`` on the flagship's 12x512 Conformer
+    (vocab 800, bf16): K1 against its plain version at ``[1, 160000]`` and
+    ``[8, 160000]``; 30 s through ``StreamingAudioTranscriber`` in 2 s chunks
+    over 8 s of context (prefix beam), then 8 streams of 20 s through a
+    ``StreamingPool``: 1 K1 per window or tick, finite normalised log-probs,
+    per-chunk latency, the real-time factor and peak memory;
+16. ``[serve]``: ``AudioService(max_batch=8, max_seconds=16)`` over the same
+    model with 32 requests from threads: K1 at ``[8, 256000]``, every request
+    answered, mean batch, latency p50 and p90, peak memory;
+17. ``[stream-av]``: the CLI ``--stream=lips1.avi,lips2.avi,mix.wav`` on a
+    full-width flagship checkpoint and 12 s of media that the port writes:
+    K1 at the window's ``[1, 160200]``, K1 1 and K2 0 per window, each
+    speaker's streamed prefix-beam ids equal to one offline pass over the
+    emitted log-probs; per-window ms and the real-time factor.
 
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
-the timed training steps of phase 9 and the CLI calls of phase 10 (each
-path's own count is under ``launches_by_path``).  The last three lines are the ``kernels`` JSON, the
+the timed training steps of phase 9, the CLI calls of phase 10 and the main
+paths of phases 13 and 15-17 (each path's own count is under
+``launches_by_path``).  The last three lines are the ``kernels`` JSON, the
 ``nvidia-smi`` line and ``{"ok": true, "device": ...}``.  Nothing of JAX is
 imported.
 """
@@ -316,6 +342,16 @@ def make_request(rng, B: int, spec, crop: int = 128):
     return collate_pairs_raw(samples, spec)
 
 
+def _flagship_batch(torch, raw):
+    from multimodal_av_model_tpu_torch.data.device_pipeline import preprocess_batch_device
+
+    batch = preprocess_batch_device(raw["lip1_raw"], raw["lip2_raw"], raw["audio1"],
+                                    raw["audio2"], raw["audio1_len"], raw["audio2_len"],
+                                    device="cuda")
+    batch["lip1_lengths"], batch["lip2_lengths"] = raw["lip1_lengths"], raw["lip2_lengths"]
+    return batch
+
+
 def tiny_model_config():
     from multimodal_av_model_tpu_torch.config import Config
 
@@ -382,7 +418,6 @@ def reference_phase(torch, rng):
 def serving_phase(torch, rng, tok):
     from multimodal_av_model_tpu_torch.config import Config, torch_dtype
     from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
-    from multimodal_av_model_tpu_torch.data.device_pipeline import preprocess_batch_device
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
@@ -405,11 +440,7 @@ def serving_phase(torch, rng, tok):
     model.register_forward_hook(lambda mod, args, out: captured.append(out))
 
     def serve(raw):
-        batch = preprocess_batch_device(raw["lip1_raw"], raw["lip2_raw"], raw["audio1"],
-                                        raw["audio2"], raw["audio1_len"], raw["audio2_len"],
-                                        device="cuda")
-        batch["lip1_lengths"], batch["lip2_lengths"] = raw["lip1_lengths"], raw["lip2_lengths"]
-        return transcriber.transcribe(batch)
+        return transcriber.transcribe(_flagship_batch(torch, raw))
 
     for T in sorted(set(plan)):                     # warm-up, one per bucket shape
         serve(requests[plan.index(T)])
@@ -464,7 +495,7 @@ def serving_phase(torch, rng, tok):
     def profile_request():
         wall = layer_breakdown(torch, transcriber, serve, requests[0])
         kernel_profile(torch, serve, requests[0], wall)
-    return launches, profile_request
+    return launches, profile_request, (transcriber, requests, plan)
 
 
 def layer_breakdown(torch, transcriber, serve, raw):
@@ -907,6 +938,524 @@ def fit_phase(torch, tok, smi: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def k1_at(torch, x, tag: str) -> float:
+    """K1 on the card against its plain version on ``x`` (phase 3's bars),
+    then its time by graph replay beside its bytes bound; returns the error."""
+    from multimodal_av_model_tpu_torch.ops import logmel
+
+    got, ref = logmel.log_mel_spectrogram_cuda(x), logmel.log_mel_spectrogram(x)
+    err = (got - ref).abs().max().item()
+    if not torch.allclose(got, ref, rtol=2e-3, atol=2e-3):
+        raise SystemExit(f"{tag}: K1 disagrees with its plain version at {tuple(x.shape)}: {err}")
+    ms = cuda_ms(logmel.log_mel_spectrogram_cuda, [(x,)], 50, graph=True)
+    b_ms, b_by = bound(0.0, x.numel() * 4 + got.numel() * 4)
+    log(f"[{tag}] K1 {tuple(x.shape)} -> {tuple(got.shape)}: max|kernel-plain| {err:.3g} "
+        f"(rtol=atol=2e-3) ok; {ms:.4f} ms by graph replay, bound {b_ms:.4f} ms by {b_by} "
+        f"({b_ms / ms:.3f} of it)")
+    return err
+
+
+def _waveform(rng, n: int):
+    """A voiced-looking test waveform: two drifting tones and noise."""
+    t = np.arange(n) / 16000.0
+    f0 = rng.uniform(100, 250)
+    return (0.3 * np.sin(2 * np.pi * f0 * t * (1 + 0.1 * np.sin(t)))
+            + 0.1 * np.sin(2 * np.pi * 3 * f0 * t) + 0.05 * rng.standard_normal(n)).astype(
+        np.float32)
+
+
+def beam_ref_phase(torch, served) -> None:
+    """[beam-ref]: decode.algorithm="reference_beam" on one bucket-128
+    request of phase 5; the card's ids against a CPU run of the port's
+    reference beam on the same log-probs."""
+    import copy
+
+    from multimodal_av_model_tpu_torch.infer import Transcriber, decode_ids
+
+    transcriber, requests, _ = served
+    cfg = copy.deepcopy(transcriber.config)
+    cfg.decode.algorithm = "reference_beam"
+    ref_t = Transcriber(cfg, transcriber.tokenizer, transcriber.model, device="cuda")
+    batch = _flagship_batch(torch, requests[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = ref_t.transcribe(batch)
+    torch.cuda.synchronize()
+    req_ms = (time.perf_counter() - t0) * 1e3
+    keys = ("lip1", "lip2", "audio", "mask1", "mask2", "lip1_lengths", "lip2_lengths")
+    with torch.no_grad():
+        out = ref_t.forward(*[torch.as_tensor(batch[k]).cuda() for k in keys])
+    lp = torch.cat([out["log_probs1"], out["log_probs2"]])
+    lens = torch.cat([out["input_lengths1"], out["input_lengths2"]])
+    decode_ids(cfg, lp, lens)                       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, n = decode_ids(cfg, lp, lens)
+    ids, n = ids.cpu(), n.cpu()
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    ids_cpu, n_cpu = decode_ids(cfg, lp.cpu(), lens.cpu())
+    same = torch.equal(ids, ids_cpu) and torch.equal(n, n_cpu)
+    log(f"[beam-ref] reference beam (width {cfg.decode.beam_width}) on one bucket-128 request: "
+        f"request {req_ms:.1f} ms, decode of {tuple(lp.shape)} log-probs + readback "
+        f"{dec_ms:.1f} ms on the card; ids {'equal to' if same else 'DIFFER from'} the CPU run "
+        f"of the same log-probs (mean length {n.float().mean().item():.1f}); first texts "
+        f"{json.dumps(texts[0])[:80]} {'ok' if same else 'FAILED'}")
+    if not same:
+        raise SystemExit("beam-ref: the card's reference-beam ids differ from the CPU's")
+
+
+def quant_phase(torch, served) -> dict:
+    """[quant]: the int8 Transcriber on phase 5's requests (K2 x2 and K1 x1
+    each): dequantization exact, bytes, latency, agreement with fp ids."""
+    import copy
+
+    from multimodal_av_model_tpu_torch import infer
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+
+    fp_t, requests, plan = served
+    t0 = time.perf_counter()
+    q_t = infer.Transcriber(fp_t.config, fp_t.tokenizer, copy.deepcopy(fp_t.model),
+                            device="cuda", quantize=True)
+    q = q_t.forward
+    build_s = time.perf_counter() - t0
+    fp_bytes = sum(v.numel() * 4 for v in fp_t.model.state_dict().values())
+    mismatched = [name for name, d in q.dequantized().items() if name in q.scales and not
+                  torch.equal(d.cpu(), (q.qstate[name].cpu().reshape(q.layouts[name].view)
+                                        .float() * q.scales[name].cpu()).reshape(d.shape)
+                              .to(q.dtype))]
+    if mismatched:
+        raise SystemExit(f"quant: dequantization on the card differs from the plain one: "
+                         f"{mismatched[:5]}")
+    log(f"[quant] {len(q.scales)} of {len(q.qstate)} tensors int8 (min_size 4096), quantized "
+        f"on the card in {build_s:.2f} s; every dequantized tensor equals the plain "
+        f"(q.float() * s).to({q.dtype}) on the CPU ok; parameters held {q.nbytes / 1e6:.1f} MB "
+        f"(int8 + scales + unquantized) against {fp_bytes / 1e6:.1f} MB f32 "
+        f"({fp_bytes / 2 / 1e6:.1f} MB as bf16): {fp_bytes / q.nbytes:.2f}x and "
+        f"{fp_bytes / 2 / q.nbytes:.2f}x smaller")
+
+    decoded, original = {}, infer.decode_ids
+
+    def recording(tag):
+        def decode(*args, **kwargs):
+            ids, n = original(*args, **kwargs)
+            decoded.setdefault(tag, []).extend(
+                ids[b, :k].tolist() for b, k in enumerate(n.cpu().tolist()))
+            return ids, n
+        return decode
+
+    for raw in requests[:1]:                        # warm-up of the int8 path
+        q_t.transcribe(_flagship_batch(torch, raw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log_mel_spectrogram_cuda.launches = 0
+    lip_preprocess_cuda.launches = 0
+    lat, per_request = [], []
+    try:
+        infer.decode_ids = recording("int8")
+        for raw in requests:                        # the main path
+            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+            t0 = time.perf_counter()
+            q_t.transcribe(_flagship_batch(torch, raw))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            per_request.append((log_mel_spectrogram_cuda.launches - before[0],
+                                lip_preprocess_cuda.launches - before[1]))
+        launches = {"logmel": log_mel_spectrogram_cuda.launches,
+                    "lip_preprocess": lip_preprocess_cuda.launches}
+        peak = torch.cuda.max_memory_allocated()
+        infer.decode_ids = recording("fp")
+        for raw in requests:                        # the fp texts, not counted
+            fp_t.transcribe(_flagship_batch(torch, raw))
+    finally:
+        infer.decode_ids = original
+    if any(p != (1, 2) for p in per_request):
+        raise SystemExit(f"quant: launches per request {per_request} (expected K1 1, K2 2)")
+    pairs = list(zip(decoded["int8"], decoded["fp"]))
+    same_seq = sum(a == b for a, b in pairs) / len(pairs)
+    agree = sum(sum(x == y for x, y in zip(a, b)) for a, b in pairs) / max(
+        sum(max(len(a), len(b)) for a, b in pairs), 1)
+    log(f"[quant] {len(requests)} requests (buckets {plan}): "
+        + ", ".join(f"{ms:.1f}" for ms in lat) + f" ms; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {launches} (K1 1, K2 2 per request); against the fp "
+        f"Transcriber on the same requests: {same_seq:.3f} of the {len(pairs)} id sequences "
+        f"equal, {agree:.3f} of the id positions agree (reported, not gated)")
+    del q_t
+    return launches
+
+
+def stream_ref_phase(torch, rng, tok) -> None:
+    """[stream-ref]: the pairing gates in f32 at a small width on the card
+    (in bf16 at full width a row's argmax may move with its batch
+    neighbours, as cuBLAS picks kernels by batch size): three pooled streams
+    equal three single-stream runs; every ``AudioService`` answer equals a
+    direct transcription of the request at the service's shape."""
+    from multimodal_av_model_tpu_torch.infer import AudioTranscriber
+    from multimodal_av_model_tpu_torch.models import AudioOnlyCTC, init_weights
+    from multimodal_av_model_tpu_torch.serve import AudioService
+    from multimodal_av_model_tpu_torch.streaming import StreamingAudioTranscriber, StreamingPool
+
+    cfg = tiny_model_config()
+    model = init_weights(AudioOnlyCTC(cfg.model), torch.Generator().manual_seed(3))
+    kw = dict(chunk_seconds=0.5, context_seconds=1.0, device="cuda")
+    audios = [_waveform(rng, n) for n in (30000, 21000, 40000)]
+    blocks = (4000, 7000, 16000)
+    pool = StreamingPool(cfg, tok, model, max_streams=4, **kw)
+    sids = [pool.open() for _ in audios]
+    pooled = [""] * 3
+    for step in range(max(len(a) // b + 1 for a, b in zip(audios, blocks))):
+        for j, sid in enumerate(sids):
+            lo = step * blocks[j]
+            if lo < len(audios[j]):
+                pooled[j] += pool.feed(sid, audios[j][lo:lo + blocks[j]])
+    pooled = [p + pool.flush(sid) for p, sid in zip(pooled, sids)]
+    single = []
+    for a, b in zip(audios, blocks):
+        s = StreamingAudioTranscriber(cfg, tok, model, algorithm="greedy", **kw)
+        single.append("".join(s.feed(a[i:i + b]) for i in range(0, len(a), b)) + s.flush())
+    t = AudioTranscriber(cfg, tok, model, device="cuda")
+    svc = AudioService(t, max_batch=4, max_seconds=1.0, max_wait_ms=20)
+    waves = [_waveform(rng, int(rng.integers(4000, 20000))) for _ in range(9)]
+    answers = [f.result(120) for f in [svc.submit(w) for w in waves]]
+    svc.close()
+    direct = []
+    for w in waves:
+        audio, mask = np.zeros((4, svc.samples), np.float32), np.zeros((4, svc.samples), bool)
+        audio[0, :min(len(w), svc.samples)] = w[:svc.samples]
+        mask[0, :min(len(w), svc.samples)] = True
+        direct.append(t.transcribe(audio, mask)[0])
+    ok = pooled == single and answers == direct
+    log(f"[stream-ref] small f32 audio model on the card: 3 pooled streams "
+        f"{'equal' if pooled == single else 'DIFFER from'} 3 single-stream runs "
+        f"({sum(map(len, single))} characters); {len(waves)} service answers "
+        f"{'equal' if answers == direct else 'DIFFER from'} direct transcriptions "
+        f"(mean batch {svc.batcher.stats.mean_batch:.2f}) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"stream-ref: pooled {pooled} single {single} / answers {answers} "
+                         f"direct {direct}")
+
+
+def _split_ms(torch, forward, decode) -> tuple[float, float]:
+    """Host-clock ms of ``forward()`` and of ``decode(its output)``, each
+    ended by a synchronise (after one warm-up of both)."""
+    with torch.no_grad():
+        decode(forward())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode(out)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def _audio_model(torch):
+    """``AudioOnlyCTC`` on the flagship's 12x512 Conformer, vocab 800, bf16,
+    seeded random weights."""
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.models import AudioOnlyCTC, init_weights
+
+    cfg = Config()
+    model = init_weights(AudioOnlyCTC(cfg.model, torch_dtype(cfg.model.dtype)),
+                         torch.Generator().manual_seed(4))
+    return cfg, model
+
+
+def stream_audio_phase(torch, rng, tok):
+    """[stream-audio]: 30 s through ``StreamingAudioTranscriber`` in 2 s
+    chunks (8 s context, prefix beam), then 8 streams of 20 s through a
+    ``StreamingPool``, at full width."""
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.streaming import (
+        StreamingAudioTranscriber,
+        StreamingPool,
+        _PrefixBeamStream,
+    )
+
+    cfg, model = _audio_model(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+    s = StreamingAudioTranscriber(cfg, tok, model, chunk_seconds=2.0, context_seconds=8.0,
+                                  device="cuda", algorithm="prefix_beam")
+    x = torch.from_numpy(np.stack([_waveform(rng, s.window_samples) for _ in range(8)])).cuda()
+    k1_at(torch, x[:1].contiguous(), "stream-audio")
+    k1_at(torch, x, "stream-audio")
+    del x
+    bad = []
+
+    def check(mod, args, out):                       # finite, normalised log-probs
+        lp = out[0].float()
+        if not torch.isfinite(lp).all() or (lp.logsumexp(-1).abs() > 1e-3).any():
+            bad.append(tuple(lp.shape))
+    hook = model.register_forward_hook(check)
+    audio = _waveform(rng, 30 * 16000)
+    block = s.chunk_samples
+    s.feed(audio[:block])                            # warm-up, then a fresh stream
+    s.flush()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log_mel_spectrogram_cuda.launches = 0
+    lat, text = [], ""
+    for i in range(0, len(audio), block):            # the main path
+        t0 = time.perf_counter()
+        text += s.feed(audio[i:i + block])
+        lat.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    text += s.flush()
+    flush_ms = (time.perf_counter() - t0) * 1e3
+    k1 = log_mel_spectrogram_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"stream_audio": {"logmel": k1, "lip_preprocess": 0}}
+    if k1 != len(lat) or bad:
+        raise SystemExit(f"stream-audio: K1 {k1} launches for {len(lat)} windows, bad log-probs "
+                         f"{bad}")
+    log(f"[stream-audio] AudioOnlyCTC {n_params / 1e6:.1f}M params (bf16 compute), window "
+        f"[1, {s.window_samples}] (2 s chunk + 8 s context), prefix beam 5: 30 s in "
+        f"{len(lat)} chunks; per-chunk latency (host clock around each feed) min "
+        f"{min(lat):.1f}, median {np.median(lat):.1f}, max {max(lat):.1f} ms; flush "
+        f"{flush_ms:.1f} ms; real-time factor {(sum(lat) + flush_ms) / 1e3 / 30:.4f}; peak "
+        f"device memory {peak / 2**30:.2f} GiB; K1 {k1} launches (1 per window); finite, "
+        f"normalised log-probs ok; {len(text)} characters emitted")
+    window = torch.from_numpy(audio[None, :s.window_samples]).cuda()
+    spf = cfg.model.frontend.hop_length * cfg.model.audio.subsample_factor
+    start, n_new = (s.window_samples - s.chunk_samples) // spf, s.chunk_samples // spf
+    beam = _PrefixBeamStream(cfg.decode, cfg.model.decoder.blank_id, n_new, s.beam_capacity)
+    fwd_ms, dec_ms = _split_ms(torch, lambda: s.forward_fn(window, torch.ones_like(
+        window, dtype=torch.bool)), lambda lp: beam.advance(lp[0], start, start + n_new))
+    log(f"[stream-audio] one more window, not counted: forward {fwd_ms:.1f} ms, prefix-beam "
+        f"step over its {n_new} new frames + commit readback {dec_ms:.1f} ms")
+
+    pool = StreamingPool(cfg, tok, model, max_streams=8, chunk_seconds=2.0,
+                         context_seconds=8.0, device="cuda")
+    audios = [_waveform(rng, 20 * 16000) for _ in range(8)]
+    sid = pool.open()
+    pool.feed(sid, audios[0][:block])                # warm-up
+    pool.flush(sid)
+    ticks = []
+    step = pool._step
+
+    def counting_step(*a, **kw):
+        t0 = time.perf_counter()
+        active = sum(b is not None and b.shape[0] >= pool.chunk_samples
+                     for b, on in zip(pool._buffer, pool._active) if on)
+        step(*a, **kw)
+        ticks.append((active, time.perf_counter() - t0))
+    pool._step = counting_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log_mel_spectrogram_cuda.launches = 0
+    sids = [pool.open() for _ in audios]
+    t0 = time.perf_counter()
+    n_chars = 0
+    for i in range(0, 20 * 16000, block):            # the main path, as the CLI feeds
+        for sid, a in zip(sids, audios):
+            n_chars += len(pool.feed(sid, a[i:i + block]))
+    for sid in sids:
+        n_chars += len(pool.flush(sid))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = log_mel_spectrogram_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    hook.remove()
+    pool._step = step
+    launches["pool"] = {"logmel": k1, "lip_preprocess": 0}
+    tick_ms = [dt * 1e3 for _, dt in ticks]
+    if k1 != len(ticks) or bad:
+        raise SystemExit(f"pool: K1 {k1} launches for {len(ticks)} ticks, bad log-probs {bad}")
+    log(f"[stream-audio] pool of 8 streams x 20 s, fed in 2 s blocks stream by stream (as "
+        f"the CLI feeds): {len(ticks)} ticks of [8, {pool.window_samples}], "
+        f"{sum(a for a, _ in ticks) / len(ticks):.2f} streams per tick; tick min "
+        f"{min(tick_ms):.1f}, median {np.median(tick_ms):.1f}, max {max(tick_ms):.1f} ms; "
+        f"{wall:.2f} s for 160 s of audio: real-time factor {wall / 160:.4f}; peak device "
+        f"memory {peak / 2**30:.2f} GiB; K1 {k1} launches (1 per tick); {n_chars} characters")
+    return launches, (cfg, model)
+
+
+def serve_phase(torch, rng, tok, audio_model) -> dict:
+    """[serve]: ``AudioService(max_batch=8, max_seconds=16)`` over the
+    full-width ``AudioTranscriber``, 32 requests of 2-16 s from 32 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multimodal_av_model_tpu_torch.infer import AudioTranscriber, decode_ids
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.serve import AudioService
+
+    cfg, model = audio_model
+    t = AudioTranscriber(cfg, tok, model, device="cuda")
+    svc = AudioService(t, max_batch=8, max_seconds=16.0, max_wait_ms=10.0)
+    x = torch.from_numpy(np.stack([_waveform(rng, svc.samples) for _ in range(8)])).cuda()
+    k1_at(torch, x, "serve")
+    del x
+    svc.transcribe(_waveform(rng, 16000), timeout=300)     # warm-up
+    waves = [_waveform(rng, int(rng.uniform(2, 16) * 16000)) for _ in range(32)]
+    base = svc.batcher.stats.requests, svc.batcher.stats.batches
+
+    def call(w):
+        t0 = time.perf_counter()
+        text = svc.transcribe(w, timeout=300)
+        return text, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log_mel_spectrogram_cuda.launches = 0
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=32) as ex:              # the main path
+        results = list(ex.map(call, waves))
+    wall = time.perf_counter() - t0
+    k1 = log_mel_spectrogram_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    svc.close()
+    n_req = svc.batcher.stats.requests - base[0]
+    n_batches = svc.batcher.stats.batches - base[1]
+    lat = sorted(ms for _, ms in results)
+    p50, p90 = float(np.percentile(lat, 50)), float(np.percentile(lat, 90))
+    if len(results) != 32 or n_req != 32 or not all(isinstance(x, str) for x, _ in results) \
+            or k1 != n_batches:
+        raise SystemExit(f"serve: {len(results)} answers, {n_req} requests counted, K1 {k1} "
+                         f"launches for {n_batches} batches")
+    batch = torch.from_numpy(np.stack([_waveform(rng, svc.samples) for _ in range(8)])).cuda()
+    mask = torch.ones_like(batch, dtype=torch.bool)
+    fwd_ms, dec_ms = _split_ms(torch, lambda: t.forward(batch, mask),
+                               lambda out: decode_ids(cfg, *out))
+    log(f"[serve] AudioService(max_batch=8, max_seconds=16) over AudioTranscriber (12x512, "
+        f"bf16, prefix beam 5): 32 requests of 2-16 s from 32 threads, all answered in "
+        f"{wall:.2f} s; {n_batches} batches of [8, {svc.samples}], mean batch "
+        f"{n_req / n_batches:.2f}; latency per request p50 {p50:.1f} ms, p90 {p90:.1f} ms "
+        f"({sum(ms > p90 for ms in lat)} beyond it), max {lat[-1]:.1f}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; K1 {k1} launches (1 per batch); one more full batch, not "
+        f"counted: forward {fwd_ms:.1f} ms, prefix-beam decode of its {svc.samples // 320 + 1} "
+        f"frames + readback {dec_ms:.1f} ms")
+    return {"logmel": k1, "lip_preprocess": 0}
+
+
+def stream_av_phase(torch, tok, smi: str) -> dict:
+    """[stream-av]: the port's CLI ``--stream=lips1.avi,lips2.avi,mix.wav`` on
+    a full-width flagship checkpoint the port writes, with 12 s of media
+    written by the port's ``write_avi`` and ``write_wav``; the streamed
+    prefix-beam ids of each speaker against one offline pass over the
+    emitted log-probs."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch import main as cli
+    from multimodal_av_model_tpu_torch import streaming
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.data.audio_io import write_wav
+    from multimodal_av_model_tpu_torch.data.avi import write_avi
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam_search_decode
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.train import save_checkpoint
+
+    cfg = Config()
+    root = tempfile.mkdtemp(prefix="mmav_stream_av_")
+    rng = np.random.default_rng(6)
+    try:
+        t0 = time.perf_counter()
+        model = init_weights(MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)),
+                             torch.Generator().manual_seed(0))
+        save_checkpoint(os.path.join(root, "ckpt", "last.ckpt"),
+                        {"state": {"model": model.state_dict()}, "epoch": 0})
+        del model
+        n_f, spf = 360, cfg.data.audio_samples_per_video_frame
+        media = [os.path.join(root, f) for f in ("lips1.avi", "lips2.avi", "mix.wav")]
+        for path in media[:2]:
+            yy, xx = np.mgrid[0:128, 0:128]
+            frames = np.stack([np.clip(128 + 60 * np.sin(xx / (9 + 3 * np.sin(f / 7)) + f / 5)
+                                       * np.cos(yy / 11) + rng.normal(0, 8, (128, 128)), 0, 255)
+                               for f in range(n_f)]).astype(np.uint8)
+            write_avi(path, np.repeat(frames[..., None], 3, -1), fps=30)
+        write_wav(media[2], _waveform(rng, n_f * spf), 16000)
+        log(f"[stream-av] full-width flagship checkpoint and 12 s of media ({n_f} frames of "
+            f"128x128x3 in two DIB AVIs, a 16 kHz WAV) written by the port in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        F = round(2.0 * 16000 / spf) + round(8.0 * 16000 / spf)
+        x = torch.from_numpy(_waveform(rng, F * spf)[None]).cuda()
+        k1_at(torch, x, "stream-av")
+        del x
+
+        emitted, tails, window_ms = {}, {}, []
+        advance, tail, decode_window = (streaming._PrefixBeamStream.advance,
+                                        streaming._PrefixBeamStream.tail,
+                                        streaming.StreamingAVTranscriber._decode_window)
+
+        def rec_advance(self, log_probs, start, end):
+            out = advance(self, log_probs, start, end)
+            rows, ids = emitted.setdefault(id(self), ([], []))
+            rows.append(log_probs[start:end].float().cpu())
+            ids.extend(out)
+            return out
+
+        def rec_tail(self):
+            out = tail(self)
+            tails[id(self)] = out
+            return out
+
+        def timed_window(self, valid_f):
+            t0 = time.perf_counter()
+            out = decode_window(self, valid_f)
+            torch.cuda.synchronize()
+            window_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        args = [f"--stream={','.join(media)}", f"train.checkpoint_dir={os.path.join(root, 'ckpt')}",
+                f"data.vocab_path={os.path.join(REPO, cfg.data.vocab_path)}", "--device=cuda"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log_mel_spectrogram_cuda.launches = 0
+        lip_preprocess_cuda.launches = 0
+        tee = _Tee(sys.stdout)
+        streaming._PrefixBeamStream.advance = rec_advance
+        streaming._PrefixBeamStream.tail = rec_tail
+        streaming.StreamingAVTranscriber._decode_window = timed_window
+        try:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):     # the main path
+                cli.main(args)
+            torch.cuda.synchronize()
+            call_s = time.perf_counter() - t0
+        finally:
+            streaming._PrefixBeamStream.advance = advance
+            streaming._PrefixBeamStream.tail = tail
+            streaming.StreamingAVTranscriber._decode_window = decode_window
+        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        n_win = len(window_ms)
+        if n_win == 0 or k1 != n_win or k2 != 0 or len(emitted) != 2:
+            raise SystemExit(f"stream-av: K1 {k1}, K2 {k2} launches for {n_win} windows, "
+                             f"{len(emitted)} beams")
+        dcfg, same = cfg.decode, []
+        for key, (rows, ids) in emitted.items():
+            lp = torch.cat(rows)
+            want, n, _ = prefix_beam_search_decode(lp[None].cuda(), torch.tensor([lp.shape[0]]),
+                                                   dcfg.beam_width, dcfg.prefix_top_k,
+                                                   cfg.model.decoder.blank_id)
+            got = ids + tails.get(key, [])
+            same.append(got == want[0, :int(n[0])].cpu().tolist())
+            if not torch.isfinite(lp).all():
+                raise SystemExit("stream-av: non-finite log-probs")
+        lines = [ln for ln in "".join(tee.text).splitlines() if ln.startswith("[speaker")]
+        log(f"[stream-av] CLI --stream=lips1.avi,lips2.avi,mix.wav in {call_s:.1f} s: {n_win} "
+            f"windows of {F} frames (2 s chunk + 8 s context; lips [1, {F}, 1, 96, 96] x 2, "
+            f"audio [1, {F * spf}]), per window "
+            + ", ".join(f"{ms:.0f}" for ms in window_ms) + f" ms; real-time factor "
+            f"{sum(window_ms) / 1e3 / (n_f * spf / 16000):.4f} (windows only); peak device "
+            f"memory {peak / 2**30:.2f} GiB; launches K1 {k1}, K2 {k2} (1 and 0 per window); "
+            f"{len(lines)} speaker lines; streamed prefix-beam ids "
+            f"{'equal' if all(same) else 'DIFFER from'} one offline pass over the emitted "
+            f"log-probs for both speakers ({[len(r[1]) + len(tails.get(k, [])) for k, r in emitted.items()]} tokens) "
+            f"{'ok' if all(same) else 'FAILED'}; card {smi}")
+        if not all(same):
+            raise SystemExit("stream-av: streamed ids differ from the offline pass")
+        return {"logmel": k1, "lip_preprocess": k2}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def train_profile(torch, step) -> None:
     """One B = 8 training step timed (after one more to warm the caching
     allocator again after the B = 32 steps), then one under
@@ -953,14 +1502,25 @@ def main() -> int:
     tok = CharTokenizer(os.path.join(REPO, Config().data.vocab_path))
     (k1, k1_calls), (k2, k2_calls) = k1_phase(torch, rng), k2_phase(torch, rng)
     reference_phase(torch, rng)
-    serving_launches, profile_request = serving_phase(torch, rng, tok)
+    serving_launches, profile_request, served = serving_phase(torch, rng, tok)
+    beam_ref_phase(torch, served)
+    quant_launches = quant_phase(torch, served)
+    stream_ref_phase(torch, rng, tok)
+    stream_launches, audio_model = stream_audio_phase(torch, rng, tok)
+    serve_launches = serve_phase(torch, rng, tok, audio_model)
+    del audio_model
+    stream_av_launches = stream_av_phase(torch, tok, smi)
     train_ref_phase(torch, rng, tok)
     train_launches, train_step = train_phase(torch, rng, tok)
     fit_launches = fit_phase(torch, tok, smi)
     kernels = [k1, k2]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
         by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
-                   "fit": fit_launches[k["name"]]}
+                   "fit": fit_launches[k["name"]],
+                   "stream_audio": stream_launches["stream_audio"][k["name"]],
+                   "pool": stream_launches["pool"][k["name"]],
+                   "stream_av": stream_av_launches[k["name"]], "quant": quant_launches[k["name"]],
+                   "serve": serve_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         dev_ms, caught = profiled_ms(*calls)

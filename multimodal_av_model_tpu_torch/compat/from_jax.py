@@ -1,8 +1,8 @@
 """Weight bridge: flax ``{"params", "batch_stats"}`` -> the port's ``state_dict``.
 
 The inverse direction of ``multimodal_av_model_tpu/compat/torch_import.py:11-37``
-for the flagship ``MultiSpeakerAVModel``, written from the layouts alone (that
-module is not imported):
+for the flagship ``MultiSpeakerAVModel`` and ``AudioOnlyCTC``, written from
+the layouts alone (that module is not imported):
 
 * Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed);
 * attention ``query/key/value kernel [E, H, hd]`` -> ``[H*hd, E]``, ``out
@@ -246,6 +246,15 @@ def from_jax_variables(variables_np) -> dict[str, torch.Tensor]:
         _fusion(tree, sd, "fusion", "fusion")
         _dense(tree, sd, "decoder/head", "decoder.head")
         _dense(tree, sd, "contrastive_proj", "contrastive_proj")
+    return _convert(variables_np, fill)
+
+
+def audio_only_from_jax(variables_np) -> dict[str, torch.Tensor]:
+    """Flax ``AudioOnlyCTC`` variables (``av_model.py:148-161``) -> the port's
+    ``AudioOnlyCTC`` state_dict (load it with ``strict=True``)."""
+    def fill(tree, sd):
+        _audio(tree, sd, "audio_encoder", "audio_encoder")
+        _dense(tree, sd, "decoder/head", "decoder.head")
     return _convert(variables_np, fill)
 
 

@@ -13,8 +13,7 @@ purpose:
 * ``train.keep_checkpoints`` (``config.py:284``): nothing reads it, in
   either package, so an override fails as an unknown field;
 * the fields of parts not ported yet: SpecAugment, the SSL family and
-  ``train.audio_init_ckpt``, ``decode.quantize`` and streaming, the mesh and
-  ``compile_cache_dir``.  The CLI refuses each of them with the
+  ``train.audio_init_ckpt``, the mesh and ``compile_cache_dir``.  The CLI refuses each of them with the
   ``ROADMAP.md`` item that brings it (``main.py``); elsewhere an override of
   one fails as an unknown field instead of changing nothing.
 """
@@ -101,7 +100,10 @@ class DecoderConfig:
 
 @dataclass
 class DecodeConfig:
-    """Decoder choice (``config.py:126-152``): "prefix_beam" or "greedy"."""
+    """Decoding, streaming and int8 serving (``config.py:126-152``).
+
+    ``algorithm``: "prefix_beam" (CTC prefix search), "reference_beam" (the
+    path beam, collapsed at the end) or "greedy"."""
 
     beam_width: int = 5
     algorithm: str = "prefix_beam"
@@ -109,6 +111,13 @@ class DecodeConfig:
     lm_path: str = ""                 # bigram table (.npy, [V+1, V] log-probs)
     lm_weight: float = 0.3
     length_bonus: float = 0.0
+    # Streaming (streaming.py): emission granularity and the already-seen
+    # audio the encoder attends over per chunk.
+    stream_chunk_seconds: float = 2.0
+    stream_context_seconds: float = 8.0
+    # Serve with per-channel int8 weights (ops/quantize.py): --infer, --stream
+    # and AudioTranscriber; training is never quantized.
+    quantize: bool = False
 
 
 @dataclass

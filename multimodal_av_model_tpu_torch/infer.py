@@ -1,10 +1,15 @@
-"""Serving surface: model weights -> per-speaker transcripts.
+"""Serving surface: model weights -> transcripts.
 
-Mirrors ``multimodal_av_model_tpu/infer.py:43-157`` (``decode_ids`` for
-"greedy" and "prefix_beam", ``Transcriber.from_checkpoint`` and
-``transcribe``).  The forward and the decode run on ``device`` (the card
-unless the caller asks for the CPU); the host reads back only the decoded
-ids, to turn them into text.
+Mirrors ``multimodal_av_model_tpu/infer.py:43-157,306-340``: ``decode_ids``
+("greedy", "prefix_beam", "reference_beam"), ``Transcriber`` (the flagship:
+``from_checkpoint``, ``transcribe``) and ``AudioTranscriber`` (the
+audio-only model), each optionally served from int8 weights
+(``quantize=True``, ``ops/quantize.py``: the fp parameters are dropped and
+the int8 form is dequantized per forward).  The forward and the decode run on
+``device`` (the card unless the caller asks for the CPU); the host reads back
+only the decoded ids, to turn them into text.  ``export_transcriber`` and
+``ExportedTranscriber`` (``infer.py:160-303``) are not ported (ROADMAP
+Queue 1, the serving export).
 
     model = MultiSpeakerAVModel(cfg.model, dtype)
     model.load_state_dict(from_jax_variables(variables))   # or init_weights
@@ -22,21 +27,20 @@ import numpy as np
 import torch
 
 from .config import Config, torch_dtype
-from .models.av_model import MultiSpeakerAVModel
+from .models.av_model import AudioOnlyCTC, MultiSpeakerAVModel
+from .ops.beam_search import beam_search_decode
 from .ops.ctc import ctc_greedy_decode
 from .ops.prefix_beam_search import prefix_beam_search_decode
+from .ops.quantize import QuantizedModel
+from .text.ngram_lm import load_bigram_lm
 
 
 def load_fusion_lm(path: str, device) -> torch.Tensor | None:
-    """Bigram LM table ``[V+1, V]`` (``.npy`` log-probs) for shallow fusion;
-    '' -> None.  Checked as
-    ``multimodal_av_model_tpu/text/ngram_lm.py:57 load_bigram_lm`` does."""
+    """Bigram LM table ``[V+1, V]`` (``text/ngram_lm.py``) for shallow
+    fusion, on ``device``; '' -> None."""
     if not path:
         return None
-    lm = np.load(path)
-    if lm.ndim != 2 or lm.shape[0] != lm.shape[1] + 1:
-        raise ValueError(f"not a bigram LM table: shape {lm.shape}")
-    return torch.from_numpy(lm.astype(np.float32)).to(device)
+    return torch.from_numpy(load_bigram_lm(path)).to(device)
 
 
 def decode_ids(config: Config, log_probs: torch.Tensor, lengths: torch.Tensor,
@@ -52,7 +56,45 @@ def decode_ids(config: Config, log_probs: torch.Tensor, lengths: torch.Tensor,
             lm_weight=config.decode.lm_weight if lm is not None else 0.0,
             length_bonus=config.decode.length_bonus if lm is not None else 0.0)
         return ids, out_len
-    raise ValueError(f"decode algorithm {config.decode.algorithm!r} is not ported")
+    if config.decode.algorithm == "reference_beam":
+        ids, out_len, _ = beam_search_decode(log_probs, lengths, config.decode.beam_width, blank)
+        return ids, out_len
+    raise ValueError(f"unknown decode algorithm {config.decode.algorithm!r}")
+
+
+def load_weights(model: torch.nn.Module, path) -> torch.nn.Module:
+    """The parameters and statistics of a port checkpoint (``state["model"]``),
+    loaded strictly by name; ``path`` may be a list of checkpoint files of one
+    run, averaged first (``train.checkpoints.average_checkpoints``)."""
+    from .train.checkpoints import average_checkpoints, restore_checkpoint
+
+    ckpt = (average_checkpoints(list(path)) if isinstance(path, (list, tuple))
+            else restore_checkpoint(path))
+    state = ckpt.get("state", ckpt)
+    model.load_state_dict(state.get("model", state), strict=True)
+    return model
+
+
+def served(model: torch.nn.Module, device, quantize: bool = False, min_size: int = 4096):
+    """``(forward, module)``: the model in eval mode on ``device``, or with
+    ``quantize`` its int8 form (``ops/quantize.QuantizedModel``: only the
+    int8 tensors, scales and unquantized tensors stay on the device; the
+    module moves to the meta device)."""
+    if quantize:
+        q = QuantizedModel(model, device, min_size)
+        return q, q.model
+    model = model.to(device).eval()
+    return model, model
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A tensor or numpy array on ``device``."""
+    return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).to(device)
+
+
+def _texts(tokenizer, ids: torch.Tensor, lens: torch.Tensor) -> list[str]:
+    ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+    return [tokenizer.decode(ids[b, : lens[b]].tolist()) for b in range(ids.shape[0])]
 
 
 _BATCH_KEYS = ("lip1", "lip2", "audio", "mask1", "mask2", "lip1_lengths", "lip2_lengths")
@@ -60,48 +102,70 @@ _BATCH_KEYS = ("lip1", "lip2", "audio", "mask1", "mask2", "lip1_lengths", "lip2_
 
 @dataclasses.dataclass
 class Transcriber:
+    """The flagship two-speaker model served on ``device``.  ``forward`` runs
+    it: the module, or with ``quantize`` its int8 form
+    (``ops/quantize.QuantizedModel``; ``model`` then lives on the meta
+    device)."""
+
     config: Config
     tokenizer: Any
     model: MultiSpeakerAVModel
     device: str = "cuda"
+    quantize: bool = False
+    quantize_min_size: int = 4096
 
     def __post_init__(self):
-        self.model = self.model.to(self.device).eval()
+        self.forward, self.model = served(self.model, self.device, self.quantize,
+                                           self.quantize_min_size)
         self.lm = load_fusion_lm(self.config.decode.lm_path, self.device)
 
     @classmethod
     def from_checkpoint(cls, config: Config, tokenizer, path, device: str = "cuda",
-                        dtype: torch.dtype | None = None) -> "Transcriber":
-        """A Transcriber on the model of a port checkpoint (parameters and
-        BatchNorm statistics, loaded strictly by name).  ``path`` may be a
-        list of checkpoint files of one run, averaged first
-        (``train.checkpoints.average_checkpoints``).  The compute dtype is
+                        dtype: torch.dtype | None = None, quantize: bool = False,
+                        quantize_min_size: int = 4096) -> "Transcriber":
+        """A Transcriber on the model of a port checkpoint (``load_weights``;
+        ``path`` may be a list, averaged).  The compute dtype is
         ``config.model.dtype`` unless given."""
-        from .train.checkpoints import average_checkpoints, restore_checkpoint
-
-        ckpt = (average_checkpoints(list(path)) if isinstance(path, (list, tuple))
-                else restore_checkpoint(path))
-        state = ckpt.get("state", ckpt)
         model = MultiSpeakerAVModel(config.model, dtype or torch_dtype(config.model.dtype))
-        model.load_state_dict(state.get("model", state), strict=True)
-        return cls(config, tokenizer, model, device)
+        return cls(config, tokenizer, load_weights(model, path), device, quantize,
+                   quantize_min_size)
 
     @torch.no_grad()
     def transcribe(self, batch: dict, use_beam: bool = True):
         """Batch dict (collate layout; tensors or numpy arrays) -> list of
         ``(speaker1_text, speaker2_text)``."""
-        args = []
-        for k in _BATCH_KEYS:
-            x = batch[k]
-            x = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-            args.append(x.to(self.device))
-        out = self.model(*args)
+        out = self.forward(*[_tensor(batch[k], self.device) for k in _BATCH_KEYS])
         B = out["log_probs1"].shape[0]
         # The decode rows are independent, so both speakers run as one [2B] batch.
         ids, lens = decode_ids(
             self.config, torch.cat([out["log_probs1"], out["log_probs2"]]),
             torch.cat([out["input_lengths1"], out["input_lengths2"]]), use_beam, self.lm)
-        ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
-        return [(self.tokenizer.decode(ids[b, : lens[b]].tolist()),
-                 self.tokenizer.decode(ids[B + b, : lens[B + b]].tolist()))
-                for b in range(B)]
+        texts = _texts(self.tokenizer, ids, lens)
+        return list(zip(texts[:B], texts[B:]))
+
+
+@dataclasses.dataclass
+class AudioTranscriber:
+    """The audio-only CTC model (``AudioOnlyCTC``) served on ``device``
+    (``infer.py:306-340``), fp or int8 as ``Transcriber``."""
+
+    config: Config
+    tokenizer: Any
+    model: AudioOnlyCTC
+    device: str = "cuda"
+    quantize: bool = False
+    quantize_min_size: int = 4096
+
+    def __post_init__(self):
+        self.forward, self.model = served(self.model, self.device, self.quantize,
+                                           self.quantize_min_size)
+        self.lm = load_fusion_lm(self.config.decode.lm_path, self.device)
+
+    @torch.no_grad()
+    def transcribe(self, audio, sample_mask=None, use_beam: bool = True) -> list[str]:
+        """``audio [B, S]`` (tensor or numpy), ``sample_mask [B, S]`` bool or
+        None -> one text per row."""
+        mask = None if sample_mask is None else _tensor(sample_mask, self.device)
+        log_probs, lengths = self.forward(_tensor(audio, self.device).float(), mask)
+        ids, lens = decode_ids(self.config, log_probs, lengths, use_beam, self.lm)
+        return _texts(self.tokenizer, ids, lens)

@@ -1,12 +1,12 @@
-"""The port's command line: train, evaluate or transcribe the flagship
-two-speaker model.
+"""The port's command line: train, evaluate, transcribe or stream.
 
     python -m multimodal_av_model_tpu_torch.main [--synthetic] [--eval | --infer]
-        [--device=cuda|cpu] [key.path=value ...]
+        [--stream=FILES] [--device=cuda|cpu] [key.path=value ...]
 
 Mirrors ``multimodal_av_model_tpu/main.py`` for the ``av`` family:
 ``build_data`` (``main.py:27-110``), ``run_infer`` and ``run_eval``
-(``main.py:113-205``) and ``main`` (``main.py:578-752``):
+(``main.py:113-205``), ``run_stream_av`` and ``run_stream``
+(``main.py:208-391``) and ``main`` (``main.py:578-752``):
 
 * the real-data branch reads the AI-Hub layout (``data.json_folder``,
   ``npy_dir``, ``text_dir``, ``wav_dir``): manifest, seeded 90/5/5 split,
@@ -21,7 +21,15 @@ Mirrors ``multimodal_av_model_tpu/main.py`` for the ``av`` family:
   afresh from ``data.seed`` (as JAX keeps its fresh PRNG key); then ``fit``;
 * ``--eval`` prints one JSON line with greedy and ``decode.algorithm``
   scores of ``best_wer.ckpt`` (else ``last.ckpt``); ``--infer`` prints
-  ``[utt n] speaker1: ...`` lines for the eval pairs.
+  ``[utt n] speaker1: ...`` lines for the eval pairs, from int8 weights with
+  ``decode.quantize=true``;
+* ``--stream=x.wav`` streams one file through ``StreamingAudioTranscriber``,
+  ``--stream=a.wav,b.wav,...`` the files together through a
+  ``StreamingPool``: both load an ``AudioOnlyCTC`` checkpoint (the port's
+  layout, its state dict under ``state["model"]``) and take
+  ``decode.stream_chunk_seconds``, ``decode.stream_context_seconds`` and
+  ``decode.quantize``; ``--stream=lips1.avi,lips2.avi,mix.wav`` streams the
+  flagship (``StreamingAVTranscriber``) on host-preprocessed lips.
 
 Differences from the JAX CLI: ``--device`` (default ``cuda``; with no card
 and no ``--device=cpu`` it fails), checkpoints are the port's ``torch.save``
@@ -40,10 +48,7 @@ import sys
 # Flags and overrides of the JAX CLI that the port does not take yet, each
 # with the ROADMAP.md item that brings it.
 REFUSED = {
-    "--stream": "Queue 1 item 4 (inference extras: streaming.py)",
-    "--export": "Queue 1 item 4 (inference extras: the serving export)",
-    "decode.quantize": "Queue 1 item 4 (inference extras: ops/quantize.py)",
-    "decode.stream_": "Queue 1 item 4 (inference extras: streaming.py)",
+    "--export": "Queue 1 item 4 (the serving export: torch.export with K1 and K2 as custom ops)",
     "train.audio_init_ckpt": "Queue 1 item 6 (other families: the SSL family)",
     "train.ssl_": "Queue 1 item 6 (other families: the SSL family)",
     "model.audio.specaug_": "Queue 1 item 6 (other families: ops/specaugment.py)",
@@ -139,7 +144,11 @@ def run_infer(cfg, tokenizer, synthetic: bool, device="cuda") -> None:
 
     _, val_factory = build_data(cfg, tokenizer, synthetic, device, device_put=False)
     ckpt = _checkpoint(cfg)
-    transcriber = Transcriber.from_checkpoint(cfg, tokenizer, ckpt, device=device)
+    transcriber = Transcriber.from_checkpoint(cfg, tokenizer, ckpt, device=device,
+                                              quantize=cfg.decode.quantize)
+    if cfg.decode.quantize:
+        print(f"int8 weight-only serving: {transcriber.forward.nbytes / 1e6:.1f} MB of "
+              "parameters")
     print(f"transcribing with {ckpt}")
     n = 0
     for batch in val_factory():
@@ -174,16 +183,115 @@ def run_eval(cfg, tokenizer, synthetic: bool, device="cuda") -> None:
     print(json.dumps(report))
 
 
+def run_stream_av(cfg, tokenizer, paths: list[str], device="cuda") -> None:
+    """``--stream=lips1.avi,lips2.avi,mix.wav``: AVI decode, host lip
+    preprocessing and the flagship streamed with a carried decode per
+    speaker; chunk and context are ``decode.stream_*_seconds`` in video
+    frames."""
+    from .config import torch_dtype
+    from .data.audio_io import load_audio
+    from .data.avi import read_avi
+    from .data.pipeline import preprocess_lip_clip_host
+    from .infer import load_weights
+    from .models import MultiSpeakerAVModel
+    from .streaming import StreamingAVTranscriber
+
+    if len(paths) != 3:
+        raise SystemExit("--stream AV mode takes lips1.avi,lips2.avi,mix.wav")
+    lips_path1, lips_path2, wav_path = paths
+    ckpt = _checkpoint(cfg)
+    model = load_weights(MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)), ckpt)
+    spf = cfg.data.audio_samples_per_video_frame
+    fps = cfg.data.sample_rate / spf
+    s = StreamingAVTranscriber(
+        cfg, tokenizer, model, device=device,
+        chunk_frames=max(1, round(cfg.decode.stream_chunk_seconds * fps)),
+        context_frames=max(1, round(cfg.decode.stream_context_seconds * fps)))
+
+    lips1 = preprocess_lip_clip_host(read_avi(lips_path1)[0], s.lip_size)
+    lips2 = preprocess_lip_clip_host(read_avi(lips_path2)[0], s.lip_size)
+    audio = load_audio(wav_path, cfg.data.sample_rate)
+    block_f = s.chunk_frames
+    n_f = min(lips1.shape[0], lips2.shape[0], len(audio) // spf)
+    print(f"streaming AV {lips_path1}+{lips_path2}+{wav_path} ({n_f} frames) with {ckpt}, "
+          f"chunk={block_f} frames")
+
+    def show(t1, t2):
+        if t1:
+            print(f"[speaker1] {t1}", flush=True)
+        if t2:
+            print(f"[speaker2] {t2}", flush=True)
+    for i in range(0, n_f, block_f):
+        j = min(i + block_f, n_f)
+        show(*s.feed(lips1[i:j], lips2[i:j], audio[i * spf:j * spf]))
+    show(*s.flush())
+
+
+def run_stream(cfg, tokenizer, spec: str, device="cuda") -> None:
+    """``--stream``: one WAV through ``StreamingAudioTranscriber``, several
+    (comma-separated) as concurrent streams of one ``StreamingPool``, or
+    ``lips1.avi,lips2.avi,mix.wav`` through ``run_stream_av``."""
+    from .config import torch_dtype
+    from .data.audio_io import load_audio
+    from .infer import load_weights
+    from .models import AudioOnlyCTC
+    from .streaming import StreamingAudioTranscriber, StreamingPool
+
+    paths = [p for p in spec.split(",") if p]
+    if any(p.lower().endswith(".avi") for p in paths):
+        return run_stream_av(cfg, tokenizer, paths, device)
+    ckpt = _checkpoint(cfg)
+    model = load_weights(AudioOnlyCTC(cfg.model, torch_dtype(cfg.model.dtype)), ckpt)
+    kw = dict(chunk_seconds=cfg.decode.stream_chunk_seconds,
+              context_seconds=cfg.decode.stream_context_seconds, device=device,
+              quantize=cfg.decode.quantize)
+    if len(paths) > 1:
+        s = StreamingPool(cfg, tokenizer, model, max_streams=len(paths), **kw)
+    else:
+        s = StreamingAudioTranscriber(cfg, tokenizer, model, **kw)
+
+    block = s.chunk_samples
+    if len(paths) > 1:
+        audios = [load_audio(p, cfg.data.sample_rate) for p in paths]
+        sids = [s.open() for _ in paths]
+        print(f"streaming {len(paths)} concurrent files with {ckpt}, "
+              f"chunk={block / cfg.data.sample_rate:.1f}s", flush=True)
+        for i in range(0, max(a.shape[0] for a in audios), block):
+            for sid, audio in zip(sids, audios):
+                if i < audio.shape[0]:
+                    piece = s.feed(sid, audio[i:i + block])
+                    if piece:
+                        print(f"[{paths[sid]}] {piece}", flush=True)
+        for sid, path in zip(sids, paths):
+            tail = s.flush(sid)
+            if tail:
+                print(f"[{path}] {tail}", flush=True)
+        return
+
+    audio = load_audio(paths[0], cfg.data.sample_rate)
+    print(f"streaming {paths[0]} ({audio.shape[0] / cfg.data.sample_rate:.1f} s) with {ckpt}, "
+          f"chunk={block / cfg.data.sample_rate:.1f}s")
+    for i in range(0, audio.shape[0], block):
+        piece = s.feed(audio[i:i + block])
+        if piece:
+            print(piece, flush=True)
+    tail = s.flush()
+    if tail:
+        print(tail, flush=True)
+
+
 def main(argv: list[str] | None = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     flags = {a for a in argv if a in ("--synthetic", "--infer", "--eval")}
-    device, overrides = "cuda", []
+    device, stream, overrides = "cuda", None, []
     for a in argv:
         if a in flags:
             continue
         name, _, value = a.partition("=")
         if name == "--device":
             device = value
+        elif name == "--stream":
+            stream = value
         elif name == "--family":
             if value != "av":
                 _refuse(f"--family={value}", FAMILIES_ITEM)
@@ -220,6 +328,9 @@ def main(argv: list[str] | None = None) -> None:
     cfg.model.decoder.vocab_size = tokenizer.vocab_size
     synthetic = "--synthetic" in flags
 
+    if stream is not None:
+        run_stream(cfg, tokenizer, stream, device)
+        return
     if "--eval" in flags:
         run_eval(cfg, tokenizer, synthetic, device)
         return

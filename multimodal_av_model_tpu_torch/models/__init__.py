@@ -1,5 +1,10 @@
 from .audio import AudioEncoder
-from .av_model import MultiSpeakerAVModel, downsample_mask_to, nchw_clip_to_channels_last
+from .av_model import (
+    AudioOnlyCTC,
+    MultiSpeakerAVModel,
+    downsample_mask_to,
+    nchw_clip_to_channels_last,
+)
 from .decoder import CTCDecoder
 from .fusion import CrossAttentionFusion
 from .layers import init_weights
@@ -7,6 +12,7 @@ from .visual import VisualEncoder
 
 __all__ = [
     "AudioEncoder",
+    "AudioOnlyCTC",
     "CTCDecoder",
     "CrossAttentionFusion",
     "MultiSpeakerAVModel",

@@ -1,12 +1,13 @@
-"""The flagship two-speaker audio-visual CTC model.
+"""The flagship two-speaker audio-visual CTC model, and the audio-only CTC model.
 
-Mirrors ``multimodal_av_model_tpu/models/av_model.py:27-145`` with
+``MultiSpeakerAVModel`` mirrors ``multimodal_av_model_tpu/models/av_model.py:27-145`` with
 ``shared_audio_pass=True``: both speakers run as one ``[2B]`` batch through
 the visual encoder, fusion and decoder (so train-mode BatchNorm takes its
 statistics over the joint ``2B`` batch); the mixture is encoded once, on the
 union of the two speakers' non-pad masks, and reused for both (exact in eval;
 in train mode both speakers share one dropout draw).  The fusion has no
 train-mode behaviour (its attention has no dropout, the BiLSTM none).
+``AudioOnlyCTC`` mirrors ``av_model.py:148-161``, eval forward only.
 """
 
 from __future__ import annotations
@@ -96,3 +97,23 @@ class MultiSpeakerAVModel(nn.Module):
             "log_probs2": log_probs[B:], "input_lengths2": input_lengths[B:],
             "contrast2": contrast[B:], "mask_ds2": mask_ds[B:],
         }
+
+
+class AudioOnlyCTC(nn.Module):
+    """Log-mel (K1) -> Conformer -> CTC head (``av_model.py:148-161``): the
+    audio-only model of the streaming and audio serving paths, eval only.
+    Parameter names follow the flax module's (``audio_encoder``,
+    ``decoder.head``)."""
+
+    def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config, self.dtype = config, dtype
+        self.audio_encoder = AudioEncoder(config.audio, config.frontend, dtype)
+        self.decoder = CTCDecoder(config.decoder, config.audio.output_dim, dtype)
+
+    def forward(self, audio, sample_mask=None):
+        """``audio [B, S]`` f32, ``sample_mask [B, S]`` bool (True = valid;
+        None: all valid) -> ``(log_probs [B, T_enc, V], input_lengths [B]
+        int32)``."""
+        last, _, frame_valid = self.audio_encoder(audio, sample_mask)
+        return self.decoder(last), frame_valid.sum(dim=1).to(torch.int32)

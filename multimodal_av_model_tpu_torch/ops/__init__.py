@@ -1,3 +1,4 @@
 """Compute primitives: the log-mel (K1) and lip-preprocess (K2) kernels with
 their plain versions, the CTC loss, collapse and greedy decode, prefix beam
-search, the masked contrastive loss and the error-rate counts."""
+search (offline and streaming), the reference path beam, int8 weight-only
+quantization, the masked contrastive loss and the error-rate counts."""

@@ -3,6 +3,9 @@ with ``--device=cpu`` at tiny widths, on a corpus written in the AI-Hub
 layout and on ``--synthetic`` pairs: train, resume, ``--eval``, ``--infer``,
 the visual-encoder graft with a frozen trunk, and every flag the port
 refuses.  Numbers are compared exactly (parameters after a frozen epoch).
+``--stream`` in its three modes and ``--infer decode.quantize=true`` run
+beside the JAX CLI on the same weights (converted with ``compat``) and
+media, and print the same texts.
 """
 
 import contextlib
@@ -145,9 +148,8 @@ def test_visual_init_ckpt_with_a_frozen_trunk(trained, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("--family=audio", "item 6"), ("--family=ssl", "item 6"), ("--stream=a.wav", "item 4"),
-    ("--export=out", "item 4"), ("decode.quantize=true", "item 4"),
-    ("decode.stream_chunk_seconds=1.0", "item 4"), ("train.audio_init_ckpt=x.ckpt", "item 6"),
+    ("--family=audio", "item 6"), ("--family=ssl", "item 6"),
+    ("--export=out", r"item 4 \(the serving export"), ("train.audio_init_ckpt=x.ckpt", "item 6"),
     ("model.audio.specaug_time_masks=2", "item 6"), ("mesh.fsdp=true", "item 7"),
     ("compile_cache_dir=/x", "item 8"), ("train.checkpoint_layout=sharded", "item 7"),
 ])
@@ -172,3 +174,146 @@ def test_without_a_card_the_cli_needs_device_cpu(monkeypatch, tmp_path):
     with pytest.raises(SystemExit, match="--device=cpu"):
         pmain.main(["--synthetic", f"train.checkpoint_dir={tmp_path}"])
     assert not os.listdir(tmp_path)
+
+
+# -- streaming and int8 serving, beside the JAX CLI -----------------------------
+
+J_TINY = [a for a in TINY if a != "--device=cpu"] + ["model.frontend.use_pallas=false"]
+AUDIO_TINY = ["model.audio.d_model=16", "model.audio.num_layers=2", "model.audio.num_heads=2",
+              "model.audio.ffn_dim=32", "model.audio.output_dim=16",
+              "model.audio.middle_layers=(0,1)", "model.frontend.n_mels=16",
+              "model.dtype=float32", f"data.vocab_path={VOCAB}",
+              "decode.stream_chunk_seconds=0.2", "decode.stream_context_seconds=0.2"]
+
+
+def _run_both(port_args, jax_args):
+    """The port's and the JAX CLI's standard output for the same call."""
+    from multimodal_av_model_tpu.main import main as jmain
+
+    out = {}
+    for name, fn, args in (("port", pmain.main, port_args + ["--device=cpu"]),
+                           ("jax", jmain, jax_args + ["model.frontend.use_pallas=false"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            fn(args)
+        out[name] = buf.getvalue().splitlines()
+    return out["port"], out["jax"]
+
+
+@pytest.fixture(scope="module")
+def audio_ckpts(tmp_path_factory):
+    """One tiny ``AudioOnlyCTC``'s weights as a JAX checkpoint and as a port
+    checkpoint, and three WAVs (0.9, 0.5 and 1.3 s)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from multimodal_av_model_tpu.config import from_flat_overrides
+    from multimodal_av_model_tpu.data.audio_io import write_wav
+    from multimodal_av_model_tpu.models import AudioOnlyCTC as JAudioOnly
+    from multimodal_av_model_tpu.train.checkpoints import save_checkpoint as j_save
+    from multimodal_av_model_tpu_torch.compat import audio_only_from_jax
+    from multimodal_av_model_tpu_torch.train import save_checkpoint
+
+    root = tmp_path_factory.mktemp("stream")
+    cfg = from_flat_overrides(AUDIO_TINY[:-4] + ["model.decoder.vocab_size=800"])
+    v = jax.tree.map(np.asarray, jax.jit(JAudioOnly(cfg.model, dtype=jnp.float32).init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 6400)), jnp.ones((1, 6400), bool)))
+    j_save(str(root / "jax" / "last.ckpt"), {"state": {"params": v["params"]}, "epoch": 1})
+    save_checkpoint(str(root / "port" / "last.ckpt"),
+                    {"state": {"model": audio_only_from_jax(v)}, "epoch": 1})
+    rng = np.random.default_rng(0)
+    wavs = []
+    for i, sec in enumerate((0.9, 0.5, 1.3)):
+        wavs.append(str(root / f"a{i}.wav"))
+        write_wav(wavs[-1], rng.standard_normal(int(sec * 16000)) * 0.3, 16000)
+    return root, wavs
+
+
+@pytest.mark.parametrize("mode", ["one file", "pool", "int8 pool"])
+def test_stream_audio_prints_the_jax_texts(audio_ckpts, mode):
+    """``--stream=x.wav`` (prefix beam) and ``--stream=a.wav,b.wav,c.wav``
+    (the pool, greedy; fp and ``decode.quantize=true``)."""
+    root, wavs = audio_ckpts
+    spec = wavs[0] if mode == "one file" else ",".join(wavs)
+    extra = ["decode.quantize=true"] if mode == "int8 pool" else []
+    got, want = _run_both(
+        [f"--stream={spec}", f"train.checkpoint_dir={root / 'port'}"] + AUDIO_TINY + extra,
+        [f"--stream={spec}", f"train.checkpoint_dir={root / 'jax'}"] + AUDIO_TINY + extra)
+    assert got[0] == want[0].replace(str(root / "jax"), str(root / "port"))
+    assert got[0].startswith("streaming ")
+    assert got[1:] == want[1:] and len(got) > 1
+
+
+def test_stream_av_prints_the_jax_texts(tmp_path):
+    """``--stream=lips1.avi,lips2.avi,mix.wav``: the tiny flagship (BiLSTM,
+    GroupNorm) on AVIs and a WAV that the port's own writers made."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from multimodal_av_model_tpu.config import from_flat_overrides
+    from multimodal_av_model_tpu.models import MultiSpeakerAVModel as JModel
+    from multimodal_av_model_tpu.train.checkpoints import save_checkpoint as j_save
+    from multimodal_av_model_tpu_torch.compat import from_jax_variables
+    from multimodal_av_model_tpu_torch.data.audio_io import write_wav
+    from multimodal_av_model_tpu_torch.data.avi import write_avi
+    from multimodal_av_model_tpu_torch.train import save_checkpoint
+
+    args = [a for a in J_TINY if not a.startswith("model.frontend.use_pallas")] + [
+        "model.visual.norm=group", "decode.stream_chunk_seconds=0.1",
+        "decode.stream_context_seconds=0.1"]
+    cfg = from_flat_overrides(args + ["model.decoder.vocab_size=800"])
+    z, m, n = (jnp.zeros((1, 6, 1, 24, 24)), jnp.full((1, 6 * 534), 2, jnp.int32),
+               jnp.full((1,), 6, jnp.int32))
+    v = jax.tree.map(np.asarray, jax.jit(JModel(cfg.model, dtype=jnp.float32).init)(
+        jax.random.PRNGKey(0), z, z, jnp.zeros((1, 6 * 534)), m, m, n, n))
+    j_save(str(tmp_path / "jax" / "last.ckpt"), {"state": {"params": v["params"]}, "epoch": 1})
+    save_checkpoint(str(tmp_path / "port" / "last.ckpt"),
+                    {"state": {"model": from_jax_variables(v)}, "epoch": 1})
+    rng = np.random.default_rng(0)
+    media = [str(tmp_path / f) for f in ("lips1.avi", "lips2.avi", "mix.wav")]
+    for path in media[:2]:
+        write_avi(path, rng.integers(0, 256, size=(10, 32, 32, 3), dtype=np.uint8), fps=30)
+    write_wav(media[2], rng.standard_normal(10 * 534) * 0.3, 16000)
+    spec = ",".join(media)
+    got, want = _run_both(
+        [f"--stream={spec}", f"train.checkpoint_dir={tmp_path / 'port'}"] + args,
+        [f"--stream={spec}", f"train.checkpoint_dir={tmp_path / 'jax'}"] + args)
+    assert got[0] == want[0].replace(str(tmp_path / "jax"), str(tmp_path / "port"))
+    assert got[0].startswith("streaming AV ")
+    assert got[1:] == want[1:] and any(ln.startswith("[speaker") for ln in got)
+
+
+def test_infer_int8_prints_the_jax_texts(corpus_args, tmp_path):
+    """``--infer decode.quantize=true`` on the corpus's fixed eval pairs (the
+    ``--synthetic`` source would not do: the JAX CLI draws an example batch
+    from it first, so it transcribes later pairs): the parameter bytes and
+    every transcript line equal the JAX CLI's."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from multimodal_av_model_tpu.config import from_flat_overrides
+    from multimodal_av_model_tpu.models import MultiSpeakerAVModel as JModel
+    from multimodal_av_model_tpu.train.checkpoints import save_checkpoint as j_save
+    from multimodal_av_model_tpu_torch.compat import from_jax_variables
+    from multimodal_av_model_tpu_torch.train import save_checkpoint
+    from test_torch_models import perturb_batch_stats
+
+    args = [a for a in corpus_args if a != "--device=cpu"] + ["decode.quantize=true", "--infer"]
+    cfg = from_flat_overrides([a for a in args if not a.startswith("--")]
+                              + ["model.decoder.vocab_size=800"])
+    z, m, n = (jnp.zeros((1, 6, 1, 24, 24)), jnp.full((1, 6 * 534), 2, jnp.int32),
+               jnp.full((1,), 6, jnp.int32))
+    v = perturb_batch_stats(jax.jit(JModel(cfg.model, dtype=jnp.float32).init)(
+        jax.random.PRNGKey(1), z, z, jnp.zeros((1, 6 * 534)), m, m, n, n))
+    j_save(str(tmp_path / "jax" / "last.ckpt"), {"state": dict(v), "epoch": 1})
+    save_checkpoint(str(tmp_path / "port" / "last.ckpt"),
+                    {"state": {"model": from_jax_variables(v)}, "epoch": 1})
+    got, want = _run_both(args + [f"train.checkpoint_dir={tmp_path / 'port'}"],
+                          args + [f"train.checkpoint_dir={tmp_path / 'jax'}"])
+    assert got[0] == want[0] and got[0].startswith("int8 weight-only serving: ")
+    assert [ln for ln in got if ln.startswith("[utt ")] == \
+        [ln for ln in want if ln.startswith("[utt ")]
+    assert got[-1] == want[-1] == "transcribed 2 pairs"

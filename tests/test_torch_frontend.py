@@ -241,7 +241,13 @@ def test_config_defaults_equal_jax_defaults():
                                     "train.checkpoint_dir=ckpt", "data.device_preprocess=false"])
     assert cfg.train.freeze_visual_trunk and cfg.train.batch_size == 16
     assert cfg.train.checkpoint_dir == "ckpt" and not cfg.data.device_preprocess
-    for item in ("train.audio_init_ckpt=x.ckpt", "decode.quantize=true", "mesh.fsdp=true",
-                 "compile_cache_dir=cache"):
+    for item in ("train.audio_init_ckpt=x.ckpt", "model.audio.specaug_time_masks=2",
+                 "mesh.fsdp=true", "compile_cache_dir=cache"):
         with pytest.raises(AttributeError):
             tcfg.from_flat_overrides([item])
+    # Streaming and int8 serving are ported: their fields parse.
+    cfg = tcfg.from_flat_overrides(["decode.quantize=true", "decode.stream_chunk_seconds=1.0",
+                                    "decode.stream_context_seconds=4.0",
+                                    "decode.algorithm=reference_beam"])
+    assert cfg.decode.quantize and cfg.decode.stream_chunk_seconds == 1.0
+    assert cfg.decode.stream_context_seconds == 4.0

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from multimodal_av_model_tpu.infer import Transcriber as JTranscriber
 from multimodal_av_model_tpu.models import MultiSpeakerAVModel as JModel
+from multimodal_av_model_tpu.ops.beam_search import beam_search_decode as j_ref_beam
 from multimodal_av_model_tpu.ops.ctc import ctc_greedy_decode as j_greedy
 from multimodal_av_model_tpu.ops.prefix_beam_search import prefix_beam_search_decode as j_beam
 from multimodal_av_model_tpu.text import CharTokenizer as JTokenizer
@@ -92,7 +93,12 @@ def test_decode_ids_dispatch():
     g_ids, _ = ctc_greedy_decode(lp, lens, 3)
     assert torch.equal(decode_ids(cfg, lp, lens, use_beam=False)[0], g_ids)
     cfg.decode.algorithm = "reference_beam"
-    with pytest.raises(ValueError, match="not ported"):
+    r_ids, r_n, _ = j_ref_beam(jnp.asarray(lp.numpy()), jnp.asarray(lens.numpy()), 5, 3)
+    ids, n = decode_ids(cfg, lp, lens)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(r_ids))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(r_n))
+    cfg.decode.algorithm = "no_such_decoder"
+    with pytest.raises(ValueError, match="unknown decode algorithm"):
         decode_ids(cfg, lp, lens)
 
 
