@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port's serving surface, training step and training run on
-one NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port's serving surface, serving export, training step and
+training run on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py      # needs one CUDA card; a few minutes on an H100
 
@@ -85,9 +85,31 @@ Phases, each printing a line; any failure exits non-zero:
     speaker's streamed prefix-beam ids equal to one offline pass over the
     emitted log-probs; per-window ms and the real-time factor.
 
+18. ``[export]`` (after phase 10): phase 5's ``Transcriber`` exported by
+    ``export_transcriber`` (``torch.export`` of the forward with K1 as the
+    operator ``mmav::log_mel`` and the prefix beam, at bucket 128, B = 4) and
+    its int8 form with greedy decoding; each artifact loaded by
+    ``ExportedTranscriber.load`` and run on phase 5's three bucket-128
+    requests after ``preprocess_batch_device`` (K2 x2): ids equal to the
+    ``Transcriber``'s, K1 once and K2 never inside an artifact call; the
+    export's seconds and graph nodes, the artifact's MB, the load's seconds
+    and the per-request ms beside ``[serving]``'s;
+19. ``[temporal-tf]``: the flagship with ``fusion.temporal_model=
+    "transformer"`` (2 layers, 8 heads, FFN 2048): phase 4's small f32 check
+    with it, three bucket-128 requests (K1 1, K2 2 each), one more timed by
+    layer, and B = 8 training steps at ``bench.py``'s shapes (2 warm-up, 5
+    timed) as phase 9 runs them;
+20. ``[structured]``: a small AI-Hub corpus written to a temporary directory,
+    ``validate_manifest`` on it with one lip file corrupted on purpose (it
+    must be skipped as unreadable), its sentences read back by
+    ``load_reference_sentences``, then the transformer flagship trained 20
+    steps at B = 8 on ``RealTextStructuredSource`` batches (K1 1, K2 0 per
+    step), the first and last loss and the ``nearest_centroid_probe``
+    accuracy on overlap against solo frames.
+
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
 the timed training steps of phase 9, the CLI calls of phase 10 and the main
-paths of phases 13 and 15-17 (each path's own count is under
+paths of phases 13, 15-17 and 18-20 (each path's own count is under
 ``launches_by_path``).  The last three lines are the ``kernels`` JSON, the
 ``nvidia-smi`` line and ``{"ok": true, "device": ...}``.  Nothing of JAX is
 imported.
@@ -368,7 +390,7 @@ def tiny_model_config():
     return cfg
 
 
-def reference_phase(torch, rng):
+def reference_phase(torch, rng, temporal_model: str = "bilstm", tag: str = "reference"):
     """The whole path at a small width in f32: card (kernels) vs CPU (plain)."""
     from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
     from multimodal_av_model_tpu_torch.data.device_pipeline import preprocess_batch_device
@@ -376,6 +398,7 @@ def reference_phase(torch, rng):
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
 
     cfg = tiny_model_config()
+    cfg.model.fusion.temporal_model = temporal_model
     spec = make_bucket_specs((16,), 534, 8)[0]
     raw = make_request(rng, 2, spec, crop=48)
     model = init_weights(MultiSpeakerAVModel(cfg.model), torch.Generator().manual_seed(1))
@@ -398,7 +421,7 @@ def reference_phase(torch, rng):
     lp_err = 0.0
     for s in ("1", "2"):
         if not torch.equal(o_gpu["input_lengths" + s].cpu(), o_cpu["input_lengths" + s]):
-            raise SystemExit("reference: input_lengths differ between card and CPU")
+            raise SystemExit(f"{tag}: input_lengths differ between card and CPU")
         for b, n in enumerate(o_cpu["input_lengths" + s].tolist()):
             d = (o_gpu["log_probs" + s][b, :n].cpu() - o_cpu["log_probs" + s][b, :n]).abs()
             lp_err = max(lp_err, d.max().item() if n else 0.0)
@@ -408,11 +431,11 @@ def reference_phase(torch, rng):
     ids_gpu, n_gpu = decode_ids(cfg, lp.cuda(), lens.cuda())
     same_ids = torch.equal(ids_cpu, ids_gpu.cpu()) and torch.equal(n_cpu, n_gpu.cpu())
     ok = lip_err <= 1e-3 and lp_err <= 1e-3 and same_ids
-    log(f"[reference] small f32 model, card vs CPU: max|lips| {lip_err:.3g} (<= 1e-3), "
-        f"max|log_probs| on valid frames {lp_err:.3g} (<= 1e-3), prefix-beam ids "
-        f"{'equal' if same_ids else 'DIFFER'} {'ok' if ok else 'FAILED'}")
+    log(f"[{tag}] small f32 model ({temporal_model} temporal model), card vs CPU: max|lips| "
+        f"{lip_err:.3g} (<= 1e-3), max|log_probs| on valid frames {lp_err:.3g} (<= 1e-3), "
+        f"prefix-beam ids {'equal' if same_ids else 'DIFFER'} {'ok' if ok else 'FAILED'}")
     if not ok:
-        raise SystemExit("reference phase failed")
+        raise SystemExit(f"{tag} phase failed")
 
 
 def serving_phase(torch, rng, tok):
@@ -495,10 +518,10 @@ def serving_phase(torch, rng, tok):
     def profile_request():
         wall = layer_breakdown(torch, transcriber, serve, requests[0])
         kernel_profile(torch, serve, requests[0], wall)
-    return launches, profile_request, (transcriber, requests, plan)
+    return launches, profile_request, (transcriber, requests, plan, lat)
 
 
-def layer_breakdown(torch, transcriber, serve, raw):
+def layer_breakdown(torch, transcriber, serve, raw, tag: str = "layers"):
     """Device-stream time per layer for one bucket-128 request, by CUDA events
     recorded from forward hooks (after the main path, not counted in it)."""
     model = transcriber.model
@@ -538,7 +561,7 @@ def layer_breakdown(torch, transcriber, serve, raw):
     row = {"preprocess (H2D + mixing + K2)": start.elapsed_time(fwd[0])}
     row.update({k: a.elapsed_time(b) for k, (a, b) in events.items()})
     row["prefix-beam decode + readback"] = fwd[1].elapsed_time(end)
-    log(f"[layers] one bucket-128 request, {wall:.1f} ms wall; stream time by layer (ms): "
+    log(f"[{tag}] one bucket-128 request, {wall:.1f} ms wall; stream time by layer (ms): "
         + ", ".join(f"{k} {v:.2f}" for k, v in row.items())
         + f"; total {start.elapsed_time(end):.2f}")
     return wall
@@ -639,7 +662,7 @@ def train_ref_phase(torch, rng, tok):
         raise SystemExit("train-ref phase failed")
 
 
-def train_kernel_check(torch, B: int, raw) -> None:
+def train_kernel_check(torch, B: int, raw, tag: str = "train") -> None:
     """K1 and K2 on the card at the shapes a B-pair training step gives them
     (K1 the mixture ``[B, 68352]``, K2 each speaker's ``B * 128`` crops),
     each against its plain version with the bars of phase 3, then timed by
@@ -664,16 +687,18 @@ def train_kernel_check(torch, B: int, raw) -> None:
     k1_ms = cuda_ms(logmel.log_mel_spectrogram_cuda, [(audio,)], 100, graph=True)
     k2_ms = cuda_ms(resize.lip_preprocess_cuda, [(c, 96) for c in crops], 50, graph=True)
     ok = k1_ok and k2_ok
-    log(f"[train] B={B} kernels at the step's shapes: K1 {tuple(audio.shape)}: "
+    log(f"[{tag}] B={B} kernels at the step's shapes: K1 {tuple(audio.shape)}: "
         f"max|kernel-plain| {k1_err:.3g} (rtol=atol=2e-3), {k1_ms:.4f} ms by graph replay; "
         f"K2 {tuple(crops[0].shape)} uint8 x 2: max|kernel-plain| {k2_err:.3g} (rtol 1e-4, "
         f"atol 1e-3), {k2_ms:.4f} ms per launch by graph replay {'ok' if ok else 'FAILED'}")
     if not ok:
-        raise SystemExit(f"train: a kernel disagrees with its plain version at B={B}")
+        raise SystemExit(f"{tag}: a kernel disagrees with its plain version at B={B}")
 
 
-def train_phase(torch, rng, tok):
-    """The flagship training step at the shipped defaults, B = 8 and 32."""
+def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
+                temporal_model: str = "bilstm", tag: str = "train"):
+    """The flagship training step at the shipped defaults, B = 8 and 32 (or
+    the ``(B, remat, steps)`` of ``runs``), with ``temporal_model``."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from multimodal_av_model_tpu_torch.config import Config, torch_dtype
@@ -686,13 +711,14 @@ def train_phase(torch, rng, tok):
 
     launches = {"logmel": 0, "lip_preprocess": 0}
     profile_step = None
-    for B, remat, n_steps in ((8, "none", 10), (32, "frontend", 5)):
+    for B, remat, n_steps in runs:
         cfg = Config()                              # the shipped flagship defaults
         cfg.model.visual.remat = remat
+        cfg.model.fusion.temporal_model = temporal_model
         spec = make_bucket_specs((128,), cfg.data.audio_samples_per_video_frame,
                                  cfg.data.max_label_len)[0]
         raw = make_train_batch(rng, B, spec)
-        train_kernel_check(torch, B, raw)
+        train_kernel_check(torch, B, raw, tag)
         t0 = time.perf_counter()
         trainer = MultiSpeakerTrainer(
             cfg, MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)), tok)
@@ -729,7 +755,7 @@ def train_phase(torch, rng, tok):
         # Rates take all the work over all the time, as [serving] does: a
         # stall in the window counts.
         mean, med = sum(times) / n_steps, float(np.median(times))
-        log(f"[train] B={B} remat={remat}: {n_params / 1e6:.1f}M params ({cfg.model.dtype} "
+        log(f"[{tag}] B={B} remat={remat}: {n_params / 1e6:.1f}M params ({cfg.model.dtype} "
             f"compute, f32 params), init {init_s:.1f} s; {n_steps} steps in {sum(times):.3f} s: "
             f"{B * n_steps / sum(times):.2f} utt/s (utt = one two-speaker mixture), "
             f"{mean * 1e3:.1f} ms per step mean, {med * 1e3:.1f} median "
@@ -740,12 +766,12 @@ def train_phase(torch, rng, tok):
             f"(FlopCounterMode), mfu {flops / mean / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s "
             f"dense bf16 at the mean step")
         if k1 != n_steps or k2 != 2 * n_steps:
-            raise SystemExit(f"train: launches K1 {k1}, K2 {k2} over {n_steps} steps "
+            raise SystemExit(f"{tag}: launches K1 {k1}, K2 {k2} over {n_steps} steps "
                              f"(expected 1 and 2 per step)")
         if not all(math.isfinite(x) for x in losses + gnorms):
-            raise SystemExit(f"train: non-finite losses {losses} or grad norms {gnorms}")
+            raise SystemExit(f"{tag}: non-finite losses {losses} or grad norms {gnorms}")
         if B == 8 and not losses[-1] < losses[0]:
-            raise SystemExit(f"train: the loss did not fall over the B=8 steps: {losses}")
+            raise SystemExit(f"{tag}: the loss did not fall over the B=8 steps: {losses}")
         if profile_step is None:
             profile_step = step
         state.model.zero_grad(set_to_none=True)     # free the gradients till then
@@ -972,7 +998,7 @@ def beam_ref_phase(torch, served) -> None:
 
     from multimodal_av_model_tpu_torch.infer import Transcriber, decode_ids
 
-    transcriber, requests, _ = served
+    transcriber, requests = served[:2]
     cfg = copy.deepcopy(transcriber.config)
     cfg.decode.algorithm = "reference_beam"
     ref_t = Transcriber(cfg, transcriber.tokenizer, transcriber.model, device="cuda")
@@ -1013,7 +1039,7 @@ def quant_phase(torch, served) -> dict:
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
-    fp_t, requests, plan = served
+    fp_t, requests, plan = served[:3]
     t0 = time.perf_counter()
     q_t = infer.Transcriber(fp_t.config, fp_t.tokenizer, copy.deepcopy(fp_t.model),
                             device="cuda", quantize=True)
@@ -1456,6 +1482,280 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _transcriber_ids(torch, t, batch, use_beam: bool = True):
+    """``t``'s decoded ids and lengths for ``batch``, both speakers as one
+    ``[2B]`` batch, as ``Transcriber.transcribe`` decodes them."""
+    from multimodal_av_model_tpu_torch.infer import _BATCH_KEYS, decode_ids
+
+    with torch.no_grad():
+        out = t.forward(*[torch.as_tensor(batch[k]).cuda() for k in _BATCH_KEYS])
+        return decode_ids(t.config, torch.cat([out["log_probs1"], out["log_probs2"]]),
+                          torch.cat([out["input_lengths1"], out["input_lengths2"]]), use_beam,
+                          t.lm)
+
+
+def export_phase(torch, served) -> dict:
+    """[export]: phase 5's Transcriber exported at bucket 128 (B = 4) with the
+    prefix beam, and its int8 form with greedy decoding; each artifact loaded
+    back and run on phase 5's three bucket-128 requests after
+    ``preprocess_batch_device`` (K2 x2): ids equal to the Transcriber's, K1
+    once and K2 never inside an artifact call."""
+    import copy
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch.infer import (
+        _BATCH_KEYS,
+        ExportedTranscriber,
+        Transcriber,
+        export_transcriber,
+    )
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+
+    fp_t, requests, plan, serving_lat = served
+    chosen = [i for i, T in enumerate(plan) if T == 128]
+    serving_ms = [serving_lat[i] * 1e3 for i in chosen]
+    q_t = Transcriber(fp_t.config, fp_t.tokenizer, copy.deepcopy(fp_t.model), device="cuda",
+                      quantize=True)
+    root = tempfile.mkdtemp(prefix="mmav_export_")
+    launches = {"logmel": 0, "lip_preprocess": 0}
+    try:
+        for name, t, use_beam in (("prefix beam 5, top-k 8", fp_t, True),
+                                  ("int8, greedy", q_t, False)):
+            out_dir = os.path.join(root, "int8" if t is q_t else "fp")
+            example = _flagship_batch(torch, requests[chosen[0]])
+            torch.cuda.synchronize()
+            report = export_transcriber(t, out_dir, example, use_beam=use_beam)
+            files = {f: os.path.getsize(os.path.join(out_dir, f)) for f in os.listdir(out_dir)}
+            t0 = time.perf_counter()
+            artifact = ExportedTranscriber.load(out_dir, device="cuda")
+            load_s = time.perf_counter() - t0
+            weights = sum(x.numel() * x.element_size()
+                          for x in artifact.program.state_dict.values())
+            artifact.transcribe(example)                 # warm-up
+            torch.cuda.synchronize()
+            log_mel_spectrogram_cuda.launches = 0
+            lip_preprocess_cuda.launches = 0
+            lat, batches, inside = [], [], []
+            for i in chosen:                             # the main path
+                t0 = time.perf_counter()
+                batch = _flagship_batch(torch, requests[i])
+                before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+                texts = artifact.transcribe(batch)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+                inside.append((log_mel_spectrogram_cuda.launches - before[0],
+                               lip_preprocess_cuda.launches - before[1]))
+                batches.append(batch)
+                if len(texts) != 4:
+                    raise SystemExit(f"export: {len(texts)} texts for a request of 4")
+            k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+            launches["logmel"] += k1
+            launches["lip_preprocess"] += k2
+            same = []
+            for batch in batches:
+                with torch.no_grad():
+                    ids1, len1, ids2, len2 = artifact.module(
+                        artifact.lm, *[torch.as_tensor(batch[k]).cuda() for k in _BATCH_KEYS])
+                want_ids, want_len = _transcriber_ids(torch, t, batch, use_beam)
+                same.append(torch.equal(torch.cat([ids1, ids2]), want_ids)
+                            and torch.equal(torch.cat([len1, len2]), want_len))
+            ok = all(same) and all(p == (1, 0) for p in inside) and k2 == 2 * len(chosen)
+            log(f"[export] {name}: torch.export of forward + decode at bucket 128, B=4 in "
+                f"{report['seconds']:.1f} s, {report['nodes']} graph nodes; artifact "
+                + ", ".join(f"{f} {b / 1e6:.1f} MB" for f, b in sorted(files.items()))
+                + f" (weights and buffers {weights / 1e6:.1f} MB of it, the rest the "
+                f"graph); loaded in {load_s:.1f} s; {len(chosen)} bucket-128 requests "
+                f"(preprocess_batch_device + ExportedTranscriber.transcribe): "
+                + ", ".join(f"{ms:.1f}" for ms in lat) + " ms against [serving]'s "
+                + ", ".join(f"{ms:.1f}" for ms in serving_ms) + f" ms; launches inside the "
+                f"artifact calls (K1, K2) {inside}, over the path K1 {k1}, K2 {k2}; ids "
+                f"{'equal to' if all(same) else 'DIFFER from'} the Transcriber's "
+                f"({sum(same)} of {len(same)} requests) {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise SystemExit(f"export: {name}: ids equal {same}, launches per artifact "
+                                 f"call {inside}, K2 {k2}")
+            del artifact
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        del q_t
+
+
+def temporal_tf_phase(torch, rng, tok) -> dict:
+    """[temporal-tf]: the flagship with ``fusion.temporal_model=
+    "transformer"`` (2 layers, 8 heads, FFN 2048): a small f32 check card
+    against CPU, three bucket-128 requests (K1 x1, K2 x2 each) with one more
+    timed by layer, then B = 8 training steps at ``bench.py``'s shapes."""
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.infer import Transcriber
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+
+    reference_phase(torch, rng, "transformer", "temporal-tf")
+    cfg = Config()
+    cfg.model.fusion.temporal_model = "transformer"
+    f = cfg.model.fusion
+    model = init_weights(MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)),
+                         torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    transcriber = Transcriber(cfg, tok, model, device="cuda")
+    spec = make_bucket_specs((128,), cfg.data.audio_samples_per_video_frame,
+                             cfg.data.max_label_len)[0]
+    requests = [make_request(rng, 4, spec) for _ in range(3)]
+
+    def serve(raw):
+        return transcriber.transcribe(_flagship_batch(torch, raw))
+
+    serve(requests[0])                               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log_mel_spectrogram_cuda.launches = 0
+    lip_preprocess_cuda.launches = 0
+    lat, per_request = [], []
+    for raw in requests:                             # the main path
+        before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+        t0 = time.perf_counter()
+        texts = serve(raw)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        per_request.append((log_mel_spectrogram_cuda.launches - before[0],
+                            lip_preprocess_cuda.launches - before[1]))
+        if len(texts) != 4:
+            raise SystemExit(f"temporal-tf: {len(texts)} texts for a request of 4")
+    launches = {"logmel": log_mel_spectrogram_cuda.launches,
+                "lip_preprocess": lip_preprocess_cuda.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if any(p != (1, 2) for p in per_request):
+        raise SystemExit(f"temporal-tf: launches per request {per_request} (expected 1 and 2)")
+    log(f"[temporal-tf] flagship with the transformer temporal model ({f.temporal_layers} layers, "
+        f"{f.transformer_heads} heads, FFN {f.transformer_ffn_dim}), {n_params / 1e6:.1f}M params, "
+        f"bf16: 3 bucket-128 requests of 4 "
+        + ", ".join(f"{ms:.1f}" for ms in lat) + f" ms; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches per request {per_request}")
+    layer_breakdown(torch, transcriber, serve, requests[0], "temporal-tf")
+    del transcriber, model
+    train_launches, _ = train_phase(torch, rng, tok, runs=((8, "none", 5),),
+                                    temporal_model="transformer", tag="temporal-tf")
+    return {k: launches[k] + train_launches[k] for k in launches}
+
+
+def structured_phase(torch, tok, smi: str) -> dict:
+    """[structured]: a small AI-Hub corpus written by the port, validated
+    with one lip file corrupted on purpose (it must be skipped with its
+    reason), its sentences read back, and the transformer flagship trained
+    20 steps at B = 8 on ``RealTextStructuredSource`` batches (K1 1, K2 0
+    per step: the source makes preprocessed lips); then the
+    nearest-centroid overlap-vs-solo probe on its contrastive features."""
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.manifest import build_data_list
+    from multimodal_av_model_tpu_torch.data.pipeline import bucketed_batches
+    from multimodal_av_model_tpu_torch.data.structured import (
+        RealTextStructuredSource,
+        load_reference_sentences,
+    )
+    from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
+    from multimodal_av_model_tpu_torch.data.validate import validate_manifest
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
+    from multimodal_av_model_tpu_torch.train.probe import (
+        collect_frame_features,
+        nearest_centroid_probe,
+        overlap_vs_solo_labels,
+    )
+
+    root = tempfile.mkdtemp(prefix="mmav_structured_")
+    try:
+        dirs = write_synthetic_corpus(os.path.join(root, "corpus"), tok, n_videos=4,
+                                      sentences_per_video=5, sentence_dur=(0.6, 1.2), seed=1)
+        entries, _ = build_data_list(dirs["json_folder"], dirs["npy_dir"], dirs["text_dir"],
+                                     dirs["wav_dir"])
+        broken = entries[3]
+        with open(broken.lip_path, "wb") as fh:     # corrupted on purpose
+            fh.write(b"not an npy file")
+        report = validate_manifest(entries, check_lip_contents=True)
+        skipped = [(e.lip_path, r) for e, r in report.skipped]
+        if (len(skipped) != 1 or skipped[0][0] != broken.lip_path
+                or not skipped[0][1].startswith("unreadable_lip")):
+            raise SystemExit(f"structured: validate_manifest skipped {skipped}")
+        sentences = load_reference_sentences(dirs["json_folder"])
+        if len(sentences) != len(entries):
+            raise SystemExit(f"structured: {len(sentences)} sentences for {len(entries)} entries")
+        log(f"[structured] corpus of {len(entries)} sentences: validate_manifest "
+            f"{report.summary()}, the corrupted lip file skipped as "
+            f"{skipped[0][1].split(':')[0]} ok; {len(sentences)} sentences read back, e.g. "
+            f"{json.dumps(sentences[0], ensure_ascii=False)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    cfg = Config()
+    cfg.model.fusion.temporal_model = "transformer"
+    specs = make_bucket_specs(cfg.data.video_buckets, cfg.data.audio_samples_per_video_frame,
+                              cfg.data.max_label_len)
+    B, n_steps = 8, 20
+    src = RealTextStructuredSource(tok, sentences, seed=0, max_chars=12, min_chars=4)
+
+    def batches(n):
+        return list(bucketed_batches((src.load_pair() for _ in range(n * B)), specs, B,
+                                     drop_last=True))[:n]
+
+    t0 = time.perf_counter()
+    trainer = MultiSpeakerTrainer(
+        cfg, MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)), tok)
+    state = trainer.init_state(cfg.data.seed)
+    train_batches = batches(n_steps + 2)
+    data_s = time.perf_counter() - t0
+    shapes = sorted({b["lip1"].shape[1] for b in train_batches})
+    for b in train_batches[:2]:                     # warm-up
+        state, _ = trainer.train_step(state, b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log_mel_spectrogram_cuda.launches = 0
+    lip_preprocess_cuda.launches = 0
+    losses = []
+    t0 = time.perf_counter()
+    for b in train_batches[2:]:                     # the main path
+        state, m = trainer.train_step(state, b)
+        losses.append(m["loss"])
+    losses = [x.item() for x in losses]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    if k1 != n_steps or k2 != 0 or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"structured: K1 {k1}, K2 {k2} over {n_steps} steps, losses {losses}")
+
+    outs = []
+    with torch.no_grad():
+        for b in batches(4):
+            placed = trainer._place(b)
+            out = state.model.eval()(*[placed[k] for k in (
+                "lip1", "lip2", "audio", "mask1", "mask2", "lip1_lengths", "lip2_lengths")])
+            outs.append(out)
+    state.model.train()
+    feats, labels = collect_frame_features(outs, speaker=1)
+    y = overlap_vs_solo_labels(labels)
+    acc = nearest_centroid_probe(feats, y)
+    log(f"[structured] transformer flagship on RealTextStructuredSource (chords of the "
+        f"sentences read back, 4-12 characters, lips made at 96x96): {n_steps} steps at B={B} "
+        f"(buckets {shapes}) in {wall:.2f} s, {B * n_steps / wall:.2f} utt/s; batches made in "
+        f"{data_s:.1f} s with the model; peak device memory {peak / 2**30:.2f} GiB; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}); launches per step K1 "
+        f"{k1 / n_steps:g}, K2 {k2 / n_steps:g}; nearest-centroid overlap-vs-solo probe on "
+        f"{len(y)} frames of speaker 1 ({y.mean():.3f} overlap): accuracy {acc:.3f} (reported, "
+        f"not gated); card {smi}")
+    return {"logmel": k1, "lip_preprocess": k2}
+
+
 def train_profile(torch, step) -> None:
     """One B = 8 training step timed (after one more to warm the caching
     allocator again after the B = 32 steps), then one under
@@ -1513,6 +1813,10 @@ def main() -> int:
     train_ref_phase(torch, rng, tok)
     train_launches, train_step = train_phase(torch, rng, tok)
     fit_launches = fit_phase(torch, tok, smi)
+    export_launches = export_phase(torch, served)
+    del served
+    tf_launches = temporal_tf_phase(torch, rng, tok)
+    structured_launches = structured_phase(torch, tok, smi)
     kernels = [k1, k2]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
         by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
@@ -1520,7 +1824,9 @@ def main() -> int:
                    "stream_audio": stream_launches["stream_audio"][k["name"]],
                    "pool": stream_launches["pool"][k["name"]],
                    "stream_av": stream_av_launches[k["name"]], "quant": quant_launches[k["name"]],
-                   "serve": serve_launches[k["name"]]}
+                   "serve": serve_launches[k["name"]], "export": export_launches[k["name"]],
+                   "temporal_tf": tf_launches[k["name"]],
+                   "structured": structured_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         dev_ms, caught = profiled_ms(*calls)

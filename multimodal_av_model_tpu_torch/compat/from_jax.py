@@ -9,6 +9,7 @@ the layouts alone (that module is not imported):
   kernel [H, hd, E]`` -> ``[E, H*hd]``;
 * LSTM ``ii..io`` / ``hi..ho`` kernels -> ``w_ih`` / ``w_hh`` in gate order
   i, f, g, o, forward and backward stacked; the recurrent biases -> ``b_hh``;
+* the transformer temporal model's auto-named children (``_transformer``);
 * conv ``HWIO`` -> ``OIHW`` (1D: ``[k, I, O]`` -> ``[O, I, k]``; the
   depthwise conv keeps ``I = 1`` for groups = d);
 * BatchNorm ``scale, bias`` + ``batch_stats mean, var`` -> ``weight, bias,
@@ -201,12 +202,33 @@ def _bilstm(tree, sd, src, dst):
         sd[_d(d, "b_hh")] = _t(np.stack(b_hh))
 
 
+def _transformer(tree, sd, src, dst):
+    """A flax ``TransformerTemporalBlock``: its compact loop names layer
+    ``i``'s children ``LayerNorm_{2i}`` (attention), ``LayerNorm_{2i+1}``
+    (FFN), ``MultiHeadDotProductAttention_i`` and ``Dense_{2i}``,
+    ``Dense_{2i+1}``; ``LayerNorm_{2L}`` is the final norm."""
+    n = len([c for c in tree.children("params", src)
+             if re.fullmatch(r"MultiHeadDotProductAttention_\d+", c)])
+    for i in range(n):
+        d = _d(dst, "layers", i)
+        _layer_norm(tree, sd, _p(src, f"LayerNorm_{2 * i}"), _d(d, "attn_norm"))
+        _mha(tree, sd, _p(src, f"MultiHeadDotProductAttention_{i}"), _d(d, "attn"))
+        _layer_norm(tree, sd, _p(src, f"LayerNorm_{2 * i + 1}"), _d(d, "ffn_norm"))
+        _dense(tree, sd, _p(src, f"Dense_{2 * i}"), _d(d, "fc1"))
+        _dense(tree, sd, _p(src, f"Dense_{2 * i + 1}"), _d(d, "fc2"))
+    _layer_norm(tree, sd, _p(src, f"LayerNorm_{2 * n}"), _d(dst, "final_norm"))
+
+
 def _fusion(tree, sd, src, dst):
     _dense(tree, sd, _p(src, "visual_proj"), _d(dst, "visual_proj"))
     _dense(tree, sd, _p(src, "audio_proj"), _d(dst, "audio_proj"))
     _mha(tree, sd, _p(src, "cross_attn_audio"), _d(dst, "cross_attn_audio"))
     _dense(tree, sd, _p(src, "fusion_proj"), _d(dst, "fusion_proj"))
-    _bilstm(tree, sd, _p(src, "temporal_bilstm"), _d(dst, "temporal_bilstm"))
+    if tree.has("params", src, "temporal_out", "kernel"):      # temporal_model="transformer"
+        _transformer(tree, sd, _p(src, "temporal_tf"), _d(dst, "temporal_tf"))
+        _dense(tree, sd, _p(src, "temporal_out"), _d(dst, "temporal_out"))
+    else:
+        _bilstm(tree, sd, _p(src, "temporal_bilstm"), _d(dst, "temporal_bilstm"))
 
 
 def _convert(variables, fill) -> dict[str, torch.Tensor]:
@@ -230,6 +252,11 @@ def visual_encoder_from_jax(variables) -> dict[str, torch.Tensor]:
 def bilstm_from_jax(variables) -> dict[str, torch.Tensor]:
     """Variables of a flax ``BiLSTM`` -> the port's ``BiLSTM`` state_dict."""
     return _convert(variables, lambda tree, sd: _bilstm(tree, sd, "", ""))
+
+
+def transformer_from_jax(variables) -> dict[str, torch.Tensor]:
+    """Variables of a flax ``TransformerTemporalBlock`` -> the port's state_dict."""
+    return _convert(variables, lambda tree, sd: _transformer(tree, sd, "", ""))
 
 
 def fusion_from_jax(variables) -> dict[str, torch.Tensor]:

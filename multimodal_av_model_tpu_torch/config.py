@@ -76,8 +76,10 @@ class FusionConfig:
 
     fused_dim: int = 512
     num_heads: int = 4
-    temporal_model: str = "bilstm"    # the port has the BiLSTM only so far
+    temporal_model: str = "bilstm"    # "bilstm" or "transformer"
     temporal_layers: int = 2
+    transformer_heads: int = 8
+    transformer_ffn_dim: int = 2048
 
 
 @dataclass

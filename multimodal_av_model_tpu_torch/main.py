@@ -1,7 +1,7 @@
 """The port's command line: train, evaluate, transcribe or stream.
 
-    python -m multimodal_av_model_tpu_torch.main [--synthetic] [--eval | --infer]
-        [--stream=FILES] [--device=cuda|cpu] [key.path=value ...]
+    python -m multimodal_av_model_tpu_torch.main [--synthetic] [--eval | --infer
+        [--export=DIR]] [--stream=FILES] [--device=cuda|cpu] [key.path=value ...]
 
 Mirrors ``multimodal_av_model_tpu/main.py`` for the ``av`` family:
 ``build_data`` (``main.py:27-110``), ``run_infer`` and ``run_eval``
@@ -22,7 +22,9 @@ Mirrors ``multimodal_av_model_tpu/main.py`` for the ``av`` family:
 * ``--eval`` prints one JSON line with greedy and ``decode.algorithm``
   scores of ``best_wer.ckpt`` (else ``last.ckpt``); ``--infer`` prints
   ``[utt n] speaker1: ...`` lines for the eval pairs, from int8 weights with
-  ``decode.quantize=true``;
+  ``decode.quantize=true``; ``--infer --export=<dir>`` first writes the
+  serving artifact at the first eval batch's shapes (``main.py:113-146``),
+  which ``infer.ExportedTranscriber.load(<dir>)`` serves;
 * ``--stream=x.wav`` streams one file through ``StreamingAudioTranscriber``,
   ``--stream=a.wav,b.wav,...`` the files together through a
   ``StreamingPool``: both load an ``AudioOnlyCTC`` checkpoint (the port's
@@ -48,7 +50,6 @@ import sys
 # Flags and overrides of the JAX CLI that the port does not take yet, each
 # with the ROADMAP.md item that brings it.
 REFUSED = {
-    "--export": "Queue 1 item 4 (the serving export: torch.export with K1 and K2 as custom ops)",
     "train.audio_init_ckpt": "Queue 1 item 6 (other families: the SSL family)",
     "train.ssl_": "Queue 1 item 6 (other families: the SSL family)",
     "model.audio.specaug_": "Queue 1 item 6 (other families: ops/specaugment.py)",
@@ -138,9 +139,11 @@ def _checkpoint(cfg) -> str:
     raise SystemExit(f"no checkpoint under {cfg.train.checkpoint_dir}")
 
 
-def run_infer(cfg, tokenizer, synthetic: bool, device="cuda") -> None:
-    """``--infer``: the checkpoint's transcripts of the eval pairs."""
-    from .infer import Transcriber
+def run_infer(cfg, tokenizer, synthetic: bool, device="cuda", export_dir: str = "") -> None:
+    """``--infer``: the checkpoint's transcripts of the eval pairs.  With
+    ``--export=<dir>``, the serving computation is first exported at the
+    first eval batch's shapes (``infer.export_transcriber``)."""
+    from .infer import Transcriber, export_transcriber
 
     _, val_factory = build_data(cfg, tokenizer, synthetic, device, device_put=False)
     ckpt = _checkpoint(cfg)
@@ -149,6 +152,13 @@ def run_infer(cfg, tokenizer, synthetic: bool, device="cuda") -> None:
     if cfg.decode.quantize:
         print(f"int8 weight-only serving: {transcriber.forward.nbytes / 1e6:.1f} MB of "
               "parameters")
+    if export_dir:
+        batches = iter(val_factory())
+        first = next(batches)
+        batches.close()
+        report = export_transcriber(transcriber, export_dir, first)
+        print(f"exported serving artifact to {export_dir} ({report['nodes']} graph nodes, "
+              f"{report['bytes'] / 1e6:.1f} MB, traced in {report['seconds']:.1f} s)")
     print(f"transcribing with {ckpt}")
     n = 0
     for batch in val_factory():
@@ -283,7 +293,7 @@ def run_stream(cfg, tokenizer, spec: str, device="cuda") -> None:
 def main(argv: list[str] | None = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     flags = {a for a in argv if a in ("--synthetic", "--infer", "--eval")}
-    device, stream, overrides = "cuda", None, []
+    device, stream, export_dir, overrides = "cuda", None, "", []
     for a in argv:
         if a in flags:
             continue
@@ -292,6 +302,8 @@ def main(argv: list[str] | None = None) -> None:
             device = value
         elif name == "--stream":
             stream = value
+        elif name == "--export":
+            export_dir = value
         elif name == "--family":
             if value != "av":
                 _refuse(f"--family={value}", FAMILIES_ITEM)
@@ -307,6 +319,9 @@ def main(argv: list[str] | None = None) -> None:
             overrides.append(a)
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"--device must be cuda or cpu, got {device!r}")
+    if export_dir and "--infer" not in flags:
+        raise SystemExit("--export=<dir> exports the serving computation of --infer; "
+                         "pass --infer with it")
 
     import torch
 
@@ -335,7 +350,7 @@ def main(argv: list[str] | None = None) -> None:
         run_eval(cfg, tokenizer, synthetic, device)
         return
     if "--infer" in flags:
-        run_infer(cfg, tokenizer, synthetic, device)
+        run_infer(cfg, tokenizer, synthetic, device, export_dir)
         return
 
     ckpts = CheckpointManager(cfg.train.checkpoint_dir, layout=cfg.train.checkpoint_layout)

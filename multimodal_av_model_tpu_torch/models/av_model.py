@@ -6,7 +6,8 @@ the visual encoder, fusion and decoder (so train-mode BatchNorm takes its
 statistics over the joint ``2B`` batch); the mixture is encoded once, on the
 union of the two speakers' non-pad masks, and reused for both (exact in eval;
 in train mode both speakers share one dropout draw).  The fusion has no
-train-mode behaviour (its attention has no dropout, the BiLSTM none).
+train-mode behaviour (its attention has no dropout, the BiLSTM none, and the
+transformer temporal model is built with dropout 0, as in JAX).
 ``AudioOnlyCTC`` mirrors ``av_model.py:148-161``, eval forward only.
 """
 

@@ -1,12 +1,12 @@
 """Cross-attention audio-visual fusion with static-shape masked frame logic.
 
-Mirrors ``multimodal_av_model_tpu/models/fusion.py:36-141`` (BiLSTM temporal
-model).  Audio frames whose speaker mask is 0 or 3 are dropped by a stable
-argsort compaction; the kept frames are resampled to the visual length over
-the batch-max kept length ``t_in``, which stays a device tensor (no host
-sync); the mask is resampled with integer nearest-neighbour math; audio
-queries the visual stream through multi-head attention; a BiLSTM runs over the
-fused sequence.
+Mirrors ``multimodal_av_model_tpu/models/fusion.py:36-141``. Audio frames
+whose speaker mask is 0 or 3 are dropped by a stable argsort compaction; the
+kept frames are resampled to the visual length over the batch-max kept length
+``t_in``, which stays a device tensor (no host sync); the mask is resampled
+with integer nearest-neighbour math; audio queries the visual stream through
+multi-head attention; a BiLSTM, or with ``temporal_model="transformer"`` a
+transformer and a Dense to ``2 fused_dim``, runs over the fused sequence.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from torch import nn
 
 from ..config import FusionConfig
 from ..data.mixing import MASK_OTHER_SOLO, MASK_PAD
-from .layers import BiLSTM, Dense, MultiHeadAttention, length_mask
+from .layers import BiLSTM, Dense, MultiHeadAttention, TransformerTemporalBlock, length_mask
 
 
 def compact_speech_frames(audio_feat, mask):
@@ -64,16 +64,21 @@ class CrossAttentionFusion(nn.Module):
     def __init__(self, config: FusionConfig, visual_dim: int, audio_dim: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if config.temporal_model != "bilstm":
-            raise ValueError(f"temporal model {config.temporal_model!r} is not ported; "
-                             "the port has 'bilstm'")
         d = config.fused_dim
         self.config, self.dtype = config, dtype
         self.visual_proj = Dense(visual_dim, d, dtype=dtype)
         self.audio_proj = Dense(audio_dim, d, dtype=dtype)
         self.cross_attn_audio = MultiHeadAttention(d, config.num_heads, dtype)
         self.fusion_proj = Dense(d, d, dtype=dtype)
-        self.temporal_bilstm = BiLSTM(d, d, config.temporal_layers, dtype)
+        if config.temporal_model == "bilstm":
+            self.temporal_bilstm = BiLSTM(d, d, config.temporal_layers, dtype)
+        elif config.temporal_model == "transformer":      # fusion.py:130-137
+            self.temporal_tf = TransformerTemporalBlock(
+                d, config.temporal_layers, config.transformer_heads,
+                config.transformer_ffn_dim, dtype)
+            self.temporal_out = Dense(d, 2 * d, dtype=dtype)
+        else:
+            raise ValueError(f"unknown temporal model {config.temporal_model!r}")
 
     def forward(self, visual_feat, audio_feat, mask, visual_lengths=None):
         """Args:
@@ -96,6 +101,9 @@ class CrossAttentionFusion(nn.Module):
             attn_mask = length_mask(visual_lengths, T_v)[:, None, None, :]
         a2v = self.cross_attn_audio(a, v, attn_mask)
         fused = self.fusion_proj(a2v)
-        fused_seq = self.temporal_bilstm(fused, visual_lengths)
+        if self.config.temporal_model == "bilstm":
+            fused_seq = self.temporal_bilstm(fused, visual_lengths)
+        else:
+            fused_seq = self.temporal_out(self.temporal_tf(fused, visual_lengths))
         input_lengths = (mask_i != 0).sum(dim=1).to(torch.int32)
         return fused_seq, input_lengths

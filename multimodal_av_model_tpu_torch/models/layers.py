@@ -1,6 +1,7 @@
-"""Shared building blocks: dense and norm layers, PReLU, dropout, positions, BiLSTM.
+"""Shared building blocks: dense and norm layers, PReLU, dropout, positions,
+BiLSTM, the transformer temporal model.
 
-Mirrors ``multimodal_av_model_tpu/models/layers.py:21-83,134-266``.  Every
+Mirrors ``multimodal_av_model_tpu/models/layers.py:21-83,134-266,321-355``.  Every
 layer keeps f32 parameters and computes in its ``dtype`` (bfloat16 when
 serving), as the flax modules do: inputs and parameters are cast at use.
 Norms compute their statistics in f32.  Eps values follow flax: LayerNorm and
@@ -250,6 +251,55 @@ def sinusoidal_positions(max_len: int, dim: int, device=None) -> torch.Tensor:
     pe[:, 0::2] = torch.sin(pos * div)
     pe[:, 1::2] = torch.cos(pos * div)
     return pe
+
+
+class TransformerTemporalLayer(nn.Module):
+    """One pre-LN layer of ``TransformerTemporalBlock``: masked self-attention
+    and a GELU (tanh form, flax's ``nn.gelu``) feed-forward, each with a
+    residual."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.attn_norm = LayerNorm(dim, dtype)
+        self.attn = MultiHeadAttention(dim, num_heads, dtype)
+        self.ffn_norm = LayerNorm(dim, dtype)
+        self.fc1 = Dense(dim, ffn_dim, dtype=dtype)
+        self.fc2 = Dense(ffn_dim, dim, dtype=dtype)
+
+    def forward(self, x, mask):
+        h = self.attn_norm(x)
+        x = x + self.attn(h, h, mask)
+        h = self.fc2(F.gelu(self.fc1(self.ffn_norm(x)), approximate="tanh"))
+        return x + h
+
+
+class TransformerTemporalBlock(nn.Module):
+    """Masked self-attention temporal model, the fusion's alternative to the
+    BiLSTM (``layers.py:321-355``): sinusoidal positions (made in f32, added
+    in ``dtype``), ``num_layers`` pre-LN layers, a final LayerNorm.  With
+    ``lengths`` the mask is query and key validity, so a padded query row is
+    fully masked and gets the mean of V, as in flax.  JAX builds it with
+    dropout 0, so it has no train-mode behaviour."""
+
+    def __init__(self, dim: int, num_layers: int = 2, num_heads: int = 8, ffn_dim: int = 2048,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layers = nn.ModuleList(TransformerTemporalLayer(dim, num_heads, ffn_dim, dtype)
+                                    for _ in range(num_layers))
+        self.final_norm = LayerNorm(dim, dtype)
+        self.dtype = dtype
+
+    def forward(self, x, lengths=None):
+        """``x [B, T, D]``, ``lengths [B]`` or None -> ``[B, T, D]``."""
+        B, T, D = x.shape
+        mask = None
+        if lengths is not None:
+            valid = length_mask(lengths, T)
+            mask = valid[:, None, None, :] & valid[:, None, :, None]
+        x = x.to(self.dtype) + sinusoidal_positions(T, D, x.device).to(self.dtype)[None]
+        for layer in self.layers:
+            x = layer(x, mask)
+        return self.final_norm(x)
 
 
 def length_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:

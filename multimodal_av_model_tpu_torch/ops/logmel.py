@@ -8,8 +8,11 @@ kernel, here ``csrc/logmel.cu``).  Semantics are torchaudio's: centred frames
 with reflect padding, a periodic Hann window, the rFFT power, an HTK mel
 filterbank without normalisation, then ``log(mel + 1e-6)``, all in f32.
 
-``log_mel_spectrogram_cuda`` is the entry the audio encoder calls: a CUDA
-tensor launches the kernel (or raises), a CPU tensor takes the plain version.
+``log_mel_spectrogram_cuda`` is the entry the audio encoder calls.  It goes
+through the operator ``mmav::log_mel`` (``torch.library.custom_op``) on every
+device, so ``torch.export`` keeps K1 as one node: on a CUDA tensor the
+operator launches the kernel (or raises), on a CPU tensor it takes the plain
+version.
 """
 
 from __future__ import annotations
@@ -255,37 +258,24 @@ def _library():
     return lib, launch
 
 
-def log_mel_spectrogram_cuda(signal: torch.Tensor, sample_rate: int = 16000,
-                             n_fft: int = 400, hop_length: int = 160,
-                             win_length: int | None = None, n_mels: int = 80,
-                             f_min: float = 0.0, f_max: float | None = None,
-                             log_eps: float = 1e-6, center: bool = True,
-                             apply_log: bool = True) -> torch.Tensor:
-    """K1: fused log-mel of a ``[B, S]`` (or ``[S]``) f32 waveform.
-
-    A CUDA tensor launches ``csrc/logmel.cu`` and counts one launch in
-    ``log_mel_spectrogram_cuda.launches``; a CPU tensor takes the plain
-    ``log_mel_spectrogram``.  Raises on anything the kernel does not take.
-    """
-    win_length = win_length or n_fft
-    if signal.device.type == "cpu":
-        return log_mel_spectrogram(signal, sample_rate, n_fft, hop_length, win_length,
-                                   n_mels, f_min, f_max, log_eps, center, apply_log)
-    if signal.device.type != "cuda":
-        raise ValueError(f"log-mel kernel: unsupported device {signal.device}")
+def _log_mel_launch(signal: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
+                    win_length: int, n_mels: int, f_min: float, f_max: float | None,
+                    log_eps: float, center: bool, apply_log: bool) -> torch.Tensor:
+    """The ``"cuda"`` kernel of ``mmav::log_mel``: launches ``csrc/logmel.cu``
+    on a ``[B, S]`` waveform and counts one launch in
+    ``log_mel_spectrogram_cuda.launches``.  Raises on anything the kernel
+    does not take."""
     if win_length != n_fft:
         raise ValueError("log-mel kernel: win_length must equal n_fft "
                          "(logmel_kernel.py:132 asserts the same)")
     if signal.dtype != torch.float32:
         raise TypeError(f"log-mel kernel: expected float32, got {signal.dtype}")
-    if signal.ndim not in (1, 2) or not signal.is_contiguous():
+    if not signal.is_contiguous():
         raise ValueError("log-mel kernel: expected a contiguous [B, S] or [S] waveform")
     if n_fft % 8 or hop_length % 8:
         raise ValueError("log-mel kernel: n_fft and hop_length must be multiples of 8 "
                          "(the wgmma k step)")
-    squeeze = signal.ndim == 1
-    x = signal[None] if squeeze else signal
-    B, S = x.shape
+    B, S = signal.shape
     if center and S <= n_fft // 2:
         raise ValueError(f"log-mel kernel: reflect padding needs more than "
                          f"{n_fft // 2} samples")
@@ -301,16 +291,69 @@ def log_mel_spectrogram_cuda(signal: torch.Tensor, sample_rate: int = 16000,
 
     lib, launch = _library()
     basis, mel_lo, mel_w = _kernel_tables(n_fft, n_mels, sample_rate, f_min, f_max,
-                                          plan["bins"], plan["ksteps"], str(x.device))
-    out = torch.empty((B, plan["T"], n_mels), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = launch(x.data_ptr(), basis.data_ptr(), mel_lo.data_ptr(), mel_w.data_ptr(),
+                                          plan["bins"], plan["ksteps"], str(signal.device))
+    out = torch.empty((B, plan["T"], n_mels), dtype=torch.float32, device=signal.device)
+    stream = torch.cuda.current_stream(signal.device).cuda_stream
+    code = launch(signal.data_ptr(), basis.data_ptr(), mel_lo.data_ptr(), mel_w.data_ptr(),
                   out.data_ptr(), S, plan["T"], n_fft, hop_length, plan["pad"],
                   plan["tiles_per_row"], plan["n_mtiles"], plan["rows_tile"], n_mels,
                   plan["ksteps"], log_eps, int(apply_log), plan["ctas"], plan["smem_bytes"],
                   stream)
     cuda_build.check_launch(lib, "mmav_logmel", code)
     log_mel_spectrogram_cuda.launches += 1
+    return out
+
+
+# K1 as an operator, so that torch.export traces it as one node: the CUDA
+# kernel on the card, the plain version on the CPU, and a fake that gives the
+# output's shape.  No autograd: the waveform is data and the features are
+# detached (JAX puts K1 under stop_gradient, models/audio.py:147).
+log_mel_op = torch.library.custom_op(
+    "mmav::log_mel", _log_mel_launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor signal, int sample_rate, int n_fft, int hop_length, int win_length, "
+           "int n_mels, float f_min, float? f_max, float log_eps, bool center, "
+           "bool apply_log) -> Tensor")
+
+
+@log_mel_op.register_kernel("cpu")
+def _log_mel_plain(signal, sample_rate, n_fft, hop_length, win_length, n_mels, f_min, f_max,
+                   log_eps, center, apply_log):
+    return log_mel_spectrogram(signal, sample_rate, n_fft, hop_length, win_length, n_mels,
+                               f_min, f_max, log_eps, center, apply_log)
+
+
+@log_mel_op.register_fake
+def _log_mel_fake(signal, sample_rate, n_fft, hop_length, win_length, n_mels, f_min, f_max,
+                  log_eps, center, apply_log):
+    B, S = signal.shape
+    return signal.new_empty((B, num_frames(S, n_fft, hop_length, center), n_mels),
+                            dtype=torch.float32)
+
+
+def log_mel_spectrogram_cuda(signal: torch.Tensor, sample_rate: int = 16000,
+                             n_fft: int = 400, hop_length: int = 160,
+                             win_length: int | None = None, n_mels: int = 80,
+                             f_min: float = 0.0, f_max: float | None = None,
+                             log_eps: float = 1e-6, center: bool = True,
+                             apply_log: bool = True) -> torch.Tensor:
+    """K1: fused log-mel of a ``[B, S]`` (or ``[S]``) f32 waveform, through
+    the operator ``mmav::log_mel`` on every device.
+
+    A CUDA tensor launches ``csrc/logmel.cu`` (counted in
+    ``log_mel_spectrogram_cuda.launches`` when it runs, in an exported
+    program too) or raises; a CPU tensor takes the plain
+    ``log_mel_spectrogram``.  The operator returns a fresh ``[B, T, n_mels]``;
+    a 1-D input's batch axis is dropped here, outside it.
+    """
+    if signal.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"log-mel kernel: unsupported device {signal.device}")
+    if signal.ndim not in (1, 2):
+        raise ValueError("log-mel kernel: expected a contiguous [B, S] or [S] waveform")
+    squeeze = signal.ndim == 1
+    out = log_mel_op(signal[None] if squeeze else signal, sample_rate, n_fft, hop_length,
+                     win_length or n_fft, n_mels, float(f_min),
+                     None if f_max is None else float(f_max), float(log_eps), bool(center),
+                     bool(apply_log))
     return out[0] if squeeze else out
 
 

@@ -119,22 +119,42 @@ def quantization_report(state, qstate, scales) -> dict:
             "vs_bf16": round(fp32 / 2 / qbytes, 2)}
 
 
-class QuantizedModel:
+class QuantizedModel(nn.Module):
     """A model served from its int8 form: the fp parameters are dropped (the
     module moves to the meta device) and only the int8 tensors, their scales
-    and the unquantized tensors stay on ``device``.  Each call dequantizes to
-    the model's compute dtype (``model.dtype``) and runs the module on the
-    result through ``torch.func.functional_call``, as JAX dequantizes inside
-    the jitted forward (``infer.py:65-92``)."""
+    and the unquantized tensors stay on ``device``, as this module's buffers
+    (``q_<name>`` and ``s_<name>``, each ``.`` of the name spelled ``__``), so
+    a ``torch.export`` of it holds them and no fp copy.  Each call
+    dequantizes to the model's compute dtype (``model.dtype``) and runs the
+    module on the result through ``torch.func.functional_call``, as JAX
+    dequantizes inside the jitted forward (``infer.py:65-92``)."""
 
     def __init__(self, model: nn.Module, device, min_size: int = 4096):
+        super().__init__()
         self.layouts = kernel_layouts(model)
         state = {k: v.detach() for k, v in model.state_dict().items()}
         qstate, scales = quantize_state_dict(state, self.layouts, min_size)
-        self.qstate = {k: v.to(device) for k, v in qstate.items()}
-        self.scales = {k: v.to(device) for k, v in scales.items()}
+        self._names, self._quantized = list(qstate), list(scales)
+        for name, t in qstate.items():
+            self.register_buffer(_buffer("q", name), t.to(device))
+        for name, t in scales.items():
+            self.register_buffer(_buffer("s", name), t.to(device))
         self.dtype = model.dtype
-        self.model = model.eval().to("meta")
+        self._module = (model.eval().to("meta"),)     # a tuple: not a submodule, holds no state
+
+    @property
+    def model(self) -> nn.Module:
+        """The model's module, on the meta device."""
+        return self._module[0]
+
+    @property
+    def qstate(self) -> dict[str, torch.Tensor]:
+        """Every name of the model's state dict: int8 where quantized."""
+        return {name: getattr(self, _buffer("q", name)) for name in self._names}
+
+    @property
+    def scales(self) -> dict[str, torch.Tensor]:
+        return {name: getattr(self, _buffer("s", name)) for name in self._quantized}
 
     @property
     def nbytes(self) -> int:
@@ -144,5 +164,9 @@ class QuantizedModel:
     def dequantized(self) -> dict[str, torch.Tensor]:
         return dequantize_state_dict(self.qstate, self.scales, self.layouts, self.dtype)
 
-    def __call__(self, *args, **kwargs):
+    def forward(self, *args, **kwargs):
         return torch.func.functional_call(self.model, self.dequantized(), args, kwargs)
+
+
+def _buffer(kind: str, name: str) -> str:
+    return f"{kind}_{name.replace('.', '__')}"

@@ -7,8 +7,10 @@ the gather-based resize and ``lip_frames_preprocess``) and
 here ``csrc/lip_preprocess.cu``).  OpenCV ``INTER_LINEAR`` sampling: half-pixel
 centres ``src = (dst + 0.5) * scale - 0.5``, clamped at the edges.
 
-``lip_preprocess_cuda`` is the entry the device pipeline calls: a CUDA tensor
-launches the kernel (or raises), a CPU tensor takes the plain version.
+``lip_preprocess_cuda`` is the entry the device pipeline calls.  It goes
+through the operator ``mmav::lip_preprocess`` (``torch.library.custom_op``) on
+every device: on a CUDA tensor the operator launches the kernel (or raises),
+on a CPU tensor it takes the plain version.
 """
 
 from __future__ import annotations
@@ -134,21 +136,14 @@ def _library():
     return lib, launch
 
 
-def lip_preprocess_cuda(frames: torch.Tensor, out_size: int = 96) -> torch.Tensor:
-    """K2: ``[N, H, W, C]`` (uint8 or float32, 0..255) -> ``[N, 1, out, out]`` f32.
-
-    A CUDA tensor launches ``csrc/lip_preprocess.cu`` on the input as stored
-    and counts one launch in ``lip_preprocess_cuda.launches``; a CPU tensor
-    takes the plain ``lip_frames_preprocess``.  Raises on anything the kernel
-    does not take.
-    """
-    if frames.device.type == "cpu":
-        return lip_frames_preprocess(frames, out_size)
-    if frames.device.type != "cuda":
-        raise ValueError(f"lip kernel: unsupported device {frames.device}")
+def _lip_launch(frames: torch.Tensor, out_size: int) -> torch.Tensor:
+    """The ``"cuda"`` kernel of ``mmav::lip_preprocess``: launches
+    ``csrc/lip_preprocess.cu`` on the input as stored and counts one launch
+    in ``lip_preprocess_cuda.launches``.  Raises on anything the kernel does
+    not take."""
     if frames.dtype not in _SUPPORTED:
         raise TypeError(f"lip kernel: expected uint8 or float32, got {frames.dtype}")
-    if frames.ndim != 4 or not frames.is_contiguous():
+    if not frames.is_contiguous():
         raise ValueError("lip kernel: expected a contiguous [N, H, W, C] tensor")
     N, H, W, C = frames.shape
     if not 0 < N <= 65535 or min(H, W, C) < 1:
@@ -167,6 +162,38 @@ def lip_preprocess_cuda(frames: torch.Tensor, out_size: int = 96) -> torch.Tenso
     cuda_build.check_launch(lib, "mmav_lip", code)
     lip_preprocess_cuda.launches += 1
     return out
+
+
+# K2 as an operator (as K1 in ops/logmel.py): the CUDA kernel on the card, the
+# plain version on the CPU, a fake for the output's shape, no autograd.
+lip_preprocess_op = torch.library.custom_op(
+    "mmav::lip_preprocess", _lip_launch, mutates_args=(), device_types="cuda",
+    schema="(Tensor frames, int out_size) -> Tensor")
+
+
+@lip_preprocess_op.register_kernel("cpu")
+def _lip_plain(frames, out_size):
+    return lip_frames_preprocess(frames, out_size)
+
+
+@lip_preprocess_op.register_fake
+def _lip_fake(frames, out_size):
+    return frames.new_empty((frames.shape[0], 1, out_size, out_size), dtype=torch.float32)
+
+
+def lip_preprocess_cuda(frames: torch.Tensor, out_size: int = 96) -> torch.Tensor:
+    """K2: ``[N, H, W, C]`` (uint8 or float32, 0..255) -> ``[N, 1, out, out]``
+    f32, through the operator ``mmav::lip_preprocess`` on every device.
+
+    A CUDA tensor launches ``csrc/lip_preprocess.cu`` (counted in
+    ``lip_preprocess_cuda.launches`` when it runs) or raises; a CPU tensor
+    takes the plain ``lip_frames_preprocess``.
+    """
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"lip kernel: unsupported device {frames.device}")
+    if frames.ndim != 4:
+        raise ValueError("lip kernel: expected a contiguous [N, H, W, C] tensor")
+    return lip_preprocess_op(frames, int(out_size))
 
 
 lip_preprocess_cuda.launches = 0
