@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port's serving surface, serving export, training step and
-training run on one NVIDIA GPU (H100).
+"""Smoke run of the PyTorch port's serving surface, serving export, training step,
+training run and the audio-only, visual-only and SSL families on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py      # needs one CUDA card; a few minutes on an H100
 
@@ -107,10 +107,38 @@ Phases, each printing a line; any failure exits non-zero:
     step), the first and last loss and the ``nearest_centroid_probe``
     accuracy on overlap against solo frames.
 
+21. ``[family-ref]``: one training step of each family's small f32 model
+    (dropout 0, B = 2): the audio family (K1), the visual family (BatchNorm)
+    and the SSL pretrainer (the same spans), each on the card and on the CPU
+    from one seeded state: loss, every gradient and the BatchNorm statistics
+    at phase 8's bars; SpecAugment's apply on the card equal to the CPU's
+    with the same draws;
+22. ``[family-audio]``: ``AudioOnlyCTC`` at full width (12x512 Conformer,
+    800 tokens, f32 as the JAX CLI builds it) at ``utterance_batches``'
+    ``[8, 160000]``: K1 against its plain version there, 2 warm-up and 10
+    timed ``train_step``s (K1 1, K2 0 per step; ms, utt/s, peak memory,
+    ``mfu``), then 3 steps with SpecAugment on;
+23. ``[family-visual]``: ``VisualOnlyCTC`` at full width (ResNet-18,
+    BatchNorm, PReLU) on ``[8, 448, 1, 96, 96]`` host lips, timed as phase
+    22 (no kernel runs);
+24. ``[ssl]``: on a corpus written as phase 10's, ``MaskedAudioPretrainer``
+    at full width on ``build_data`` batches with ``device_preprocess`` (K1 1
+    and K2 2 per step, both checked against their plain versions at the
+    step's shapes), 2 warm-up and 10 timed steps, the InfoNCE falling;
+25. ``[families-cli]``: the CLI on that corpus: ``--family=audio`` for 2
+    epochs and a resume to 3, its ``--eval``, ``--infer`` and ``--stream``,
+    ``--family=visual`` and ``--family=ssl`` for 1 epoch each, then one
+    flagship epoch with ``train.audio_init_ckpt`` and
+    ``train.visual_init_ckpt`` (both "grafted" lines), each call's seconds,
+    peak memory and launches (K1 1 per audio-encoder forward; K2 2 per
+    forward of the flagship and SSL, 0 elsewhere).
+
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
 the timed training steps of phase 9, the CLI calls of phase 10 and the main
-paths of phases 13, 15-17 and 18-20 (each path's own count is under
-``launches_by_path``).  The last three lines are the ``kernels`` JSON, the
+paths of phases 13, 15-17, 18-20 and 22-25 (each path's own count is under
+``launches_by_path``).  ``--only=family-ref,family-audio,family-visual,families``
+runs the card and build lines and those phases alone (a rehearsal: no kernels
+JSON, no result line).  The last three lines are the ``kernels`` JSON, the
 ``nvidia-smi`` line and ``{"ok": true, "device": ...}``.  Nothing of JAX is
 imported.
 """
@@ -1756,6 +1784,458 @@ def structured_phase(torch, tok, smi: str) -> dict:
     return {"logmel": k1, "lip_preprocess": k2}
 
 
+def _timed_steps(torch, step, n_warm: int, n_steps: int):
+    """``n_warm`` calls of ``step`` (which returns a loss tensor), then the
+    main path: ``n_steps`` timed calls, each synchronised, with both launch
+    counts set to 0 just before and read just after -> ``(times, losses, K1,
+    K2, peak bytes)``."""
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+
+    for _ in range(n_warm):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    log_mel_spectrogram_cuda.launches = 0
+    lip_preprocess_cuda.launches = 0
+    times, losses = [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+    return times, [x.item() for x in losses], k1, k2, torch.cuda.max_memory_allocated()
+
+
+def _ms(times) -> str:
+    """Mean, median and range of step times, in ms."""
+    t = np.asarray(times) * 1e3
+    return f"{t.mean():.1f} ms mean, {np.median(t):.1f} median ({t.min():.1f}-{t.max():.1f})"
+
+
+def family_ref_phase(torch, tok) -> None:
+    """[family-ref]: one training step of each family's small f32 model
+    (dropout 0, B = 2) from one seeded state on the card (K1) and on the CPU
+    (plain version), on the same batch and, for SSL, the same spans, held at
+    [train-ref]'s bars; then SpecAugment's apply on the card against the
+    CPU with the same draws."""
+    from multimodal_av_model_tpu_torch.data.mixing import MASK_PAD
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.specaugment import apply_spec_augment, draw_spec_augment
+    from multimodal_av_model_tpu_torch.ops.ssl import make_span_mask
+    from multimodal_av_model_tpu_torch.train.single_modality import (
+        make_audio_trainer,
+        make_visual_trainer,
+        synthetic_audio_batches,
+        synthetic_visual_batches,
+    )
+    from multimodal_av_model_tpu_torch.train.ssl_pretrain import MaskedAudioPretrainer
+
+    cfg = tiny_model_config()
+    cfg.model.audio.dropout = 0.0
+    cfg.model.decoder.vocab_size = tok.vocab_size
+    audio = next(synthetic_audio_batches(tok, 2, 1, samples=16000, label_len=8, seed=1))
+    audio["inputs"][1, 9000:] = 0.0                 # a padded second row
+    audio["meta"][1, 9000:] = False
+    lips = next(synthetic_visual_batches(tok, 2, 1, frames=16, size=48, label_len=4, seed=2))
+    lips["meta"][1] = 10
+    mask1 = np.where(audio["meta"], 1, MASK_PAD).astype(np.int32)
+    ssl_probe = MaskedAudioPretrainer(cfg, device="cpu")
+    spans = make_span_mask(2, ssl_probe.enc_frames(16000), 0.065, 10, np.random.default_rng(3))
+    del ssl_probe
+
+    def one_step(dev, kind):
+        if kind == "ssl":
+            pt = MaskedAudioPretrainer(cfg, device=dev)
+            state = pt.init_state(1)
+            state, loss = pt.train_step(state, audio["inputs"], mask1 != MASK_PAD, spans)
+        else:
+            make = make_audio_trainer if kind == "audio" else make_visual_trainer
+            trainer = make(cfg, tok, device=dev)
+            state = trainer.init_state(1)
+            state, loss = trainer.train_step(state, audio if kind == "audio" else lips)
+        model = state.model
+        return (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                {n: b.cpu() for n, b in model.named_buffers()})
+
+    for kind in ("audio", "visual", "ssl"):
+        (l_cpu, g_cpu, s_cpu), (l_gpu, g_gpu, s_gpu) = one_step("cpu", kind), one_step("cuda", kind)
+        loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        gnorm = float(torch.stack([g.norm() for g in g_cpu.values()]).norm())
+        floor = 1e-3 * gnorm
+        g_rel, g_name = max((float((g_gpu[n] - g).norm() / (g.norm() + floor)), n)
+                            for n, g in g_cpu.items())
+        s_rel, s_name = max(((float(((s_gpu[n] - b).abs() / (b.abs() + 1e-3)).max()), n)
+                             for n, b in s_cpu.items()), default=(0.0, "none"))
+        ok = loss_rel <= 1e-3 and g_rel <= 1e-2 and s_rel <= 1e-3 and math.isfinite(l_gpu)
+        log(f"[family-ref] {kind}: small f32 model, one step, card vs CPU: loss {l_gpu:.6f} vs "
+            f"{l_cpu:.6f} (rel {loss_rel:.3g}, <= 1e-3), max per-tensor gradient rel {g_rel:.3g} "
+            f"at {g_name} (<= 1e-2, |dg| / (|g| + 1e-3 grad_norm)), {len(s_cpu)} BatchNorm "
+            f"statistics, max rel {s_rel:.3g} at {s_name} (<= 1e-3) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise SystemExit(f"family-ref: the {kind} step disagrees between card and CPU")
+
+    x = torch.from_numpy(audio["inputs"]).cuda()
+    mel = log_mel_spectrogram_cuda(x)
+    anchors = np.minimum(np.arange(mel.shape[1]) * 160, x.shape[1] - 1)
+    valid = torch.from_numpy(audio["meta"][:, anchors])
+    draws = draw_spec_augment(torch.Generator().manual_seed(0), valid, mel.shape[2], 2, 27, 2, 0.2)
+    on_card = apply_spec_augment(mel, valid.cuda(), type(draws)(
+        *(t.cuda() for t in (draws.freq_width, draws.freq_start, draws.time_width,
+                             draws.time_start))))
+    on_cpu = apply_spec_augment(mel.cpu(), valid, draws)
+    changed = int((on_cpu != mel.cpu()).sum())
+    ok = torch.equal(on_card.cpu(), on_cpu) and changed > 0
+    log(f"[family-ref] SpecAugment apply on K1's {tuple(mel.shape)} with one set of draws (2 "
+        f"frequency stripes <= 27 bins, 2 time stripes <= 0.2 of the valid frames): card and "
+        f"CPU equal ({changed} cells filled) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("family-ref: SpecAugment differs between card and CPU")
+
+
+def family_audio_phase(torch, tok, smi: str) -> dict:
+    """[family-audio]: the audio family at full width (12x512 Conformer, 800
+    tokens, f32 as the JAX CLI builds it) on batches of ``utterance_batches``'
+    static shape [8, 160000]: K1 against its plain version there, 2 warm-up
+    and 10 timed ``train_step``s, then 3 with SpecAugment on."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.train.single_modality import (
+        make_audio_trainer,
+        synthetic_audio_batches,
+    )
+
+    cfg = Config()
+    cfg.model.decoder.vocab_size = tok.vocab_size
+    B, S, n_steps = 8, 160000, 10
+    batch = next(synthetic_audio_batches(tok, B, 1, samples=S, label_len=40, seed=3))
+    batch["valid"], batch["num_real"] = np.ones(B, np.float32), np.int32(B)
+    k1_at(torch, torch.from_numpy(batch["inputs"]).cuda(), "family-audio")
+    t0 = time.perf_counter()
+    trainer = make_audio_trainer(cfg, tok, device="cuda")
+    state = trainer.init_state(cfg.data.seed)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    init_s = time.perf_counter() - t0
+
+    def step():
+        return trainer.train_step(state, batch)[1]
+
+    times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
+    with FlopCounterMode(display=False) as counter:
+        step()
+        torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    mean = sum(times) / n_steps
+    log(f"[family-audio] AudioOnlyCTC {n_params / 1e6:.1f}M params, f32 compute, init "
+        f"{init_s:.1f} s; B={B} x {S} samples: {n_steps} steps in {sum(times):.3f} s: "
+        f"{B * n_steps / sum(times):.2f} utt/s, {_ms(times)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches per step K1 {k1 / n_steps:g}, K2 {k2 / n_steps:g}; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {flops / 1e12:.3f} TFLOP per step "
+        f"(FlopCounterMode), mfu {flops / mean / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s dense bf16 "
+        f"({flops / mean / PEAK_F32_FLOPS:.4f} of 67 TFLOP/s f32) at the mean step; card {smi}")
+    if k1 != n_steps or k2 != 0:
+        raise SystemExit(f"family-audio: launches K1 {k1}, K2 {k2} over {n_steps} steps")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"family-audio: losses {losses}")
+    a = cfg.model.audio
+    a.specaug_freq_masks = a.specaug_time_masks = 2
+    times2, losses2, k1b, k2b, _ = _timed_steps(torch, step, 0, 3)
+    a.specaug_freq_masks = a.specaug_time_masks = 0
+    log(f"[family-audio] with SpecAugment (2 frequency stripes <= {a.specaug_freq_width} bins, "
+        f"2 time stripes <= {a.specaug_time_frac} of the valid frames): 3 steps, "
+        f"{_ms(times2)}; losses {', '.join(f'{x:.4f}' for x in losses2)}; launches K1 {k1b}, "
+        f"K2 {k2b}")
+    if k1b != 3 or k2b != 0 or not all(math.isfinite(x) for x in losses2):
+        raise SystemExit(f"family-audio: SpecAugment steps K1 {k1b}, K2 {k2b}, losses {losses2}")
+    return {"logmel": k1 + k1b, "lip_preprocess": 0}
+
+
+def family_visual_phase(torch, tok, smi: str) -> dict:
+    """[family-visual]: the visual family at full width (ResNet-18 with
+    BatchNorm and PReLU on 96x96 lips, 800 tokens, f32) on batches of
+    ``utterance_batches``' static shape [8, 448, 1, 96, 96]: 2 warm-up and
+    10 timed steps; no kernel runs (the lips come preprocessed from the
+    host, as in JAX)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.train.single_modality import (
+        make_visual_trainer,
+        synthetic_visual_batches,
+    )
+
+    cfg = Config()
+    cfg.model.decoder.vocab_size = tok.vocab_size
+    B, T, n_steps = 8, 448, 10
+    batch = next(synthetic_visual_batches(tok, B, 1, frames=T, size=96, label_len=40, seed=4))
+    batch["valid"], batch["num_real"] = np.ones(B, np.float32), np.int32(B)
+    t0 = time.perf_counter()
+    trainer = make_visual_trainer(cfg, tok, device="cuda")
+    state = trainer.init_state(cfg.data.seed)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    init_s = time.perf_counter() - t0
+
+    def step():
+        return trainer.train_step(state, batch)[1]
+
+    times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
+    with FlopCounterMode(display=False) as counter:
+        step()
+        torch.cuda.synchronize()
+    flops = counter.get_total_flops()
+    mean = sum(times) / n_steps
+    log(f"[family-visual] VisualOnlyCTC {n_params / 1e6:.1f}M params, f32 compute, BatchNorm, "
+        f"init {init_s:.1f} s; B={B} x {T} frames of 96x96 ({B * T * 96 * 96 * 4 / 1e6:.0f} MB "
+        f"copied from the host per step): {n_steps} steps in {sum(times):.3f} s: "
+        f"{B * n_steps / sum(times):.2f} utt/s, {_ms(times)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches per step K1 {k1 / n_steps:g}, K2 {k2 / n_steps:g}; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {flops / 1e12:.3f} TFLOP per step, mfu "
+        f"{flops / mean / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s dense bf16 "
+        f"({flops / mean / PEAK_F32_FLOPS:.4f} of 67 TFLOP/s f32); card {smi}")
+    if k1 != 0 or k2 != 0:
+        raise SystemExit(f"family-visual: launches K1 {k1}, K2 {k2} (expected none)")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"family-visual: losses {losses}")
+    return {"logmel": k1, "lip_preprocess": k2}
+
+
+def _families_config(dirs: dict):
+    from multimodal_av_model_tpu_torch.config import Config
+
+    cfg = Config()
+    for k, v in dirs.items():
+        setattr(cfg.data, k, v)
+    cfg.data.vocab_path = os.path.join(REPO, cfg.data.vocab_path)
+    return cfg
+
+
+def ssl_phase(torch, tok, dirs: dict, smi: str) -> dict:
+    """[ssl]: ``MaskedAudioPretrainer`` at full width (the 12x512 Conformer
+    and its head, f32) on ``build_data`` batches of the corpus with
+    ``data.device_preprocess`` on (K2 x2 per batch), B = 8: K1 and K2
+    against their plain versions at the step's shapes, then 2 warm-up and
+    10 timed steps, each with its batch's fetch and its spans."""
+    from multimodal_av_model_tpu_torch import main as cli
+    from multimodal_av_model_tpu_torch.data.collate import collate_pairs_raw, make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.manifest import build_data_list, train_val_test_split
+    from multimodal_av_model_tpu_torch.data.mixing import MASK_PAD
+    from multimodal_av_model_tpu_torch.data.pairs import RandomPairSampler
+    from multimodal_av_model_tpu_torch.data.pipeline import FilePairSource, bucketed_batches
+    from multimodal_av_model_tpu_torch.ops.ssl import make_span_mask
+    from multimodal_av_model_tpu_torch.train.ssl_pretrain import MaskedAudioPretrainer
+
+    cfg = _families_config(dirs)
+    B, n_steps = 8, 10
+    cfg.train.batch_size, cfg.data.num_pairs_per_epoch = B, B * (n_steps + 2)
+    specs = make_bucket_specs(cfg.data.video_buckets, cfg.data.audio_samples_per_video_frame,
+                              cfg.data.max_label_len)
+    entries, _ = build_data_list(dirs["json_folder"], dirs["npy_dir"], dirs["text_dir"],
+                                 dirs["wav_dir"])
+    train_set, _, _ = train_val_test_split(entries, seed=cfg.data.seed)
+    sampler = RandomPairSampler(train_set, FilePairSource(tok).load_pair_raw, B, seed=7)
+    raw = next(iter(bucketed_batches(iter(sampler), specs, B, collate_fn=collate_pairs_raw)))
+    train_kernel_check(torch, B, raw, "ssl")
+    del raw
+
+    train_factory, _ = cli.build_data(cfg, tok, False, "cuda", device_put=False)
+    t0 = time.perf_counter()
+    ssl = MaskedAudioPretrainer(cfg, mask_prob=cfg.train.ssl_mask_prob,
+                                span=cfg.train.ssl_mask_span,
+                                temperature=cfg.train.ssl_temperature, device="cuda")
+    state = ssl.init_state(cfg.data.seed)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    init_s = time.perf_counter() - t0
+    batches = iter(train_factory())
+    span_rng = np.random.default_rng(cfg.data.seed * 1009 + 1)
+    shapes = set()
+    # A probe: the InfoNCE of one held batch and spans, without dropout,
+    # before and after the steps (the steps' own losses move with their
+    # batches).
+    held = next(train_factory())
+    held_spans = torch.from_numpy(make_span_mask(
+        held["audio"].shape[0], ssl.enc_frames(held["audio"].shape[1]), ssl.mask_prob,
+        ssl.span, np.random.default_rng(11))).cuda()
+
+    def probe():
+        from multimodal_av_model_tpu_torch.ops.ssl import masked_infonce_loss
+
+        with torch.no_grad():
+            preds, targets, fv = state.model(held["audio"], held["mask1"] != MASK_PAD, held_spans)
+            return masked_infonce_loss(preds, targets, held_spans, fv, ssl.temperature).item()
+
+    before = probe()
+
+    def step():
+        nonlocal state
+        batch = next(batches)
+        shapes.add(tuple(batch["audio"].shape))
+        spans = make_span_mask(batch["audio"].shape[0], ssl.enc_frames(batch["audio"].shape[1]),
+                               ssl.mask_prob, ssl.span, span_rng)
+        state, loss = ssl.train_step(state, batch["audio"], batch["mask1"] != MASK_PAD, spans)
+        return loss
+
+    times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
+    batches.close()
+    after = probe()
+    log(f"[ssl] MaskedAudioPretrainer {n_params / 1e6:.1f}M params, f32, init {init_s:.1f} s; "
+        f"B={B} mixtures {sorted(shapes)} from build_data (device_preprocess): {n_steps} steps "
+        f"(each with its batch's fetch, K2 and spans) in {sum(times):.3f} s: "
+        f"{B * n_steps / sum(times):.2f} utt/s, {_ms(times)}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches per step K1 {k1 / n_steps:g}, K2 {k2 / n_steps:g}; "
+        f"InfoNCE of the steps {', '.join(f'{x:.4f}' for x in losses)}; of one held batch "
+        f"without dropout {before:.4f} before the {n_steps + 2} steps, {after:.4f} after; "
+        f"card {smi}")
+    if k1 != n_steps or k2 != 2 * n_steps:
+        raise SystemExit(f"ssl: launches K1 {k1}, K2 {k2} over {n_steps} steps")
+    if not all(math.isfinite(x) for x in losses) or not after < before:
+        raise SystemExit(f"ssl: InfoNCE {losses}, held batch {before} -> {after}")
+    return {"logmel": k1, "lip_preprocess": k2}
+
+
+def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
+    """[families-cli]: the port's CLI at full width on the corpus: the audio
+    family for 2 epochs and a resume to 3, its ``--eval``, ``--infer`` and
+    ``--stream`` of one source WAV, the visual family for 1 epoch, the SSL
+    family for 1 epoch, then one flagship epoch with both encoders grafted.
+    Each call's seconds, peak memory and launches: K1 once per audio-encoder
+    forward, K2 twice per forward on the flagship's and SSL's batches,
+    neither in the visual family."""
+    import contextlib
+
+    from multimodal_av_model_tpu_torch import main as cli
+    from multimodal_av_model_tpu_torch.data.manifest import build_data_list, train_val_test_split
+    from multimodal_av_model_tpu_torch.models.audio import AudioEncoder
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+
+    cfg = _families_config(dirs)
+    entries, _ = build_data_list(dirs["json_folder"], dirs["npy_dir"], dirs["text_dir"],
+                                 dirs["wav_dir"])
+    train_set, val_set, _ = train_val_test_split(entries, seed=cfg.data.seed)
+    common = ([f"data.{k}={v}" for k, v in dirs.items()]
+              + [f"data.vocab_path={cfg.data.vocab_path}", "train.batch_size=8",
+                 "train.eval_batch_size=4", "data.num_pairs_per_epoch=32", "data.eval_pairs=8",
+                 "--device=cuda"])
+    ck = {name: os.path.join(root, name) for name in ("audio", "visual", "ssl", "av")}
+    forwards = [0]
+    original = AudioEncoder.forward
+
+    def counted(self, *args, **kwargs):
+        forwards[0] += 1
+        return original(self, *args, **kwargs)
+
+    def run(tag, args, k2_per_forward):
+        forwards[0] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log_mel_spectrogram_cuda.launches = 0
+        lip_preprocess_cuda.launches = 0
+        tee = _Tee(sys.stdout)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            cli.main(common + args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        k1, k2, n = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches, forwards[0]
+        log(f"[families-cli] {tag}: {dt:.1f} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {n} audio-encoder forwards; "
+            f"launches K1 {k1}, K2 {k2}")
+        if k1 != n or k2 != k2_per_forward * n or (n == 0) != ("--family=visual" in args):
+            raise SystemExit(f"families-cli: {tag}: launches K1 {k1}, K2 {k2} over {n} "
+                             f"forwards (expected 1 and {k2_per_forward} per forward)")
+        return "".join(tee.text), k1, k2
+
+    def epochs(tag, text):
+        for line in text.splitlines():
+            if line.startswith("[epoch "):
+                kv = dict(f.split("=", 1) for f in line.split()[2:])
+                if not (math.isfinite(float(kv["train_loss"]))
+                        and math.isfinite(float(kv["eval_loss"]))):
+                    raise SystemExit(f"families-cli: {tag}: {line}")
+                log(f"[families-cli] {tag}, {line}")
+
+    AudioEncoder.forward = counted
+    launches = {"logmel": 0, "lip_preprocess": 0}
+    wav = os.path.join(dirs["wav_dir"], sorted(os.listdir(dirs["wav_dir"]))[0])
+    try:
+        for tag, args, k2 in (
+                ("--family=audio, 2 epochs", ["--family=audio", f"train.checkpoint_dir={ck['audio']}",
+                                              "train.max_epochs=2"], 0),
+                ("--family=audio, resume to epoch 3",
+                 ["--family=audio", f"train.checkpoint_dir={ck['audio']}", "train.max_epochs=3"], 0),
+                ("--eval --family=audio",
+                 ["--family=audio", "--eval", f"train.checkpoint_dir={ck['audio']}"], 0),
+                ("--infer --family=audio",
+                 ["--family=audio", "--infer", f"train.checkpoint_dir={ck['audio']}"], 0),
+                ("--stream of a source WAV on the audio family's checkpoint",
+                 [f"--stream={wav}", f"train.checkpoint_dir={ck['audio']}"], 0),
+                ("--family=visual, 1 epoch",
+                 ["--family=visual", f"train.checkpoint_dir={ck['visual']}", "train.max_epochs=1"],
+                 0),
+                ("--family=ssl, 1 epoch",
+                 ["--family=ssl", f"train.checkpoint_dir={ck['ssl']}", "train.max_epochs=1"], 2),
+                ("flagship, 1 epoch with both encoders grafted",
+                 [f"train.checkpoint_dir={ck['av']}", "train.max_epochs=1",
+                  f"train.audio_init_ckpt={os.path.join(ck['ssl'], 'last.ckpt')}",
+                  f"train.visual_init_ckpt={os.path.join(ck['visual'], 'last.ckpt')}"], 2)):
+            text, k1, k2n = run(tag, args, k2)
+            launches["logmel"] += k1
+            launches["lip_preprocess"] += k2n
+            epochs(tag, text)
+            lines = text.splitlines()
+            if tag.endswith("2 epochs") and "[epoch 2]" not in text:
+                raise SystemExit("families-cli: the audio family did not train 2 epochs")
+            if "resume" in tag and (f"at epoch 3" not in text or "[epoch 3]" not in text):
+                raise SystemExit("families-cli: the audio family did not resume at epoch 3")
+            if tag.startswith("--eval"):
+                report = json.loads(lines[-1])
+                if report["family"] != "audio" or set(report["decode"]) != {"greedy",
+                                                                              "prefix_beam"}:
+                    raise SystemExit(f"families-cli: --eval report {report}")
+                log(f"[families-cli] --eval report: {lines[-1]}")
+            if tag.startswith("--infer"):
+                utts = [ln for ln in lines if ln.startswith("[utt ")]
+                if len(utts) != len(val_set) or lines[-1] != f"transcribed {len(val_set)} utterances":
+                    raise SystemExit(f"families-cli: --infer printed {len(utts)} utterances")
+            if tag.startswith("--stream") and not lines[0].startswith(f"streaming {wav} ("):
+                raise SystemExit(f"families-cli: --stream printed {lines[:2]}")
+            if "ssl" in tag:
+                loss = [ln for ln in lines if ln.startswith("[ssl epoch 1] infonce=")]
+                if not loss or not math.isfinite(float(loss[0].split("=")[1])):
+                    raise SystemExit(f"families-cli: --family=ssl printed {lines[-3:]}")
+                log(f"[families-cli] {loss[0]}")
+            if "grafted" in tag:
+                for part in ("audio", "visual"):
+                    if f"grafted {part} encoder from " not in text:
+                        raise SystemExit(f"families-cli: no {part} graft line")
+                log("[families-cli] " + "; ".join(ln for ln in lines if ln.startswith("grafted")))
+    finally:
+        AudioEncoder.forward = original
+    log(f"[families-cli] {len(train_set)} train and {len(val_set)} val utterances; launches "
+        f"over the phase K1 {launches['logmel']}, K2 {launches['lip_preprocess']}; card {smi}")
+    return launches
+
+
+def families_phase(torch, tok, smi: str) -> dict:
+    """[ssl] and [families-cli] on one corpus written for them (as [fit]'s:
+    8 speakers x 6 sentences of 3.0-4.2 s) -> each path's launches."""
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
+
+    root = tempfile.mkdtemp(prefix="mmav_families_")
+    try:
+        dirs = write_synthetic_corpus(os.path.join(root, "corpus"), tok, n_videos=8,
+                                      sentences_per_video=6, sentence_dur=(3.0, 4.2), seed=0)
+        return {"ssl": ssl_phase(torch, tok, dirs, smi),
+                "families_cli": families_cli_phase(torch, tok, dirs, root, smi)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def train_profile(torch, step) -> None:
     """One B = 8 training step timed (after one more to warm the caching
     allocator again after the B = 32 steps), then one under
@@ -1769,9 +2249,17 @@ def train_profile(torch, step) -> None:
     device_profile(torch, "train-profile", "one B=8 training step", step, wall)
 
 
+PHASES = ("family-ref", "family-audio", "family-visual", "families")
+
+
 def main() -> int:
     import torch
 
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--only=")]
+    only = only[0] if only else None
+    if only and not set(only) <= set(PHASES):
+        print(f"chip_smoke: --only takes some of {','.join(PHASES)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
         return 2
@@ -1800,6 +2288,14 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     tok = CharTokenizer(os.path.join(REPO, Config().data.vocab_path))
+    if only:                                # a rehearsal of this slice's phases alone
+        for name in only:
+            {"family-ref": lambda: family_ref_phase(torch, tok),
+             "family-audio": lambda: family_audio_phase(torch, tok, smi),
+             "family-visual": lambda: family_visual_phase(torch, tok, smi),
+             "families": lambda: families_phase(torch, tok, smi)}[name]()
+        log(f"[partial] {','.join(only)} done; no kernels JSON and no result line")
+        return 0
     (k1, k1_calls), (k2, k2_calls) = k1_phase(torch, rng), k2_phase(torch, rng)
     reference_phase(torch, rng)
     serving_launches, profile_request, served = serving_phase(torch, rng, tok)
@@ -1817,6 +2313,10 @@ def main() -> int:
     del served
     tf_launches = temporal_tf_phase(torch, rng, tok)
     structured_launches = structured_phase(torch, tok, smi)
+    family_ref_phase(torch, tok)
+    family_audio_launches = family_audio_phase(torch, tok, smi)
+    family_visual_launches = family_visual_phase(torch, tok, smi)
+    families_launches = families_phase(torch, tok, smi)
     kernels = [k1, k2]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
         by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
@@ -1826,7 +2326,11 @@ def main() -> int:
                    "stream_av": stream_av_launches[k["name"]], "quant": quant_launches[k["name"]],
                    "serve": serve_launches[k["name"]], "export": export_launches[k["name"]],
                    "temporal_tf": tf_launches[k["name"]],
-                   "structured": structured_launches[k["name"]]}
+                   "structured": structured_launches[k["name"]],
+                   "family_audio": family_audio_launches[k["name"]],
+                   "family_visual": family_visual_launches[k["name"]],
+                   "ssl": families_launches["ssl"][k["name"]],
+                   "families_cli": families_launches["families_cli"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         dev_ms, caught = profiled_ms(*calls)

@@ -4,10 +4,12 @@ The JAX package ``multimodal_av_model_tpu`` stays the reference; this package
 mirrors its layout and names, imports nothing from it, and runs on an NVIDIA
 H100.  Its two hand-written CUDA kernels (``csrc/``) replace the JAX package's
 two Pallas kernels.  The serving surface, the training step and the
-training run so far:
+training runs of the flagship, audio-only, visual-only and SSL families so
+far:
 
     main.py     the command line: train (fit), --eval, --infer, --synthetic,
-                --stream (one WAV, a pool of WAVs, or two AVIs and a WAV)
+                --family=av|audio|visual|ssl, --stream (one WAV, a pool of
+                WAVs, or two AVIs and a WAV)
     data/       the AI-Hub manifest and split, speaker-distinct pairs, WAV
                 decode and resampling, bucketed collation, the prefetching
                 host pipeline, on-device mixing + lip preprocessing (K2),
@@ -15,14 +17,16 @@ training run so far:
     ops/        log-mel frontend (K1), bilinear resize (K2), CTC loss, collapse
                 and greedy decode, prefix beam search (offline and streaming),
                 the reference path beam, int8 weight-only quantization, the
-                masked contrastive loss, WER/CER counts, the kernels' nvcc
-                build step
+                masked contrastive loss, SpecAugment, the masked-span
+                InfoNCE, WER/CER counts, the kernels' nvcc build step
     models/     AudioEncoder, VisualEncoder, CrossAttentionFusion, CTCDecoder,
-                MultiSpeakerAVModel (train and eval), AudioOnlyCTC (eval)
+                MultiSpeakerAVModel, AudioOnlyCTC, VisualOnlyCTC
     train/      MultiSpeakerTrainer (train/eval steps, epoch loop, evaluate,
-                fit), two-group Adam, checkpoints (async, averaged), CSV and
-                TensorBoard logs, preemption, the finite-metrics guard
-    compat/     flax variables and TrainState -> state_dict bridge
+                fit), SingleModalityTrainer (audio and visual families),
+                MaskedAudioPretrainer (SSL), two-group Adam, checkpoints
+                (async, averaged), CSV and TensorBoard logs, preemption, the
+                finite-metrics guard
+    compat/     flax variables and train states -> state_dict bridge
     text/       character tokenizer, jamo counts, the bigram LM
     infer.py    Transcriber (batch -> per-speaker texts), AudioTranscriber,
                 fp or int8

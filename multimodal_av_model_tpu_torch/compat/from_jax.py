@@ -1,8 +1,9 @@
 """Weight bridge: flax ``{"params", "batch_stats"}`` -> the port's ``state_dict``.
 
 The inverse direction of ``multimodal_av_model_tpu/compat/torch_import.py:11-37``
-for the flagship ``MultiSpeakerAVModel`` and ``AudioOnlyCTC``, written from
-the layouts alone (that module is not imported):
+for the flagship ``MultiSpeakerAVModel``, ``AudioOnlyCTC``, ``VisualOnlyCTC``
+and the SSL family's ``MaskedAudioPretrainModel``, written from the layouts
+alone (that module is not imported):
 
 * Dense ``kernel [in, out]`` -> ``weight [out, in]`` (transposed);
 * attention ``query/key/value kernel [E, H, hd]`` -> ``[H*hd, E]``, ``out
@@ -22,7 +23,8 @@ flax leaf must be consumed: an unknown or left-over key raises.  A tree of
 running statistics: a gradient tree or Adam moments go through the same
 (linear) bridge.  ``train_state_from_jax`` carries a whole JAX ``TrainState``
 (parameters, statistics, both Adam groups, accumulation, step) across, so a
-JAX run can resume in the port.
+JAX run can resume in the port; ``single_modality_state_from_jax`` and
+``ssl_state_from_jax`` do the same for the families' states.
 """
 
 from __future__ import annotations
@@ -285,6 +287,27 @@ def audio_only_from_jax(variables_np) -> dict[str, torch.Tensor]:
     return _convert(variables_np, fill)
 
 
+def visual_only_from_jax(variables_np) -> dict[str, torch.Tensor]:
+    """Flax ``VisualOnlyCTC`` variables (``av_model.py:164-178``) -> the port's
+    ``VisualOnlyCTC`` state_dict."""
+    def fill(tree, sd):
+        _visual(tree, sd, "visual_encoder", "visual_encoder")
+        _dense(tree, sd, "decoder/head", "decoder.head")
+    return _convert(variables_np, fill)
+
+
+def ssl_pretrain_from_jax(variables_np) -> dict[str, torch.Tensor]:
+    """Flax ``MaskedAudioPretrainModel`` variables (``ssl_pretrain.py:33-51``:
+    the audio encoder with its ``mask_embedding``, and ``ssl_head``) -> the
+    port's state_dict."""
+    def fill(tree, sd):
+        _audio(tree, sd, "audio_encoder", "audio_encoder")
+        sd["audio_encoder.mask_embedding"] = _t(
+            tree.get("params", "audio_encoder", "mask_embedding"))
+        _dense(tree, sd, "ssl_head", "ssl_head")
+    return _convert(variables_np, fill)
+
+
 def _find_adam(tree):
     """The ``ScaleByAdamState`` (``{count, mu, nu}``) inside one group's
     optimizer state, or None (the frozen group's ``set_to_zero``)."""
@@ -346,3 +369,36 @@ def train_state_from_jax(state) -> dict:
             "acc": from_jax_variables({"params": opt["acc_grads"]}) if mini_step else None,
         },
     }
+
+
+def _one_group_state(params, batch_stats, opt_state, convert) -> dict:
+    """A one-group optax state (``adam``, or ``chain(clip_by_global_norm,
+    adam(schedule))``) -> the port's ``TrainState.state_dict()`` layout,
+    without the dropout generator; ``step`` is the Adam count."""
+    adam = _find_adam(opt_state)
+    count = int(np.asarray(adam["count"]))
+    variables = {"params": params}
+    if batch_stats:
+        variables["batch_stats"] = batch_stats
+    return {
+        "step": count,
+        "model": convert(variables),
+        "optimizer": {"updates": count, "mini_step": 0,
+                      "mu": convert({"params": adam["mu"]}),
+                      "nu": convert({"params": adam["nu"]}), "acc": None},
+    }
+
+
+def single_modality_state_from_jax(state, family: str) -> dict:
+    """A JAX ``SingleModalityTrainer`` state (``{"params", "opt_state",
+    "batch_stats", "rng"}`` as numpy, ``single_modality.py:48-54``) of the
+    ``"audio"`` or ``"visual"`` family -> the port's state dict."""
+    convert = {"audio": audio_only_from_jax, "visual": visual_only_from_jax}[family]
+    return _one_group_state(state["params"], state.get("batch_stats"), state["opt_state"],
+                            convert)
+
+
+def ssl_state_from_jax(state) -> dict:
+    """A JAX ``MaskedAudioPretrainer`` state (``{"params", "opt_state",
+    "key"}`` as numpy, ``ssl_pretrain.py:82-94``) -> the port's state dict."""
+    return _one_group_state(state["params"], None, state["opt_state"], ssl_pretrain_from_jax)

@@ -1,9 +1,9 @@
 """Typed configuration tree of the two-speaker serving and training run.
 
 Mirrors ``multimodal_av_model_tpu/config.py:18-363``, restricted to the
-fields the serving path, the training run (``fit``, the data pipeline) and
-the port's CLI read.  Every default equals the JAX default.  Dropped on
-purpose:
+fields the serving path, the training runs (``fit`` of every family, the
+data pipeline) and the port's CLI read.  Every default equals the JAX
+default.  Dropped on purpose:
 
 * ``frontend.use_pallas`` (``config.py:32``): the port picks the kernel or
   its plain version by the tensor's device alone;
@@ -12,10 +12,10 @@ purpose:
   the JAX default does);
 * ``train.keep_checkpoints`` (``config.py:284``): nothing reads it, in
   either package, so an override fails as an unknown field;
-* the fields of parts not ported yet: SpecAugment, the SSL family and
-  ``train.audio_init_ckpt``, the mesh and ``compile_cache_dir``.  The CLI refuses each of them with the
-  ``ROADMAP.md`` item that brings it (``main.py``); elsewhere an override of
-  one fails as an unknown field instead of changing nothing.
+* the fields of parts not ported yet: the mesh and ``compile_cache_dir``.
+  The CLI refuses each of them with the ``ROADMAP.md`` item that brings it
+  (``main.py``); elsewhere an override of one fails as an unknown field
+  instead of changing nothing.
 """
 
 from __future__ import annotations
@@ -52,6 +52,12 @@ class AudioEncoderConfig:
     subsample_factor: int = 2
     middle_layers: tuple[int, ...] = (6, 7, 8, 9)
     output_dim: int = 1024
+    # SpecAugment on the log-mel in train mode (ops/specaugment.py,
+    # config.py:57-62); off by default.
+    specaug_freq_masks: int = 0
+    specaug_freq_width: int = 27
+    specaug_time_masks: int = 0
+    specaug_time_frac: float = 0.05
 
 
 @dataclass
@@ -158,8 +164,8 @@ class DataConfig:
 
 @dataclass
 class TrainConfig:
-    """The training step, its optimizer, ``fit`` and the training CLI
-    (``config.py:201-284``), without the SSL fields and ``audio_init_ckpt``."""
+    """The training step, its optimizer, ``fit`` and the training CLI of every
+    family (``config.py:201-284``)."""
 
     batch_size: int = 8
     eval_batch_size: int = 4
@@ -171,6 +177,10 @@ class TrainConfig:
     early_stop_patience: int = 5
     freeze_visual_trunk: bool = False # -> frozen_prefixes=("visual_encoder",)
     visual_init_ckpt: str = ""        # a port checkpoint whose visual encoder is grafted in
+    audio_init_ckpt: str = ""         # an SSL (--family=ssl) checkpoint whose audio encoder is grafted in
+    ssl_mask_prob: float = 0.065      # span-mask start probability (config.py:228-230)
+    ssl_mask_span: int = 10           # span length in encoder frames
+    ssl_temperature: float = 0.1      # masked-InfoNCE temperature
     # None: the whole audio encoder trains at audio_learning_rate; a tuple
     # freezes the audio encoder except those Conformer blocks.
     audio_trainable_layers: tuple[int, ...] | None = None

@@ -1,12 +1,13 @@
 """The port's command line: train, evaluate, transcribe or stream.
 
-    python -m multimodal_av_model_tpu_torch.main [--synthetic] [--eval | --infer
-        [--export=DIR]] [--stream=FILES] [--device=cuda|cpu] [key.path=value ...]
+    python -m multimodal_av_model_tpu_torch.main [--synthetic] [--family=av|audio|visual|ssl]
+        [--eval | --infer [--export=DIR]] [--stream=FILES] [--device=cuda|cpu]
+        [key.path=value ...]
 
-Mirrors ``multimodal_av_model_tpu/main.py`` for the ``av`` family:
-``build_data`` (``main.py:27-110``), ``run_infer`` and ``run_eval``
-(``main.py:113-205``), ``run_stream_av`` and ``run_stream``
-(``main.py:208-391``) and ``main`` (``main.py:578-752``):
+Mirrors ``multimodal_av_model_tpu/main.py``: ``build_data``
+(``main.py:27-110``), ``run_infer`` and ``run_eval`` (``main.py:113-205``),
+``run_stream_av`` and ``run_stream`` (``main.py:208-391``), the families
+(``main.py:393-575``) and ``main`` (``main.py:578-752``):
 
 * the real-data branch reads the AI-Hub layout (``data.json_folder``,
   ``npy_dir``, ``text_dir``, ``wav_dir``): manifest, seeded 90/5/5 split,
@@ -14,29 +15,45 @@ Mirrors ``multimodal_av_model_tpu/main.py`` for the ``av`` family:
   ``data.device_preprocess`` (the default) the raw crops and waveforms go to
   the device, where mixing and K2 run; ``--synthetic`` trains on seeded
   random pairs preprocessed on the host;
-* training: ``train.freeze_visual_trunk`` freezes the visual encoder,
-  ``train.visual_init_ckpt`` grafts the visual encoder of a port checkpoint,
-  and an existing ``last.ckpt`` under ``train.checkpoint_dir`` resumes the run
-  at its next epoch with everything but the dropout generator, which starts
-  afresh from ``data.seed`` (as JAX keeps its fresh PRNG key); then ``fit``;
+* training the flagship (``--family=av``, the default):
+  ``train.freeze_visual_trunk`` freezes the visual encoder,
+  ``train.visual_init_ckpt`` grafts the visual encoder of a port checkpoint
+  (a flagship or a ``--family=visual`` one), ``train.audio_init_ckpt`` the
+  audio encoder of a ``--family=ssl`` checkpoint (without its
+  ``mask_embedding``), and an existing ``last.ckpt`` under
+  ``train.checkpoint_dir`` resumes the run at its next epoch with everything
+  but the dropout generator, which starts afresh from ``data.seed`` (as JAX
+  keeps its fresh PRNG key); then ``fit``;
+* ``--family=audio`` / ``visual`` train ``AudioOnlyCTC`` / ``VisualOnlyCTC``
+  in f32 on single utterances (``utterance_batches``: ``[B, 160000]``
+  waveforms, or ``[B, 448, 1, 96, 96]`` lips preprocessed on the host), and
+  ``--family=ssl`` pretrains the audio encoder by masked-span InfoNCE on the
+  flagship's batches, with spans seeded by ``data.seed * 1009 + epoch``.
+  These resume with their whole state, the dropout generator included (JAX
+  restores its key with the rest);
 * ``--eval`` prints one JSON line with greedy and ``decode.algorithm``
   scores of ``best_wer.ckpt`` (else ``last.ckpt``); ``--infer`` prints
-  ``[utt n] speaker1: ...`` lines for the eval pairs, from int8 weights with
+  ``[utt n] speaker1: ...`` lines for the eval pairs (``[utt n] <text>`` per
+  utterance for ``audio`` and ``visual``), from int8 weights with
   ``decode.quantize=true``; ``--infer --export=<dir>`` first writes the
-  serving artifact at the first eval batch's shapes (``main.py:113-146``),
-  which ``infer.ExportedTranscriber.load(<dir>)`` serves;
+  flagship's serving artifact at the first eval batch's shapes
+  (``main.py:113-146``), which ``infer.ExportedTranscriber.load(<dir>)``
+  serves; ``--family=ssl`` has no decoder, so it has neither;
 * ``--stream=x.wav`` streams one file through ``StreamingAudioTranscriber``,
   ``--stream=a.wav,b.wav,...`` the files together through a
   ``StreamingPool``: both load an ``AudioOnlyCTC`` checkpoint (the port's
-  layout, its state dict under ``state["model"]``) and take
-  ``decode.stream_chunk_seconds``, ``decode.stream_context_seconds`` and
-  ``decode.quantize``; ``--stream=lips1.avi,lips2.avi,mix.wav`` streams the
-  flagship (``StreamingAVTranscriber``) on host-preprocessed lips.
+  layout, its state dict under ``state["model"]``; ``--family=audio``
+  writes one) and take ``decode.stream_chunk_seconds``,
+  ``decode.stream_context_seconds`` and ``decode.quantize``;
+  ``--stream=lips1.avi,lips2.avi,mix.wav`` streams the flagship
+  (``StreamingAVTranscriber``) on host-preprocessed lips.
 
 Differences from the JAX CLI: ``--device`` (default ``cuda``; with no card
 and no ``--device=cpu`` it fails), checkpoints are the port's ``torch.save``
-files (not JAX msgpack), and the train sampler draws no example batch before
-``fit`` (torch needs no shapes to build the model).  What is not ported
+files (not JAX msgpack), the train sampler draws no example batch before
+training (torch needs no shapes to build a model), ``--export`` with another
+family than ``av`` is refused (JAX ignores it), and ``decode.quantize`` is
+read by the flagship's ``--infer`` and the streams only.  What is not ported
 fails with the ``ROADMAP.md`` item that brings it (``REFUSED``; sharded
 checkpoints in ``CheckpointManager``).
 """
@@ -50,13 +67,10 @@ import sys
 # Flags and overrides of the JAX CLI that the port does not take yet, each
 # with the ROADMAP.md item that brings it.
 REFUSED = {
-    "train.audio_init_ckpt": "Queue 1 item 6 (other families: the SSL family)",
-    "train.ssl_": "Queue 1 item 6 (other families: the SSL family)",
-    "model.audio.specaug_": "Queue 1 item 6 (other families: ops/specaugment.py)",
     "mesh.": "Queue 1 item 7 (parallel layouts)",
     "compile_cache_dir": "Queue 1 item 8 (runtime and CLI)",
 }
-FAMILIES_ITEM = "Queue 1 item 6 (other families)"
+FAMILIES = ("av", "audio", "visual", "ssl")
 
 
 def _refuse(what: str, item: str):
@@ -290,10 +304,148 @@ def run_stream(cfg, tokenizer, spec: str, device="cuda") -> None:
         print(tail, flush=True)
 
 
+def run_ssl_pretrain(cfg, tokenizer, synthetic: bool, device="cuda") -> None:
+    """``--family=ssl`` (``main.py:393-441``): masked-span InfoNCE over the
+    flagship's batches (with ``data.device_preprocess``, K2 x2 per batch),
+    whole-state resume, spans seeded per epoch, a SIGTERM saving the
+    previous epoch.  ``last.ckpt``'s audio encoder grafts into the flagship
+    through ``train.audio_init_ckpt``."""
+    import numpy as np
+
+    from .train.checkpoints import CheckpointManager, save_checkpoint
+    from .train.preempt import GracefulShutdown
+    from .train.ssl_pretrain import MaskedAudioPretrainer
+
+    train_factory, _ = build_data(cfg, tokenizer, synthetic, device, device_put=False)
+    ssl = MaskedAudioPretrainer(cfg, mask_prob=cfg.train.ssl_mask_prob,
+                                span=cfg.train.ssl_mask_span,
+                                temperature=cfg.train.ssl_temperature, device=device)
+    state = ssl.init_state(cfg.data.seed)
+    ckpts = CheckpointManager(cfg.train.checkpoint_dir)
+    resumed = ckpts.try_resume(template={"state": state, "epoch": 0})
+    start_epoch = 1
+    if resumed is not None:
+        start_epoch = int(resumed["epoch"]) + 1
+        print(f"resuming ssl from {ckpts.last} at epoch {start_epoch}")
+    with GracefulShutdown(enable=cfg.train.handle_signals) as stop:
+        for epoch in range(start_epoch, cfg.train.max_epochs + 1):
+            state, last_loss = ssl.fit(
+                state, train_factory(), log_every=cfg.train.log_every,
+                span_rng=np.random.default_rng(cfg.data.seed * 1009 + epoch), stop=stop)
+            if stop.requested:
+                save_checkpoint(ckpts.last, {"state": state, "epoch": epoch - 1})
+                print(f"preempted: saved {ckpts.last} mid-epoch {epoch} "
+                      f"(resume will redo the epoch)")
+                break
+            print(f"[ssl epoch {epoch}] infonce={last_loss:.4f}")
+            save_checkpoint(ckpts.last, {"state": state, "epoch": epoch})
+
+
+def build_single_modality_data(cfg, tokenizer, family: str, synthetic: bool):
+    """``(train_factory, val_factory)`` of single-utterance batches for the
+    ``audio`` or ``visual`` family (``main.py:444-478``), on the host."""
+    from .data.manifest import build_data_list, train_val_test_split
+    from .train.single_modality import (
+        synthetic_audio_batches,
+        synthetic_visual_batches,
+        utterance_batches,
+    )
+
+    if synthetic:
+        syn = synthetic_audio_batches if family == "audio" else synthetic_visual_batches
+        n_train = max(1, cfg.data.num_pairs_per_epoch // cfg.train.batch_size)
+        n_val = max(1, cfg.data.eval_pairs // cfg.train.eval_batch_size)
+        return (lambda: syn(tokenizer, cfg.train.batch_size, n_train, seed=cfg.data.seed),
+                lambda: syn(tokenizer, cfg.train.eval_batch_size, n_val,
+                            seed=cfg.data.seed + 1))
+    entries, _ = build_data_list(cfg.data.json_folder, cfg.data.npy_dir, cfg.data.text_dir,
+                                 cfg.data.wav_dir)
+    if not entries:
+        raise SystemExit("no usable data; use --synthetic")
+    train_set, val_set, _ = train_val_test_split(entries, seed=cfg.data.seed)
+    return (lambda: utterance_batches(train_set, tokenizer, family, cfg.train.batch_size,
+                                      cfg.data.sample_rate),
+            lambda: utterance_batches(val_set, tokenizer, family, cfg.train.eval_batch_size,
+                                      cfg.data.sample_rate, drop_last=False))
+
+
+def _family_trainer(cfg, tokenizer, family: str, device):
+    from .train.single_modality import make_audio_trainer, make_visual_trainer
+
+    make = make_audio_trainer if family == "audio" else make_visual_trainer
+    return make(cfg, tokenizer, device=device)
+
+
+def _restore_single_modality(cfg, tokenizer, family: str, device="cuda"):
+    """The family's trainer and its checkpoint (``best_wer.ckpt``, else
+    ``last.ckpt``) restored into a state (``main.py:481-500``) -> ``(trainer,
+    state, path, epoch)``."""
+    from .train.checkpoints import restore_checkpoint
+
+    ckpt = _checkpoint(cfg)
+    trainer = _family_trainer(cfg, tokenizer, family, device)
+    state = trainer.init_state(cfg.data.seed)
+    payload = restore_checkpoint(ckpt, template={"state": state, "epoch": 0})
+    return trainer, state, ckpt, int(payload.get("epoch", 0))
+
+
+def run_eval_single_modality(cfg, tokenizer, family: str, synthetic: bool,
+                             device="cuda") -> None:
+    """``--eval --family=audio|visual`` (``main.py:503-523``): greedy and
+    ``decode.algorithm`` scores of the checkpoint, one JSON line."""
+    _, val_factory = build_single_modality_data(cfg, tokenizer, family, synthetic)
+    trainer, state, ckpt, epoch = _restore_single_modality(cfg, tokenizer, family, device)
+    report = {"checkpoint": ckpt, "family": family, "epoch": epoch, "decode": {}}
+    for name, use_beam in (("greedy", False), (cfg.decode.algorithm, True)):
+        loss, wer, cer = trainer.evaluate(val_factory(), state, use_beam=use_beam)
+        report["decode"][name] = {"eval_loss": round(float(loss), 4),
+                                  "wer": round(float(wer), 4), "cer": round(float(cer), 4)}
+        print(f"[eval {family}] {name}: loss={loss:.4f} wer={wer:.4f} cer={cer:.4f}",
+              flush=True)
+    print(json.dumps(report))
+
+
+def run_infer_single_modality(cfg, tokenizer, family: str, synthetic: bool,
+                              device="cuda") -> None:
+    """``--infer --family=audio|visual`` (``main.py:526-546``): the
+    checkpoint's transcript of each eval utterance by ``decode.algorithm``."""
+    from .infer import decode_ids
+
+    _, val_factory = build_single_modality_data(cfg, tokenizer, family, synthetic)
+    trainer, state, ckpt, _ = _restore_single_modality(cfg, tokenizer, family, device)
+    print(f"transcribing ({family}) with {ckpt}")
+    n = 0
+    for batch in val_factory():
+        lp, il = trainer.eval_forward(state, batch["inputs"], batch["meta"])
+        ids, lens = decode_ids(cfg, lp, il, True, trainer.lm)
+        ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+        for b in range(int(batch.get("num_real", ids.shape[0]))):
+            print(f"[utt {n}] {tokenizer.decode(ids[b, : lens[b]].tolist())}")
+            n += 1
+    print(f"transcribed {n} utterances")
+
+
+def run_single_modality(cfg, tokenizer, family: str, synthetic: bool, device="cuda") -> None:
+    """``--family=audio|visual`` training (``main.py:549-575``), resuming
+    ``last.ckpt`` with its whole state."""
+    from .train.checkpoints import CheckpointManager
+
+    trainer = _family_trainer(cfg, tokenizer, family, device)
+    train_factory, val_factory = build_single_modality_data(cfg, tokenizer, family, synthetic)
+    state = trainer.init_state(cfg.data.seed)
+    ckpts = CheckpointManager(cfg.train.checkpoint_dir, layout=cfg.train.checkpoint_layout)
+    resumed = ckpts.try_resume(template={"state": state, "epoch": 0})
+    start_epoch = 1
+    if resumed is not None:
+        start_epoch = int(resumed["epoch"]) + 1
+        print(f"resuming from {ckpts.last} at epoch {start_epoch}")
+    trainer.fit(state, train_factory, val_factory, start_epoch=start_epoch)
+
+
 def main(argv: list[str] | None = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     flags = {a for a in argv if a in ("--synthetic", "--infer", "--eval")}
-    device, stream, export_dir, overrides = "cuda", None, "", []
+    device, stream, export_dir, family, overrides = "cuda", None, "", "av", []
     for a in argv:
         if a in flags:
             continue
@@ -305,8 +457,7 @@ def main(argv: list[str] | None = None) -> None:
         elif name == "--export":
             export_dir = value
         elif name == "--family":
-            if value != "av":
-                _refuse(f"--family={value}", FAMILIES_ITEM)
+            family = value
         elif name in REFUSED:
             _refuse(name, REFUSED[name])
         elif a.startswith("--"):
@@ -317,11 +468,16 @@ def main(argv: list[str] | None = None) -> None:
             if refused:
                 _refuse(name, REFUSED[refused])
             overrides.append(a)
+    if family not in FAMILIES:
+        raise SystemExit(f"--family must be av|audio|visual|ssl, got {family}")
     if device not in ("cuda", "cpu"):
         raise SystemExit(f"--device must be cuda or cpu, got {device!r}")
     if export_dir and "--infer" not in flags:
         raise SystemExit("--export=<dir> exports the serving computation of --infer; "
                          "pass --infer with it")
+    if export_dir and family != "av":
+        raise SystemExit("--export=<dir> exports the flagship's serving computation; "
+                         f"--family={family} has none")
 
     import torch
 
@@ -330,6 +486,7 @@ def main(argv: list[str] | None = None) -> None:
     from .text import CharTokenizer
     from .train import MultiSpeakerTrainer
     from .train.checkpoints import CheckpointManager, graft_subtree, restore_checkpoint
+    from .train.ssl_pretrain import flagship_audio_params
 
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the port runs on the card; pass --device=cpu "
@@ -347,10 +504,27 @@ def main(argv: list[str] | None = None) -> None:
         run_stream(cfg, tokenizer, stream, device)
         return
     if "--eval" in flags:
-        run_eval(cfg, tokenizer, synthetic, device)
+        if family == "ssl":
+            raise SystemExit("--eval scores decoder-bearing families (av|audio|visual); "
+                             "finetune an SSL checkpoint first (train.audio_init_ckpt)")
+        if family == "av":
+            run_eval(cfg, tokenizer, synthetic, device)
+        else:
+            run_eval_single_modality(cfg, tokenizer, family, synthetic, device)
         return
     if "--infer" in flags:
-        run_infer(cfg, tokenizer, synthetic, device, export_dir)
+        if family == "ssl":
+            raise SystemExit("--infer serves decoder-bearing families (av|audio|visual)")
+        if family == "av":
+            run_infer(cfg, tokenizer, synthetic, device, export_dir)
+        else:
+            run_infer_single_modality(cfg, tokenizer, family, synthetic, device)
+        return
+    if family == "ssl":
+        run_ssl_pretrain(cfg, tokenizer, synthetic, device)
+        return
+    if family != "av":
+        run_single_modality(cfg, tokenizer, family, synthetic, device)
         return
 
     ckpts = CheckpointManager(cfg.train.checkpoint_dir, layout=cfg.train.checkpoint_layout)
@@ -366,6 +540,13 @@ def main(argv: list[str] | None = None) -> None:
         state.model.load_state_dict(graft_subtree(
             state.model.state_dict(), src_state.get("model", src_state), ["visual_encoder"]))
         print(f"grafted visual encoder from {cfg.train.visual_init_ckpt}")
+    if cfg.train.audio_init_ckpt:
+        src = restore_checkpoint(cfg.train.audio_init_ckpt)
+        src_state = src.get("state", src)
+        state.model.load_state_dict(graft_subtree(
+            state.model.state_dict(), flagship_audio_params(src_state.get("model", src_state)),
+            ["audio_encoder"]))
+        print(f"grafted audio encoder from {cfg.train.audio_init_ckpt}")
 
     fresh_dropout = state.generator.get_state()
     resumed = ckpts.try_resume(template={"state": state, "epoch": 0})

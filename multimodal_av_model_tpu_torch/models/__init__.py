@@ -2,6 +2,7 @@ from .audio import AudioEncoder
 from .av_model import (
     AudioOnlyCTC,
     MultiSpeakerAVModel,
+    VisualOnlyCTC,
     downsample_mask_to,
     nchw_clip_to_channels_last,
 )
@@ -17,6 +18,7 @@ __all__ = [
     "CrossAttentionFusion",
     "MultiSpeakerAVModel",
     "VisualEncoder",
+    "VisualOnlyCTC",
     "downsample_mask_to",
     "init_weights",
     "nchw_clip_to_channels_last",

@@ -10,7 +10,11 @@ kernel 5 and even T that is 1 on the left and 2 on the right.  In train mode
 sites of ``audio.py:35-103``: twice in each FFN (after the swish and after the
 second Dense), at the conv module's output and on the attention weights.
 The log-mel frontend (K1) takes no gradient, as under ``stop_gradient``
-(``audio.py:144-153``).
+(``audio.py:144-153``).  The two train-mode hooks of the audio-only and SSL
+families work on K1's detached output, never on a tensor that needs a
+gradient: SpecAugment on the log-mel, drawn from the dropout generator
+(``audio.py:169-182``), and the SSL span masking after the subsampler
+(``audio.py:193-201``).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import AudioEncoderConfig, AudioFrontendConfig
-from ..ops.logmel import log_mel_spectrogram_cuda
+from ..ops.logmel import log_mel_spectrogram_cuda, num_frames
+from ..ops.specaugment import spec_augment
 from .layers import Dense, LayerNorm, MultiHeadAttention, _param, dropout, sinusoidal_positions
 
 
@@ -101,10 +106,15 @@ class ConformerBlock(nn.Module):
 
 class AudioEncoder(nn.Module):
     """Raw waveform -> ``(last [B, T_enc, output_dim], middle [B, T_enc, d_model],
-    frame_valid [B, T_enc])`` (``audio.py:106-217``, no SSL masking or SpecAugment)."""
+    frame_valid [B, T_enc])``, and ``ssl_targets`` fourth when ``mask_spans``
+    is given (``audio.py:106-217``).
+
+    ``mask_embedding``: build the learned ``[d_model]`` vector that replaces
+    masked positions (the SSL model's encoder; flax creates the parameter
+    only when ``mask_spans`` is given, so the flagship's encoder has none)."""
 
     def __init__(self, config: AudioEncoderConfig, frontend: AudioFrontendConfig,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mask_embedding: bool = False):
         super().__init__()
         cfg = config
         if cfg.middle_layers and max(cfg.middle_layers) >= cfg.num_layers:
@@ -118,11 +128,14 @@ class AudioEncoder(nn.Module):
                            cfg.conv_kernel_size, cfg.dropout, dtype)
             for _ in range(cfg.num_layers))
         self.out_proj = Dense(cfg.d_model, cfg.output_dim, dtype=dtype)
+        self.mask_embedding = _param(cfg.d_model) if mask_embedding else None
 
-    def forward(self, waveform, sample_mask=None, generator=None):
+    def forward(self, waveform, sample_mask=None, generator=None, mask_spans=None):
         """``waveform [B, S]`` f32; ``sample_mask [B, S]`` bool, True on valid
-        samples (None: all valid); ``generator``: train mode, dropout drawn
-        from it (None: eval)."""
+        samples (None: all valid); ``generator``: train mode, dropout and
+        SpecAugment drawn from it (None: eval); ``mask_spans [B, T_enc]``
+        bool: masked positions take ``mask_embedding`` after the subsampler,
+        and the f32 detached latents there come back as ``ssl_targets``."""
         cfg, fe, dt = self.config, self.frontend, self.dtype
         B, S = waveform.shape
         # K1 on a CUDA tensor, its plain version on a CPU tensor.
@@ -137,6 +150,12 @@ class AudioEncoder(nn.Module):
             anchors = torch.clamp(
                 torch.arange(T_mel, device=mel.device) * fe.hop_length, max=S - 1)
             frame_valid = sample_mask.index_select(1, anchors)
+        if generator is not None and (cfg.specaug_freq_masks > 0 or cfg.specaug_time_masks > 0):
+            mel = spec_augment(generator, mel, frame_valid,
+                               freq_masks=cfg.specaug_freq_masks,
+                               freq_mask_width=cfg.specaug_freq_width,
+                               time_masks=cfg.specaug_time_masks,
+                               time_mask_frac=cfg.specaug_time_frac)
 
         f = cfg.subsample_factor
         x = conv1d_same(mel.to(dt), self.subsample_weight.to(dt),
@@ -145,6 +164,13 @@ class AudioEncoder(nn.Module):
         T_enc = x.shape[1]
         frame_valid = frame_valid[:, ::f][:, :T_enc]
 
+        ssl_targets = None
+        if mask_spans is not None:
+            if self.mask_embedding is None:
+                raise ValueError("mask_spans needs an encoder built with mask_embedding=True")
+            ssl_targets = x.to(torch.float32).detach()
+            x = torch.where(mask_spans[..., None], self.mask_embedding.to(dt), x)
+
         x = x + sinusoidal_positions(T_enc, cfg.d_model, x.device).to(dt)[None]
         attn_mask = frame_valid[:, None, None, :] & frame_valid[:, None, :, None]
         hiddens = []
@@ -152,4 +178,12 @@ class AudioEncoder(nn.Module):
             x = block(x, frame_valid, attn_mask, generator)
             hiddens.append(x)
         middle = torch.stack([hiddens[i] for i in cfg.middle_layers]).mean(dim=0)
-        return self.out_proj(x), middle, frame_valid
+        if ssl_targets is None:
+            return self.out_proj(x), middle, frame_valid
+        return self.out_proj(x), middle, frame_valid, ssl_targets
+
+    @staticmethod
+    def output_length(cfg: AudioEncoderConfig, fe: AudioFrontendConfig, n_samples: int) -> int:
+        """Encoder frames for ``n_samples`` input samples (``audio.py:219-223``)."""
+        t_mel = num_frames(n_samples, fe.n_fft, fe.hop_length, fe.center)
+        return -(-t_mel // cfg.subsample_factor)

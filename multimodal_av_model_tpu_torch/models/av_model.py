@@ -1,4 +1,5 @@
-"""The flagship two-speaker audio-visual CTC model, and the audio-only CTC model.
+"""The flagship two-speaker audio-visual CTC model, and the audio-only and
+visual-only CTC models.
 
 ``MultiSpeakerAVModel`` mirrors ``multimodal_av_model_tpu/models/av_model.py:27-145`` with
 ``shared_audio_pass=True``: both speakers run as one ``[2B]`` batch through
@@ -8,7 +9,10 @@ union of the two speakers' non-pad masks, and reused for both (exact in eval;
 in train mode both speakers share one dropout draw).  The fusion has no
 train-mode behaviour (its attention has no dropout, the BiLSTM none, and the
 transformer temporal model is built with dropout 0, as in JAX).
-``AudioOnlyCTC`` mirrors ``av_model.py:148-161``, eval forward only.
+``AudioOnlyCTC`` mirrors ``av_model.py:148-161`` and ``VisualOnlyCTC``
+``av_model.py:164-178``, each in eval and train mode; their parameter names
+are the flagship's (``audio_encoder``, ``visual_encoder``, ``decoder.head``),
+so their encoders graft into it.
 """
 
 from __future__ import annotations
@@ -102,9 +106,9 @@ class MultiSpeakerAVModel(nn.Module):
 
 class AudioOnlyCTC(nn.Module):
     """Log-mel (K1) -> Conformer -> CTC head (``av_model.py:148-161``): the
-    audio-only model of the streaming and audio serving paths, eval only.
-    Parameter names follow the flax module's (``audio_encoder``,
-    ``decoder.head``)."""
+    audio-only model of the audio family, the streaming and the audio
+    serving paths.  Parameter names follow the flax module's
+    (``audio_encoder``, ``decoder.head``)."""
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -112,9 +116,39 @@ class AudioOnlyCTC(nn.Module):
         self.audio_encoder = AudioEncoder(config.audio, config.frontend, dtype)
         self.decoder = CTCDecoder(config.decoder, config.audio.output_dim, dtype)
 
-    def forward(self, audio, sample_mask=None):
+    def forward(self, audio, sample_mask=None, train: bool = False, generator=None):
         """``audio [B, S]`` f32, ``sample_mask [B, S]`` bool (True = valid;
         None: all valid) -> ``(log_probs [B, T_enc, V], input_lengths [B]
-        int32)``."""
-        last, _, frame_valid = self.audio_encoder(audio, sample_mask)
+        int32)``.  ``train``: dropout and SpecAugment drawn from
+        ``generator`` (a ``torch.Generator`` on the input's device)."""
+        a = self.config.audio
+        if train and generator is None and (
+                a.dropout > 0 or a.specaug_freq_masks > 0 or a.specaug_time_masks > 0):
+            raise ValueError("train mode with dropout or SpecAugment needs a generator")
+        last, _, frame_valid = self.audio_encoder(audio, sample_mask,
+                                                  generator if train else None)
         return self.decoder(last), frame_valid.sum(dim=1).to(torch.int32)
+
+
+class VisualOnlyCTC(nn.Module):
+    """Lip frames -> visual encoder -> CTC head (``av_model.py:164-178``), the
+    model of the visual family.  ``visual_encoder.*`` is the flagship's
+    subtree, so its checkpoint grafts through ``train.visual_init_ckpt``."""
+
+    def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config, self.dtype = config, dtype
+        self.visual_encoder = VisualEncoder(config.visual, dtype)
+        self.decoder = CTCDecoder(config.decoder, config.visual.output_dim, dtype)
+
+    def forward(self, lips, lip_lengths=None, train: bool = False, generator=None):
+        """``lips [B, T, 1, H, W]`` f32, ``lip_lengths [B]`` (None: T) ->
+        ``(log_probs [B, T, V], lengths [B] int32)``.  ``train``: batch
+        statistics in the BatchNorms, whose running statistics update; the
+        visual encoder has no dropout, so ``generator`` is not drawn from."""
+        feat = self.visual_encoder(nchw_clip_to_channels_last(lips), train)
+        log_probs = self.decoder(feat)
+        if lip_lengths is None:
+            lip_lengths = torch.full((lips.shape[0],), lips.shape[1], dtype=torch.int32,
+                                     device=lips.device)
+        return log_probs, lip_lengths.to(torch.int32)

@@ -383,13 +383,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter from ``generator`` (a CPU generator; the draws
     are copied to each parameter's device): weight matrices and conv kernels
     ``N(0, 1/fan_in)`` (flax's lecun scale), biases 0, norm scales 1, PReLU
-    slopes 0.25.  Norm running statistics are reset to 0/1."""
+    slopes 0.25, the SSL mask embedding ``N(0, 0.1^2)`` (``audio.py:198-200``).
+    Norm running statistics are reset to 0/1."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf.endswith("bias") or leaf == "b_hh":
             p.zero_()
         elif leaf == "alpha":
             p.fill_(0.25)
+        elif leaf == "mask_embedding":
+            p.copy_(torch.empty(p.shape).normal_(0.0, 0.1, generator=generator))
         elif p.ndim == 1:
             p.fill_(1.0)
         else:

@@ -1,4 +1,5 @@
-"""Training: the flagship train and eval steps, checkpoints, the finite guard."""
+"""Training: the flagship train and eval steps, the audio-only, visual-only
+and SSL families, checkpoints, the finite guard."""
 
 from .checkpoints import (
     CheckpointManager,
@@ -7,18 +8,26 @@ from .checkpoints import (
     save_checkpoint,
 )
 from .profiling import NonFiniteLossError, check_finite
+from .single_modality import SingleModalityTrainer, make_audio_trainer, make_visual_trainer
+from .ssl_pretrain import MaskedAudioPretrainer, MaskedAudioPretrainModel, flagship_audio_params
 from .trainer import GroupAdam, MultiSpeakerTrainer, TrainState, label_params, make_lr_schedule
 
 __all__ = [
     "CheckpointManager",
     "GroupAdam",
+    "MaskedAudioPretrainModel",
+    "MaskedAudioPretrainer",
     "MultiSpeakerTrainer",
     "NonFiniteLossError",
+    "SingleModalityTrainer",
     "TrainState",
     "check_finite",
+    "flagship_audio_params",
     "graft_subtree",
     "label_params",
+    "make_audio_trainer",
     "make_lr_schedule",
+    "make_visual_trainer",
     "restore_checkpoint",
     "save_checkpoint",
 ]

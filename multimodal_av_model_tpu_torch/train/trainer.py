@@ -57,6 +57,13 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def place_batch(batch: dict, device) -> dict:
+    """Every entry of ``batch`` but ``num_real`` as a tensor on ``device``."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.asarray(v))).to(device)
+            for k, v in batch.items() if k != "num_real"}
+
+
 def label_params(names: Iterable[str], frozen_prefixes: tuple[str, ...] = (),
                  audio_trainable_layers: tuple[int, ...] | None = None) -> dict[str, str]:
     """Parameter name -> "base", "audio" (the audio encoder) or "frozen"
@@ -212,6 +219,23 @@ class TrainState:
             self.generator.set_state(sd["generator"])
 
 
+def seeded_state(model, make_optimizer: Callable[[], GroupAdam], device, seed: int) -> TrainState:
+    """A fresh ``TrainState``: parameters from ``init_weights`` with a
+    generator seeded by ``seed``, ``make_optimizer()``, and a dropout
+    generator on ``device`` seeded by ``seed`` as well."""
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return TrainState(0, model, make_optimizer(), torch.Generator(device=device).manual_seed(seed))
+
+
+def one_group_adam(model, tcfg) -> GroupAdam:
+    """``GroupAdam`` with every parameter in one group at ``tcfg``'s
+    learning rate, schedule and clipping (optax's ``chain(clip_by_global_norm,
+    adam(schedule))`` over the whole tree); no accumulation."""
+    named = list(model.named_parameters())
+    return GroupAdam(named, {n: "base" for n, _ in named},
+                     dataclasses.replace(tcfg, grad_accum_steps=1))
+
+
 @dataclasses.dataclass
 class MultiSpeakerTrainer:
     """The train and eval steps and the epoch loops of the flagship model."""
@@ -236,19 +260,13 @@ class MultiSpeakerTrainer:
         return GroupAdam(named, labels, self.config.train)
 
     def init_state(self, seed: int = 0) -> TrainState:
-        """Parameters from ``init_weights`` with a generator seeded by
-        ``seed``, a fresh optimizer, and a dropout generator on the device
-        seeded by ``seed`` as well."""
-        init_weights(self.model, torch.Generator().manual_seed(seed))
-        return TrainState(0, self.model, self.make_optimizer(),
-                          torch.Generator(device=self.device).manual_seed(seed))
+        """``seeded_state`` of the model with a fresh two-group optimizer."""
+        return seeded_state(self.model, self.make_optimizer, self.device, seed)
 
     # -- loss ----------------------------------------------------------------
 
     def _place(self, batch: dict) -> dict:
-        return {k: (v if isinstance(v, torch.Tensor)
-                    else torch.from_numpy(np.asarray(v))).to(self.device)
-                for k, v in batch.items() if k != "num_real"}
+        return place_batch(batch, self.device)
 
     def _losses(self, model, batch: dict, generator, train: bool):
         """``trainer.py:222-287``: the total loss, the metrics and the model

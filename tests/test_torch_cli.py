@@ -1,8 +1,9 @@
 """PyTorch port, the command line: ``multimodal_av_model_tpu_torch.main.main``
 with ``--device=cpu`` at tiny widths, on a corpus written in the AI-Hub
 layout and on ``--synthetic`` pairs: train, resume, ``--eval``, ``--infer``,
-the visual-encoder graft with a frozen trunk, and every flag the port
-refuses, and ``--infer --export`` against the artifact it writes.  Numbers
+the visual-encoder graft with a frozen trunk, every flag the port refuses
+and the families' refusals, and ``--infer --export`` against the artifact it
+writes.  Numbers
 are compared exactly (parameters after a frozen epoch).
 ``--stream`` in its three modes and ``--infer decode.quantize=true`` run
 beside the JAX CLI on the same weights (converted with ``compat``) and
@@ -180,15 +181,27 @@ def test_visual_init_ckpt_with_a_frozen_trunk(trained, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("arg,item", [
-    ("--family=audio", "item 6"), ("--family=ssl", "item 6"),
-    ("train.audio_init_ckpt=x.ckpt", "item 6"),
-    ("model.audio.specaug_time_masks=2", "item 6"), ("mesh.fsdp=true", "item 7"),
-    ("compile_cache_dir=/x", "item 8"), ("train.checkpoint_layout=sharded", "item 7"),
+    ("mesh.fsdp=true", "item 7"), ("compile_cache_dir=/x", "item 8"),
+    ("train.checkpoint_layout=sharded", "item 7"),
 ])
 def test_refused_flags_name_their_roadmap_item(arg, item, tmp_path):
     # The CLI refuses flags itself; CheckpointManager refuses the layout.
     with pytest.raises((SystemExit, NotImplementedError), match=f"ROADMAP.md Queue 1 {item}"):
         pmain.main(TINY + [arg, f"train.checkpoint_dir={tmp_path}"])
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--family=bogus"], "--family must be av|audio|visual|ssl, got bogus"),
+    (["--infer", "--family=ssl"], "--infer serves decoder-bearing families"),
+    (["--eval", "--family=ssl"], "finetune an SSL checkpoint first"),
+    (["--synthetic", "--eval", "--family=audio"], "no checkpoint under"),
+])
+def test_family_refusals_are_jax_s(args, message, tmp_path):
+    """The refusals the JAX CLI makes for the families (``main.py:481-500``,
+    ``:597-598``, ``:627-640``), with its messages."""
+    with pytest.raises(SystemExit, match=message):
+        pmain.main(TINY + args + [f"train.checkpoint_dir={tmp_path}"])
     assert not os.listdir(tmp_path)
 
 

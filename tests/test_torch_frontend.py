@@ -234,15 +234,17 @@ def test_config_defaults_equal_jax_defaults():
     assert tcfg.Config().train.lr_schedule == jcfg.Config().train.lr_schedule == "constant"
     with pytest.raises(AttributeError):
         tcfg.from_flat_overrides(["model.frontend.use_pallas=true"])
-    # The fields fit and the training CLI read are in the port; those of parts
-    # not ported yet are not: an override of one fails instead of changing
-    # nothing.
+    # The fields fit and the training CLI read are in the port, the
+    # families' too; those of parts not ported yet are not: an override of
+    # one fails instead of changing nothing.
     cfg = tcfg.from_flat_overrides(["train.freeze_visual_trunk=true", "train.batch_size=16",
                                     "train.checkpoint_dir=ckpt", "data.device_preprocess=false"])
     assert cfg.train.freeze_visual_trunk and cfg.train.batch_size == 16
     assert cfg.train.checkpoint_dir == "ckpt" and not cfg.data.device_preprocess
-    for item in ("train.audio_init_ckpt=x.ckpt", "model.audio.specaug_time_masks=2",
-                 "mesh.fsdp=true", "compile_cache_dir=cache"):
+    cfg = tcfg.from_flat_overrides(["train.audio_init_ckpt=x.ckpt",
+                                    "model.audio.specaug_time_masks=2"])
+    assert cfg.train.audio_init_ckpt == "x.ckpt" and cfg.model.audio.specaug_time_masks == 2
+    for item in ("mesh.fsdp=true", "compile_cache_dir=cache"):
         with pytest.raises(AttributeError):
             tcfg.from_flat_overrides([item])
     # Streaming and int8 serving are ported: their fields parse.
