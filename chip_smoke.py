@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch port's serving surface, serving export, training step,
-training run and the audio-only, visual-only and SSL families on one NVIDIA GPU (H100).
+training run, the audio-only, visual-only, SSL and legacy families, the reference
+checkpoint import and offline lip extraction on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py      # needs one CUDA card; a few minutes on an H100
 
@@ -132,13 +133,40 @@ Phases, each printing a line; any failure exits non-zero:
     ``train.visual_init_ckpt`` (both "grafted" lines), each call's seconds,
     peak memory and launches (K1 1 per audio-encoder forward; K2 2 per
     forward of the flagship and SSL, 0 elsewhere).
+26. ``[legacy-ref]``: one step of a small f32 legacy model
+    (``MultimodalCTCKoreanModel``, hidden 16, B = 2) from one seeded state
+    on the card and on the CPU, at phase 21's bars;
+27. ``[legacy]``: on a corpus written as phase 10's, 16 legacy sample
+    directories by ``build_all_pair_samples``; K1 against its plain version
+    at each mixture's ``[1, S]``; then the main path: ``load_legacy_sample``
+    of each directory on the card (K1 once each, K2 never: the frames keep
+    their colour and are resized on the host, as in JAX) and
+    ``LegacyTrainer.fit`` at full width (hidden 256, 96x96x3, 11,173
+    syllables, f32, B = 4, 3 epochs of 4 steps), each step timed, the loss
+    of one held batch falling;
+28. ``[reference-import]``: a full-width checkpoint in the upstream
+    reference's layout with seeded tensors, imported by the port's CLI
+    (``python -m multimodal_av_model_tpu_torch.compat.torch_import``), each
+    mapped tensor equal to its source under the mapping and the rest kept
+    from the template; then three bucket-128 requests served from the file
+    by ``Transcriber.from_checkpoint`` (K1 1 and K2 2 each);
+29. ``[lip-extract]``: two AVIs written by ``write_avi`` (a moving red lip
+    on a face, 6 s of 320x240) and their AI-Hub JSONs through
+    ``open_video`` and ``extract_clips`` with the default localizer, each
+    box holding the drawn lips; K2 against its plain version at the clips'
+    ``[T, 128, 128, 3]``; then three requests of the extracted clips and a
+    mixture, served by phase 28's ``Transcriber`` (K1 1 and K2 2 each), and
+    the extraction's frames per second (``--only=lip-extract`` runs phase 28
+    too).
 
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
 the timed training steps of phase 9, the CLI calls of phase 10 and the main
-paths of phases 13, 15-17, 18-20 and 22-25 (each path's own count is under
-``launches_by_path``).  ``--only=family-ref,family-audio,family-visual,families``
-runs the card and build lines and those phases alone (a rehearsal: no kernels
-JSON, no result line).  The last three lines are the ``kernels`` JSON, the
+paths of phases 13, 15-17, 18-20, 22-25 and 27-29 (each path's own count is
+under ``launches_by_path``).  ``--only=`` with some of ``family-ref``,
+``family-audio``, ``family-visual``, ``families``, ``legacy-ref``,
+``legacy``, ``reference-import`` and ``lip-extract`` runs the card and build
+lines and those phases alone (a rehearsal: no kernels JSON, no result
+line).  The last three lines are the ``kernels`` JSON, the
 ``nvidia-smi`` line and ``{"ok": true, "device": ...}``.  Nothing of JAX is
 imported.
 """
@@ -2236,6 +2264,584 @@ def families_phase(torch, tok, smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _legacy_batch(samples):
+    """Legacy samples -> one batch: frames zero-padded to the longest clip,
+    mel zero-padded to the longest (``mel_lengths`` keep each length, which
+    only CTC reads, as in JAX), labels padded with the blank."""
+    T = max(s[k].shape[0] for s in samples for k in ("frames_A", "frames_B"))
+    M = max(s["mel"].shape[0] for s in samples)
+    L = max(max(len(s["label_A"]), len(s["label_B"])) for s in samples)
+
+    def pad(a, n):
+        return np.concatenate([a, np.zeros((n - a.shape[0], *a.shape[1:]), a.dtype)])
+    return {"frames_A": np.stack([pad(s["frames_A"], T) for s in samples]).astype(np.float32),
+            "frames_B": np.stack([pad(s["frames_B"], T) for s in samples]).astype(np.float32),
+            "mel": np.stack([pad(s["mel"], M) for s in samples]),
+            "mel_lengths": np.array([s["mel"].shape[0] for s in samples], np.int32),
+            "label_A": np.stack([pad(s["label_A"], L) for s in samples]),
+            "len_A": np.array([len(s["label_A"]) for s in samples], np.int32),
+            "label_B": np.stack([pad(s["label_B"], L) for s in samples]),
+            "len_B": np.array([len(s["label_B"]) for s in samples], np.int32)}
+
+
+def legacy_ref_phase(torch) -> None:
+    """[legacy-ref]: one step of a small f32 legacy model (hidden 16, 24x32
+    frames, 40 ids, B = 2, T_lip 6 and T_mel 40) from one seeded state on
+    the card and on the CPU, held at [family-ref]'s bars."""
+    from multimodal_av_model_tpu_torch.train.legacy import LegacyTrainer
+
+    rng = np.random.default_rng(12)
+    samples = [{"frames_A": rng.uniform(size=(6, 24, 32, 3)).astype(np.float32),
+                "frames_B": rng.uniform(size=(6, 24, 32, 3)).astype(np.float32),
+                "mel": rng.standard_normal((n, 80)).astype(np.float32),
+                "label_A": rng.integers(1, 40, size=4).astype(np.int32),
+                "label_B": rng.integers(1, 40, size=3).astype(np.int32)} for n in (40, 31)]
+    batch = _legacy_batch(samples)
+
+    def one_step(dev):
+        trainer = LegacyTrainer(40, 16, image_size=(24, 32), device=dev)
+        state, loss = trainer.train_step(trainer.init_state(1), batch)
+        return loss.item(), {n: p.grad.cpu() for n, p in state.model.named_parameters()}
+
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = one_step("cpu"), one_step("cuda")
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    floor = 1e-3 * float(torch.stack([g.norm() for g in g_cpu.values()]).norm())
+    g_rel, g_name = max((float((g_gpu[n] - g).norm() / (g.norm() + floor)), n)
+                        for n, g in g_cpu.items())
+    ok = loss_rel <= 1e-3 and g_rel <= 1e-2 and math.isfinite(l_gpu)
+    log(f"[legacy-ref] small f32 legacy model, one step, card vs CPU: loss {l_gpu:.6f} vs "
+        f"{l_cpu:.6f} (rel {loss_rel:.3g}, <= 1e-3), max per-tensor gradient rel {g_rel:.3g} at "
+        f"{g_name} (<= 1e-2, |dg| / (|g| + 1e-3 grad_norm)) {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("legacy-ref: the legacy step disagrees between card and CPU")
+
+
+def legacy_phase(torch, tok, smi: str) -> dict:
+    """[legacy]: on a corpus written as [fit]'s, ``build_all_pair_samples``
+    (16 pairs), K1 against its plain version at each mixture's [1, S], then
+    the main path: ``load_legacy_sample`` on the card for every sample (K1
+    once each, K2 never) and ``LegacyTrainer.fit`` at full width (hidden 256,
+    96x96, 11,173 ids, B = 4, 3 epochs), each step timed.  The loss of one
+    held batch must fall."""
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch.data.audio_io import load_audio
+    from multimodal_av_model_tpu_torch.data.legacy_preprocess import build_all_pair_samples
+    from multimodal_av_model_tpu_torch.data.manifest import build_data_list
+    from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
+    from multimodal_av_model_tpu_torch.ops import logmel
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.text import KoreanSyllableVocab
+    from multimodal_av_model_tpu_torch.train.legacy import (
+        LegacyTrainer,
+        load_legacy_sample,
+        scan_legacy_root,
+    )
+
+    root = tempfile.mkdtemp(prefix="mmav_legacy_")
+    try:
+        t0 = time.perf_counter()
+        dirs = write_synthetic_corpus(os.path.join(root, "corpus"), tok, n_videos=8,
+                                      sentences_per_video=6, sentence_dur=(3.0, 4.2), seed=0)
+        entries, _ = build_data_list(dirs["json_folder"], dirs["npy_dir"], dirs["text_dir"],
+                                     dirs["wav_dir"])
+        built = build_all_pair_samples(entries, os.path.join(root, "legacy"), max_pairs=16)
+        sample_dirs = scan_legacy_root(os.path.join(root, "legacy"))
+        if sample_dirs != built or len(built) != 16:
+            raise SystemExit(f"legacy: {len(built)} sample directories built, "
+                             f"{len(sample_dirs)} found")
+        log(f"[legacy] corpus of {len(entries)} sentences -> {len(built)} sample directories in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        waves = [torch.from_numpy(load_audio(os.path.join(d, "mixed.wav")))[None].cuda()
+                 for d in sample_dirs]
+        k1_err, longest = 0.0, max(waves, key=lambda w: w.shape[1])
+        for w in waves:                              # K1 at each mixture's [1, S]
+            got, ref = log_mel_spectrogram_cuda(w), logmel.log_mel_spectrogram(w)
+            k1_err = max(k1_err, (got - ref).abs().max().item())
+            if not torch.allclose(got, ref, rtol=2e-3, atol=2e-3):
+                raise SystemExit(f"legacy: K1 disagrees with its plain version at "
+                                 f"{tuple(w.shape)}: {k1_err}")
+        k1_ms = cuda_ms(log_mel_spectrogram_cuda, [(longest,)], 100, graph=True)
+        T1 = logmel.num_frames(longest.shape[1])
+        b_ms, b_by = bound(0.0, longest.numel() * 4 + T1 * 80 * 4)
+        log(f"[legacy] K1 at the {len(waves)} mixtures' [1, S] (S {min(w.shape[1] for w in waves)}"
+            f"-{longest.shape[1]}): max|kernel-plain| {k1_err:.3g} (rtol=atol=2e-3) ok; at "
+            f"{tuple(longest.shape)} {k1_ms:.4f} ms by graph replay, bound {b_ms:.4f} ms by "
+            f"{b_by} ({b_ms / k1_ms:.3f} of it)")
+        del waves, longest
+
+        vocab = KoreanSyllableVocab()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log_mel_spectrogram_cuda.launches = 0
+        lip_preprocess_cuda.launches = 0
+        t0 = time.perf_counter()
+        samples = [load_legacy_sample(d, vocab, device="cuda") for d in sample_dirs]
+        load_s = time.perf_counter() - t0
+        k1_load = log_mel_spectrogram_cuda.launches
+        shapes = sorted({(max(s["frames_A"].shape[0], s["frames_B"].shape[0]), s["mel"].shape[0])
+                         for s in samples})
+        if k1_load != len(samples) or lip_preprocess_cuda.launches != 0:
+            raise SystemExit(f"legacy: loading {len(samples)} samples launched K1 {k1_load}, "
+                             f"K2 {lip_preprocess_cuda.launches}")
+        if any(len(s["label_A"]) == 0 or len(s["label_B"]) == 0 for s in samples):
+            raise SystemExit("legacy: a sample has an empty syllable label")
+        log(f"[legacy] load_legacy_sample x {len(samples)} on the card: {load_s:.2f} s "
+            f"({len(samples) / load_s:.1f} samples/s), K1 {k1_load} (one per sample), K2 0; "
+            f"(T_lip, T_mel) {shapes[0]}-{shapes[-1]}, frames {samples[0]['frames_A'].shape[1:]}")
+
+        B, epochs = 4, 3
+        batches = [_legacy_batch(samples[i:i + B]) for i in range(0, len(samples), B)]
+        del samples
+        t0 = time.perf_counter()
+        trainer = LegacyTrainer(vocab.vocab_size, 256, device="cuda")
+        state = trainer.init_state(0)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        init_s = time.perf_counter() - t0
+        held = batches[0]
+
+        def held_loss():
+            with torch.no_grad():
+                return trainer.loss_fn(state.model, place(held)).item()
+
+        def place(batch):
+            return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+        before = held_loss()
+        times, losses = [], []
+        step = trainer.train_step
+
+        def timed_step(st, batch):
+            t1 = time.perf_counter()
+            st, loss = step(st, batch)
+            losses.append(loss.item())
+            times.append(time.perf_counter() - t1)
+            return st, loss
+
+        trainer.train_step = timed_step
+        lines = []
+        state = trainer.fit(state, batches, epochs=epochs, log_fn=lines.append)
+        del trainer.train_step
+        after = held_loss()
+        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        for line in lines:
+            log(f"[legacy] fit: {line}")
+        n = len(times)
+        log(f"[legacy] LegacyTrainer {n_params / 1e6:.1f}M params (hidden "
+            f"{trainer.hidden_dim}, 96x96x3, {vocab.vocab_size} ids), f32, init {init_s:.1f} s; B={B} x {len(batches)} batches x "
+            f"{epochs} epochs: {n} steps in {sum(times):.3f} s: {B * n / sum(times):.2f} utt/s, "
+            f"{_ms(times)} (the first step included); peak device memory "
+            f"{peak / 2**30:.2f} GiB; held batch loss {before:.4f} -> {after:.4f}; launches over "
+            f"the path K1 {k1} (the {k1_load} loads), K2 {k2}; card {smi}")
+        if k1 != k1_load or k2 != 0 or n != epochs * len(batches):
+            raise SystemExit(f"legacy: launches K1 {k1}, K2 {k2}, {n} steps")
+        if not all(math.isfinite(x) for x in losses) or not after < before:
+            raise SystemExit(f"legacy: losses {losses}, held batch {before} -> {after}")
+        if len(lines) != epochs or not all(ln.startswith(f"[Epoch {i + 1}] Loss: ")
+                                           for i, ln in enumerate(lines)):
+            raise SystemExit(f"legacy: fit printed {lines}")
+        return {"logmel": k1, "lip_preprocess": k2}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _reference_checkpoint(torch, template: dict, seed: int) -> dict:
+    """A full reference save (``{'epoch', 'visual_encoder', 'audio_encoder',
+    'fusion', 'decoder1', 'optimizer'}``, the upstream layout) whose tensors
+    fit the flagship state dict ``template``, drawn from ``seed``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rand(*s, lo=-0.05, hi=0.05):
+        return torch.rand(*s, generator=g) * (hi - lo) + lo
+
+    def bn(out, src, n):
+        out[f"{src}.weight"] = rand(n, lo=0.5, hi=1.5)
+        out[f"{src}.bias"] = rand(n)
+        out[f"{src}.running_mean"] = rand(n, lo=-0.2, hi=0.2)
+        out[f"{src}.running_var"] = rand(n, lo=0.5, hi=1.5)
+        out[f"{src}.num_batches_tracked"] = torch.tensor(1000)
+
+    shape = lambda k: tuple(template[k].shape)  # noqa: E731
+    vis: dict = {}
+    c0, kt, kh, kw = shape("visual_encoder.frontend_conv.weight")
+    vis["frontend3D.0.weight"] = rand(c0, 1, kt, kh, kw)
+    bn(vis, "frontend3D.1", c0)
+    vis["frontend3D.2.weight"] = rand(c0, lo=0.05, hi=0.5)
+    n_blocks = len({k.split(".")[3] for k in template if k.startswith("visual_encoder.trunk.")})
+    per_stage = n_blocks // 4                        # ResNet-18: 2 blocks in each of 4 stages
+    for i in range(n_blocks):
+        pre, port = f"trunk.layer{i // per_stage + 1}.{i % per_stage}", \
+            f"visual_encoder.trunk.blocks.{i}"
+        vis[f"{pre}.conv1.weight"] = rand(*shape(f"{port}.conv1.weight"))
+        bn(vis, f"{pre}.bn1", shape(f"{port}.norm1.weight")[0])
+        vis[f"{pre}.conv2.weight"] = rand(*shape(f"{port}.conv2.weight"))
+        bn(vis, f"{pre}.bn2", shape(f"{port}.norm2.weight")[0])
+        if f"{port}.downsample.0.weight" in template:
+            vis[f"{pre}.downsample.0.weight"] = rand(*shape(f"{port}.downsample.0.weight"))
+            bn(vis, f"{pre}.downsample.1", shape(f"{port}.downsample.1.weight")[0])
+        vis[f"{pre}.relu.weight"] = rand(shape(f"{port}.act1.alpha")[0], lo=0.05, hi=0.5)
+    fus: dict = {}
+    for name in ("visual_proj", "audio_proj", "fusion_proj"):
+        fus[f"{name}.weight"] = rand(*shape(f"fusion.{name}.weight"))
+        fus[f"{name}.bias"] = rand(*shape(f"fusion.{name}.bias"))
+    E = shape("fusion.cross_attn_audio.query.weight")[0]
+    for name in ("cross_attn_audio", "cross_attn_visual"):
+        fus[f"{name}.in_proj_weight"] = rand(3 * E, E)
+        fus[f"{name}.in_proj_bias"] = rand(3 * E)
+        fus[f"{name}.out_proj.weight"] = rand(E, E)
+        fus[f"{name}.out_proj.bias"] = rand(E)
+    layers = len({k for k in template if k.startswith("fusion.temporal_bilstm.layers.")}) // 3
+    for layer in range(layers):
+        _, H4, d_in = shape(f"fusion.temporal_bilstm.layers.{layer}.w_ih")
+        for suffix in ("", "_reverse"):
+            fus[f"temporal_model.weight_ih_l{layer}{suffix}"] = rand(H4, d_in)
+            fus[f"temporal_model.weight_hh_l{layer}{suffix}"] = rand(H4, H4 // 4)
+            fus[f"temporal_model.bias_ih_l{layer}{suffix}"] = rand(H4)
+            fus[f"temporal_model.bias_hh_l{layer}{suffix}"] = rand(H4)
+    V, D = shape("decoder.head.weight")
+    return {"epoch": 12, "visual_encoder": vis, "audio_encoder": {"w2v.weight": rand(4, 4)},
+            "fusion": fus, "decoder1": {"net.0.weight": rand(V, D), "net.0.bias": rand(V)},
+            "optimizer": {"state": {}, "param_groups": [{"lr": 1e-4, "params": [0]}]}}
+
+
+def _mapped(torch, ckpt: dict) -> dict:
+    """What each reference tensor must become in the port's state dict, the
+    mapping stated once more here, independent of ``compat/torch_import``."""
+    out = {}
+    vis, fus = ckpt["visual_encoder"], ckpt["fusion"]
+    out["visual_encoder.frontend_conv.weight"] = vis["frontend3D.0.weight"].squeeze(1)
+    out["visual_encoder.frontend_act.alpha"] = vis["frontend3D.2.weight"]
+    stats = ("weight", "bias", "running_mean", "running_var")
+    for k in stats:
+        out[f"visual_encoder.frontend_norm.{k}"] = vis[f"frontend3D.1.{k}"]
+    blocks = sorted({(int(k.split(".")[1][5:]), int(k.split(".")[2]))
+                     for k in vis if k.startswith("trunk.")})
+    for i, (s, b) in enumerate(blocks):
+        src, dst = f"trunk.layer{s}.{b}", f"visual_encoder.trunk.blocks.{i}"
+        for a, c in (("conv1", "conv1"), ("conv2", "conv2"), ("downsample.0", "downsample.0")):
+            if f"{src}.{a}.weight" in vis:
+                out[f"{dst}.{c}.weight"] = vis[f"{src}.{a}.weight"]
+        for a, c in (("bn1", "norm1"), ("bn2", "norm2"), ("downsample.1", "downsample.1")):
+            for k in stats:
+                if f"{src}.{a}.{k}" in vis:
+                    out[f"{dst}.{c}.{k}"] = vis[f"{src}.{a}.{k}"]
+        out[f"{dst}.act1.alpha"] = out[f"{dst}.act2.alpha"] = vis[f"{src}.relu.weight"]
+    for name in ("visual_proj", "audio_proj", "fusion_proj"):
+        for k in ("weight", "bias"):
+            out[f"fusion.{name}.{k}"] = fus[f"{name}.{k}"]
+    q, kk, v = fus["cross_attn_audio.in_proj_weight"].chunk(3)
+    qb, kb, vb = fus["cross_attn_audio.in_proj_bias"].chunk(3)
+    for name, w, b in (("query", q, qb), ("key", kk, kb), ("value", v, vb)):
+        out[f"fusion.cross_attn_audio.{name}.weight"] = w
+        out[f"fusion.cross_attn_audio.{name}.bias"] = b
+    out["fusion.cross_attn_audio.out.weight"] = fus["cross_attn_audio.out_proj.weight"]
+    out["fusion.cross_attn_audio.out.bias"] = fus["cross_attn_audio.out_proj.bias"]
+    layer = 0
+    while f"temporal_model.weight_ih_l{layer}" in fus:
+        d = f"fusion.temporal_bilstm.layers.{layer}"
+        for j, sfx in enumerate(("", "_reverse")):
+            out[f"{d}.w_ih[{j}]"] = fus[f"temporal_model.weight_ih_l{layer}{sfx}"]
+            out[f"{d}.w_hh[{j}]"] = fus[f"temporal_model.weight_hh_l{layer}{sfx}"]
+            out[f"{d}.b_hh[{j}]"] = (fus[f"temporal_model.bias_ih_l{layer}{sfx}"]
+                                     + fus[f"temporal_model.bias_hh_l{layer}{sfx}"])
+        layer += 1
+    out["decoder.head.weight"] = ckpt["decoder1"]["net.0.weight"]
+    out["decoder.head.bias"] = ckpt["decoder1"]["net.0.bias"]
+    return out
+
+
+def reference_import_phase(torch, rng, tok, smi: str):
+    """[reference-import]: a full-width reference-layout checkpoint with
+    seeded tensors, imported through the port's CLI (``python -m
+    multimodal_av_model_tpu_torch.compat.torch_import``, file work on the
+    host); every mapped tensor held equal to its source under the mapping;
+    then three bucket-128 requests served from the imported file by
+    ``Transcriber.from_checkpoint`` on the card (K1 1 and K2 2 each).
+    Returns the launches and the Transcriber."""
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.infer import Transcriber
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.train.checkpoints import restore_checkpoint
+
+    cfg = Config()
+    root = tempfile.mkdtemp(prefix="mmav_reference_")
+    try:
+        with torch.device("meta"):
+            shapes = MultiSpeakerAVModel(cfg.model).state_dict()
+        ckpt = _reference_checkpoint(torch, shapes, seed=21)
+        src, out = os.path.join(root, "reference.pt"), os.path.join(root, "imported.ckpt")
+        torch.save(ckpt, src)
+        n_ref = sum(v.numel() for part in ("visual_encoder", "fusion", "decoder1")
+                    for v in ckpt[part].values())
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m",
+                              "multimodal_av_model_tpu_torch.compat.torch_import", src, out,
+                              str(cfg.model.decoder.vocab_size)],
+                             cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise SystemExit(f"reference-import: the CLI failed:\n{run.stdout}\n{run.stderr}")
+        printed = run.stdout.strip().splitlines()
+        if printed[0] != f"imported: ['visual_encoder', 'fusion', 'decoder'] -> {out}" or \
+                [ln.split(" (")[0] for ln in printed[1:]] != ["skipped: audio_encoder",
+                                                             "skipped: optimizer"]:
+            raise SystemExit(f"reference-import: the CLI printed {printed}")
+        saved = restore_checkpoint(out)
+        sd = saved["state"]["model"]
+        want = _mapped(torch, ckpt)
+        for key, value in want.items():
+            name, _, idx = key.partition("[")
+            got = sd[name][int(idx[:-1])] if idx else sd[name]
+            if not torch.equal(got, value.float()):
+                raise SystemExit(f"reference-import: {key} differs from its source")
+        template = init_weights(MultiSpeakerAVModel(cfg.model),
+                                torch.Generator().manual_seed(0)).state_dict()
+        kept = [k for k in sd if k.startswith(("audio_encoder.", "contrastive_proj."))]
+        if any(not torch.equal(sd[k], template[k]) for k in kept) or saved["epoch"] != 12:
+            raise SystemExit("reference-import: the entries the checkpoint lacks changed")
+        mapped = {k.partition("[")[0] for k in want}
+        if mapped | set(kept) != set(sd):
+            raise SystemExit(f"reference-import: unmapped keys {sorted(set(sd) - mapped)[:5]}")
+        log(f"[reference-import] a full-width reference checkpoint ({n_ref / 1e6:.1f}M values in "
+            f"visual_encoder, fusion, decoder1; {os.path.getsize(src) / 2**20:.0f} MB) through "
+            f"the CLI in {cli_s:.1f} s; {len(want)} mapped tensors equal to their sources, "
+            f"{len(kept)} audio-encoder and contrastive tensors kept from the template; printed "
+            f"{printed[0].split(' -> ')[0]}; {'; '.join(p.split(' (')[0] for p in printed[1:])}")
+        del ckpt, saved, sd, template, want
+
+        t0 = time.perf_counter()
+        transcriber = Transcriber.from_checkpoint(cfg, tok, out, device="cuda")
+        load_s = time.perf_counter() - t0
+        spec = make_bucket_specs((128,), cfg.data.audio_samples_per_video_frame,
+                                 cfg.data.max_label_len)[0]
+        requests = [make_request(rng, 4, spec) for _ in range(4)]
+        transcriber.transcribe(_flagship_batch(torch, requests[0]))     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log_mel_spectrogram_cuda.launches = 0
+        lip_preprocess_cuda.launches = 0
+        lat, per_request = [], []
+        for raw in requests[1:]:                    # the main path
+            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+            t0 = time.perf_counter()
+            texts = transcriber.transcribe(_flagship_batch(torch, raw))
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            per_request.append((log_mel_spectrogram_cuda.launches - before[0],
+                                lip_preprocess_cuda.launches - before[1]))
+            if len(texts) != 4 or not all(isinstance(x, str) for p in texts for x in p):
+                raise SystemExit("reference-import: expected one text per speaker")
+        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        log(f"[reference-import] Transcriber.from_checkpoint of the imported file "
+            f"({cfg.model.dtype}) {load_s:.1f} s; 3 requests B=4 bucket 128: "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms; launches per request "
+            f"{per_request}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB; card {smi}")
+        if per_request != [(1, 2)] * 3:
+            raise SystemExit(f"reference-import: launches per request {per_request}")
+        return {"logmel": k1, "lip_preprocess": k2}, transcriber
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _face_video(rng, T: int, H: int, W: int, speaker: int):
+    """A talking head: a skin ellipse on grey, a red lip ellipse whose centre
+    drifts and whose height opens and closes, and noise -> uint8 ``[T, H, W,
+    3]`` frames and each frame's tight lip box."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    frames = np.empty((T, H, W, 3), np.uint8)
+    boxes = np.zeros((T, 4), np.int32)
+    face = ((xx - W / 2) / (0.32 * W)) ** 2 + ((yy - 0.45 * H) / (0.42 * H)) ** 2 <= 1.0
+    for t in range(T):
+        cx = W * (0.5 + 0.08 * np.sin(0.07 * t + speaker))
+        cy = H * (0.62 + 0.03 * np.cos(0.05 * t))
+        ax, ay = 0.11 * W, 0.04 * H * (1.0 + 0.5 * (1 + np.sin(0.4 * t)) / 2)
+        img = np.empty((H, W, 3), np.float32)
+        img[...] = (95, 100, 110)
+        img[face] = (205, 165, 145)
+        lips = ((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 <= 1.0
+        img[lips] = (185, 70, 80)
+        img += rng.normal(0, 3.0, img.shape).astype(np.float32)
+        frames[t] = np.clip(img, 0, 255).astype(np.uint8)
+        ys, xs = np.nonzero(lips)
+        boxes[t] = (xs.min(), ys.min(), xs.max() + 1, ys.max() + 1)
+    return frames, boxes
+
+
+def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
+    """[lip-extract]: two AVIs written by ``write_avi`` (a moving red lip on
+    a face, 6 s of 320x240 at 30 fps) with an AI-Hub JSON of 3 sentences
+    each; ``extract_clips`` through ``open_video`` and the default localizer
+    (the heuristic, since mediapipe does not import), its boxes held to the
+    drawn lips; K2 against its plain version at the clips' [T, 128, 128, 3];
+    then 3 requests, each the two speakers' clips of one sentence and a
+    mixture, served by ``transcriber`` (K1 1 and K2 2 each)."""
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch.data.avi import open_video, write_avi
+    from multimodal_av_model_tpu_torch.data.collate import (
+        collate_pairs_raw,
+        make_bucket_specs,
+        pick_bucket,
+    )
+    from multimodal_av_model_tpu_torch.data.lip_extract import (
+        detect_lip_boxes_auto,
+        extract_clips,
+        have_mediapipe,
+    )
+    from multimodal_av_model_tpu_torch.ops import resize
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+
+    root = tempfile.mkdtemp(prefix="mmav_lip_extract_")
+    try:
+        T, H, W, fps, margin = 180, 240, 320, 30, 10
+        spans = [(0.2, 1.9), (2.1, 3.9), (4.1, 5.8)]
+        clips, n_frames, extract_s, truth = {}, 0, 0.0, {}
+        for v in (1, 2):
+            frames, gt = _face_video(rng, T, H, W, v)
+            path = os.path.join(root, f"speaker{v}.avi")
+            write_avi(path, frames, fps)
+            json_path = os.path.join(root, f"speaker{v}.json")
+            with open(json_path, "w", encoding="utf-8") as f:
+                json.dump([{"Sentence_info": [
+                    {"ID": i + 1, "topic": "synthetic", "sentence_text": "가나다",
+                     "start_time": s, "end_time": e} for i, (s, e) in enumerate(spans)]}], f)
+            found = []
+
+            def detector(fr):
+                boxes = detect_lip_boxes_auto(fr, margin)
+                found.append(boxes)
+                return boxes
+
+            t0 = time.perf_counter()
+            result = extract_clips(open_video(path), json_path, os.path.join(root, "clips"),
+                                   f"speaker{v}", fps=fps, out_size=128, margin=margin,
+                                   boxes_for_frames=detector)
+            extract_s += time.perf_counter() - t0
+            if result.skipped or len(result.saved) != len(spans):
+                raise SystemExit(f"lip-extract: speaker {v}: saved {len(result.saved)}, "
+                                 f"skipped {result.skipped}")
+            worst = 1.0
+            for (s, e), boxes in zip(spans, found):
+                idx = range(int(s * fps), int(e * fps))
+                n_frames += len(idx)
+                for t, box in zip(idx, boxes):
+                    g = gt[t]
+                    inside = (box[0] <= g[0] and box[1] <= g[1] and box[2] >= g[2]
+                              and box[3] >= g[3])
+                    gx = (max(0, g[0] - margin), max(0, g[1] - margin), min(W, g[2] + margin),
+                          min(H, g[3] + margin))
+                    ix = max(0, min(box[2], gx[2]) - max(box[0], gx[0]))
+                    iy = max(0, min(box[3], gx[3]) - max(box[1], gx[1]))
+                    inter = ix * iy
+                    area = lambda r: (r[2] - r[0]) * (r[3] - r[1])  # noqa: E731
+                    score = inter / (area(box) + area(gx) - inter)
+                    worst = min(worst, score)
+                    if not inside or score < 0.5:
+                        raise SystemExit(f"lip-extract: speaker {v} frame {t}: box {box} does "
+                                         f"not follow the lips {g} (IoU {score:.3f})")
+            truth[v] = worst
+            clips[v] = [np.load(p) for p in result.saved]
+        shapes = [c.shape for c in clips[1] + clips[2]]
+        if any(c.dtype != np.uint8 or c.shape[1:] != (128, 128, 3) for c in clips[1] + clips[2]):
+            raise SystemExit(f"lip-extract: clips {shapes}")
+        log(f"[lip-extract] 2 AVIs of {T} frames {W}x{H} -> {len(shapes)} clips {shapes} "
+            f"(uint8) by open_video + extract_clips with the "
+            f"{'mediapipe' if have_mediapipe() else 'heuristic'} localizer: {n_frames} frames "
+            f"in {extract_s:.2f} s, {n_frames / extract_s:.1f} frames/s; every box holds the "
+            f"drawn lips, least IoU with lips+margin {min(truth.values()):.3f} (>= 0.5)")
+
+        k2_err, times = 0.0, []
+        for c in clips[1] + clips[2]:                # K2 at the clips' [T, 128, 128, 3]
+            x = torch.from_numpy(c).cuda()
+            got, ref = resize.lip_preprocess_cuda(x, 96), resize.lip_frames_preprocess(x, 96)
+            k2_err = max(k2_err, (got - ref).abs().max().item())
+            if not torch.allclose(got, ref, rtol=1e-4, atol=1e-3):
+                raise SystemExit(f"lip-extract: K2 disagrees with its plain version at "
+                                 f"{tuple(x.shape)}: {k2_err}")
+            times.append(cuda_ms(resize.lip_preprocess_cuda, [(x, 96)], 50, graph=True))
+        x = torch.from_numpy(clips[1][0]).cuda()
+        b_ms, b_by = bound(x.shape[0] * 96 * 96 * (4 * 3 + 10),
+                           x.numel() + x.shape[0] * 96 * 96 * 4)
+        log(f"[lip-extract] K2 at the clips' [T, 128, 128, 3] uint8 (T {min(s[0] for s in shapes)}"
+            f"-{max(s[0] for s in shapes)}): max|kernel-plain| {k2_err:.3g} (rtol 1e-4, atol "
+            f"1e-3) ok; {min(times):.4f}-{max(times):.4f} ms per launch by graph replay; at "
+            f"{tuple(x.shape)} {times[0]:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+            f"({b_ms / times[0]:.3f} of it)")
+
+        specs = make_bucket_specs((64, 128), 534, 128)
+        requests = []
+        for i in range(len(spans)):
+            s = {}
+            for k in ("1", "2"):
+                lip = clips[int(k)][i]
+                n = lip.shape[0] * 534
+                tt = np.arange(n) / 16000.0
+                s["lip" + k + "_raw"] = lip
+                s["audio" + k] = (0.3 * np.sin(2 * np.pi * (150 + 40 * i + 70 * int(k)) * tt)
+                                  + 0.05 * rng.standard_normal(n)).astype(np.float32)
+                s["label" + k] = rng.integers(4, 800, size=12)
+            spec = pick_bucket(specs, max(c.shape[0] for c in (clips[1][i], clips[2][i])),
+                               max(len(s["audio1"]), len(s["audio2"])))
+            requests.append(collate_pairs_raw([s], spec))
+        transcriber.transcribe(_flagship_batch(torch, requests[0]))     # warm-up
+        torch.cuda.synchronize()
+        log_mel_spectrogram_cuda.launches = 0
+        lip_preprocess_cuda.launches = 0
+        lat, per_request, texts = [], [], []
+        for raw in requests:                         # the main path
+            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+            t0 = time.perf_counter()
+            texts += transcriber.transcribe(_flagship_batch(torch, raw))
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            per_request.append((log_mel_spectrogram_cuda.launches - before[0],
+                                lip_preprocess_cuda.launches - before[1]))
+        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        log(f"[lip-extract] {len(requests)} requests from the extracted clips (B=1, buckets "
+            f"{[r['lip1_raw'].shape[1] for r in requests]}): "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms; launches per request {per_request}; "
+            f"first texts {json.dumps(texts[0])[:80]}; card {smi}")
+        if per_request != [(1, 2)] * len(requests) or len(texts) != len(requests):
+            raise SystemExit(f"lip-extract: launches per request {per_request}")
+        return {"logmel": k1, "lip_preprocess": k2}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+PHASES = ("family-ref", "family-audio", "family-visual", "families", "legacy-ref", "legacy",
+          "reference-import", "lip-extract")
+UPSTREAM = PHASES[4:]
+
+
+def upstream_phases(torch, rng, tok, smi: str, only=UPSTREAM) -> dict:
+    """[legacy-ref], [legacy], [reference-import] and [lip-extract] (those
+    of ``only``; [lip-extract] serves from [reference-import]'s model, so it
+    brings that phase along) -> each main path's launches."""
+    out = {}
+    if "legacy-ref" in only:
+        legacy_ref_phase(torch)
+    if "legacy" in only:
+        out["legacy"] = legacy_phase(torch, tok, smi)
+    if "reference-import" in only or "lip-extract" in only:
+        out["reference_import"], transcriber = reference_import_phase(torch, rng, tok, smi)
+    if "lip-extract" in only:
+        out["lip_extract"] = lip_extract_phase(torch, rng, tok, transcriber, smi)
+    return out
+
+
 def train_profile(torch, step) -> None:
     """One B = 8 training step timed (after one more to warm the caching
     allocator again after the B = 32 steps), then one under
@@ -2247,9 +2853,6 @@ def train_profile(torch, step) -> None:
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     device_profile(torch, "train-profile", "one B=8 training step", step, wall)
-
-
-PHASES = ("family-ref", "family-audio", "family-visual", "families")
 
 
 def main() -> int:
@@ -2290,10 +2893,14 @@ def main() -> int:
     tok = CharTokenizer(os.path.join(REPO, Config().data.vocab_path))
     if only:                                # a rehearsal of this slice's phases alone
         for name in only:
+            if name in UPSTREAM:
+                continue
             {"family-ref": lambda: family_ref_phase(torch, tok),
              "family-audio": lambda: family_audio_phase(torch, tok, smi),
              "family-visual": lambda: family_visual_phase(torch, tok, smi),
              "families": lambda: families_phase(torch, tok, smi)}[name]()
+        if set(only) & set(UPSTREAM):
+            upstream_phases(torch, rng, tok, smi, only)
         log(f"[partial] {','.join(only)} done; no kernels JSON and no result line")
         return 0
     (k1, k1_calls), (k2, k2_calls) = k1_phase(torch, rng), k2_phase(torch, rng)
@@ -2317,6 +2924,7 @@ def main() -> int:
     family_audio_launches = family_audio_phase(torch, tok, smi)
     family_visual_launches = family_visual_phase(torch, tok, smi)
     families_launches = families_phase(torch, tok, smi)
+    upstream_launches = upstream_phases(torch, rng, tok, smi)
     kernels = [k1, k2]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
         by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
@@ -2330,7 +2938,10 @@ def main() -> int:
                    "family_audio": family_audio_launches[k["name"]],
                    "family_visual": family_visual_launches[k["name"]],
                    "ssl": families_launches["ssl"][k["name"]],
-                   "families_cli": families_launches["families_cli"][k["name"]]}
+                   "families_cli": families_launches["families_cli"][k["name"]],
+                   "legacy": upstream_launches["legacy"][k["name"]],
+                   "reference_import": upstream_launches["reference_import"][k["name"]],
+                   "lip_extract": upstream_launches["lip_extract"][k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         dev_ms, caught = profiled_ms(*calls)

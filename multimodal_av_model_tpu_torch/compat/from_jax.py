@@ -10,6 +10,9 @@ alone (that module is not imported):
   kernel [H, hd, E]`` -> ``[E, H*hd]``;
 * LSTM ``ii..io`` / ``hi..ho`` kernels -> ``w_ih`` / ``w_hh`` in gate order
   i, f, g, o, forward and backward stacked; the recurrent biases -> ``b_hh``;
+* GRU ``{fwd,bwd}{i}/GRUCell_0``: ``ir, iz, in`` kernels and biases ->
+  ``w_ih``, ``b_ih`` in gate order r, z, n; ``hr, hz, hn`` kernels ->
+  ``w_hh``; the ``hn`` bias -> ``b_hn`` (the legacy family);
 * the transformer temporal model's auto-named children (``_transformer``);
 * conv ``HWIO`` -> ``OIHW`` (1D: ``[k, I, O]`` -> ``[O, I, k]``; the
   depthwise conv keeps ``I = 1`` for groups = d);
@@ -24,7 +27,8 @@ running statistics: a gradient tree or Adam moments go through the same
 (linear) bridge.  ``train_state_from_jax`` carries a whole JAX ``TrainState``
 (parameters, statistics, both Adam groups, accumulation, step) across, so a
 JAX run can resume in the port; ``single_modality_state_from_jax`` and
-``ssl_state_from_jax`` do the same for the families' states.
+``ssl_state_from_jax`` do the same for the families' states, and
+``legacy_state_from_jax`` for the legacy trainer's.
 """
 
 from __future__ import annotations
@@ -204,6 +208,28 @@ def _bilstm(tree, sd, src, dst):
         sd[_d(d, "b_hh")] = _t(np.stack(b_hh))
 
 
+def _bigru(tree, sd, src, dst):
+    """A flax ``BiGRU`` (``layers.py:305-318``): layer ``i``'s ``fwd{i}`` and
+    ``bwd{i}`` ``GRULayer``s stacked into the port's ``FusedBiGRULayer``."""
+    names = tree.children("params", src)
+    for name in names:
+        if not re.fullmatch(r"(fwd|bwd)\d+", name):
+            raise KeyError(f"unknown BiGRU child {name!r}")
+    for i in sorted({int(n[3:]) for n in names}):
+        w_ih, b_ih, w_hh, b_hn = [], [], [], []
+        for direction in ("fwd", "bwd"):
+            p = _p(src, f"{direction}{i}", "GRUCell_0")
+            w_ih.append(np.concatenate([tree.get("params", p, f"i{g}", "kernel")
+                                        for g in "rzn"], 1).T)
+            b_ih.append(np.concatenate([tree.get("params", p, f"i{g}", "bias") for g in "rzn"]))
+            w_hh.append(np.concatenate([tree.get("params", p, f"h{g}", "kernel")
+                                        for g in "rzn"], 1).T)
+            b_hn.append(tree.get("params", p, "hn", "bias"))
+        d = _d(dst, "layers", i)
+        for k, v in (("w_ih", w_ih), ("b_ih", b_ih), ("w_hh", w_hh), ("b_hn", b_hn)):
+            sd[_d(d, k)] = _t(np.stack(v))
+
+
 def _transformer(tree, sd, src, dst):
     """A flax ``TransformerTemporalBlock``: its compact loop names layer
     ``i``'s children ``LayerNorm_{2i}`` (attention), ``LayerNorm_{2i+1}``
@@ -254,6 +280,11 @@ def visual_encoder_from_jax(variables) -> dict[str, torch.Tensor]:
 def bilstm_from_jax(variables) -> dict[str, torch.Tensor]:
     """Variables of a flax ``BiLSTM`` -> the port's ``BiLSTM`` state_dict."""
     return _convert(variables, lambda tree, sd: _bilstm(tree, sd, "", ""))
+
+
+def bigru_from_jax(variables) -> dict[str, torch.Tensor]:
+    """Variables of a flax ``BiGRU`` -> the port's ``BiGRU`` state_dict."""
+    return _convert(variables, lambda tree, sd: _bigru(tree, sd, "", ""))
 
 
 def transformer_from_jax(variables) -> dict[str, torch.Tensor]:
@@ -308,9 +339,31 @@ def ssl_pretrain_from_jax(variables_np) -> dict[str, torch.Tensor]:
     return _convert(variables_np, fill)
 
 
+def legacy_from_jax(variables_np) -> dict[str, torch.Tensor]:
+    """Flax ``MultimodalCTCKoreanModel`` variables (``models/legacy.py:54-81``)
+    -> the port's state_dict: the lip CNN's ``Conv_0``, ``Conv_1``, both
+    encoders' ``BiGRU_0`` and ``fc``."""
+    def fill(tree, sd):
+        for i in (0, 1):
+            src = f"lip_encoder/Conv_{i}"
+            sd[f"lip_encoder.conv{i}_weight"] = _t(
+                tree.get("params", src, "kernel").transpose(3, 2, 0, 1))
+            sd[f"lip_encoder.conv{i}_bias"] = _t(tree.get("params", src, "bias"))
+        _bigru(tree, sd, "lip_encoder/BiGRU_0", "lip_encoder.gru")
+        _bigru(tree, sd, "audio_encoder/BiGRU_0", "audio_encoder.gru")
+        _dense(tree, sd, "fc", "fc")
+    return _convert(variables_np, fill)
+
+
 def _find_adam(tree):
     """The ``ScaleByAdamState`` (``{count, mu, nu}``) inside one group's
-    optimizer state, or None (the frozen group's ``set_to_zero``)."""
+    optimizer state, or None (the frozen group's ``set_to_zero``).  Optax's
+    own tuples and named tuples are read as the dicts of their state-dict
+    form."""
+    if hasattr(tree, "_asdict"):
+        tree = tree._asdict()
+    elif isinstance(tree, (list, tuple)):
+        tree = dict(enumerate(tree))
     if not isinstance(tree, dict):
         return None
     if {"count", "mu", "nu"} <= set(tree):
@@ -402,3 +455,10 @@ def ssl_state_from_jax(state) -> dict:
     """A JAX ``MaskedAudioPretrainer`` state (``{"params", "opt_state",
     "key"}`` as numpy, ``ssl_pretrain.py:82-94``) -> the port's state dict."""
     return _one_group_state(state["params"], None, state["opt_state"], ssl_pretrain_from_jax)
+
+
+def legacy_state_from_jax(params, opt_state) -> dict:
+    """A JAX ``LegacyTrainer`` state (``train/legacy.py:104-108``: flax
+    ``params`` and ``optax.adam``'s state, as numpy) -> the port's
+    ``LegacyTrainer`` state dict: parameters and Adam's count, mu and nu."""
+    return _one_group_state(params, None, opt_state, legacy_from_jax)

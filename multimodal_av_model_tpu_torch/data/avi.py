@@ -1,6 +1,6 @@
 """AVI container reader and writer in numpy (no cv2, no ffmpeg).
 
-Own copy of ``multimodal_av_model_tpu/data/avi.py:42-305``:
+Own copy of ``multimodal_av_model_tpu/data/avi.py:42-315``:
 
 * ``AviReader`` / ``read_avi``: parse the RIFF tree, index the video
   stream's chunks once, decode frames lazily to ``[H, W, 3]`` uint8 RGB:
@@ -8,11 +8,9 @@ Own copy of ``multimodal_av_model_tpu/data/avi.py:42-305``:
   MJPEG through ``data/jpeg.py``; other codecs raise, naming the codec;
 * ``write_avi`` (DIB) and ``write_avi_mjpeg`` (pre-encoded JPEG frames):
   ``hdrl`` + ``movi`` + ``idx1``, playable by stock decoders;
-* ``avi_frame_reader``: ``(start, end) -> [T, H, W, 3] | None``.
-
-``open_video`` (``avi.py:306-315``), whose other containers go through
-``data/lip_extract.py``, is not ported (ROADMAP Queue 1, the offline lip
-extraction).
+* ``avi_frame_reader``: ``(start, end) -> [T, H, W, 3] | None``;
+* ``open_video`` (``avi.py:306-315``): that reader for ``.avi``, and
+  ``lip_extract.video_frame_reader`` (cv2) for any other container.
 """
 
 from __future__ import annotations
@@ -285,3 +283,13 @@ def avi_frame_reader(path: str):
     needs cv2): returns ``(start, end) -> [T, H, W, 3] | None``."""
     reader = AviReader(path)
     return reader.read_range
+
+
+def open_video(path: str):
+    """A frame-range reader for ``path``: the numpy AVI decoder for ``.avi``,
+    cv2 (imported at the call) for anything else."""
+    if path.lower().endswith(".avi"):
+        return avi_frame_reader(path)
+    from .lip_extract import video_frame_reader
+
+    return video_frame_reader(path)

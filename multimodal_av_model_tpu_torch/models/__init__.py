@@ -8,11 +8,17 @@ from .av_model import (
 )
 from .decoder import CTCDecoder
 from .fusion import CrossAttentionFusion
-from .layers import init_weights
+from .layers import BiGRU, GRULayer, init_weights
+from .legacy import LipEncoder, MelAudioEncoder, MultimodalCTCKoreanModel, init_legacy_weights
 from .visual import VisualEncoder
 
 __all__ = [
     "AudioEncoder",
+    "BiGRU",
+    "GRULayer",
+    "LipEncoder",
+    "MelAudioEncoder",
+    "MultimodalCTCKoreanModel",
     "AudioOnlyCTC",
     "CTCDecoder",
     "CrossAttentionFusion",
@@ -20,6 +26,7 @@ __all__ = [
     "VisualEncoder",
     "VisualOnlyCTC",
     "downsample_mask_to",
+    "init_legacy_weights",
     "init_weights",
     "nchw_clip_to_channels_last",
 ]

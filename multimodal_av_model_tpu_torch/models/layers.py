@@ -1,7 +1,7 @@
 """Shared building blocks: dense and norm layers, PReLU, dropout, positions,
-BiLSTM, the transformer temporal model.
+BiLSTM, the legacy family's GRU and BiGRU, the transformer temporal model.
 
-Mirrors ``multimodal_av_model_tpu/models/layers.py:21-83,134-266,321-355``.  Every
+Mirrors ``multimodal_av_model_tpu/models/layers.py:21-83,134-355``.  Every
 layer keeps f32 parameters and computes in its ``dtype`` (bfloat16 when
 serving), as the flax modules do: inputs and parameters are cast at use.
 Norms compute their statistics in f32.  Eps values follow flax: LayerNorm and
@@ -373,6 +373,113 @@ class BiLSTM(nn.Module):
             valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
         else:
             valid = length_mask(lengths, T)
+        for layer in self.layers:
+            x = layer(x, valid)
+        return x
+
+
+def _gru_scan(z: torch.Tensor, keep: torch.Tensor, w_hh: torch.Tensor,
+              b_hn: torch.Tensor) -> torch.Tensor:
+    """The recurrence of ``D`` GRU directions advanced together.
+
+    ``z [T, D, B, 3H]`` holds each frame's input projections ``x W_i + b_i``
+    (gates r, z, n), ``keep [T, D, B, 1]`` the frames that advance each
+    direction, ``w_hh [D, H, 3H]`` and ``b_hn [D, 1, H]`` the recurrent side.
+    flax's ``GRUCell``: ``r`` and ``z`` have no recurrent bias and ``n =
+    tanh(x W_in + b_in + r (h W_hn + b_hn))``, ``h' = (1 - z) n + z h``.  The
+    carry starts at 0 and freezes on the frames ``keep`` leaves out, whose
+    output is 0.  Returns ``[T, D, B, H]``."""
+    T, D, B, H3 = z.shape
+    H = H3 // 3
+    h = z.new_zeros(D, B, H)
+    ys = []
+    for t in range(T):
+        hh = torch.bmm(h, w_hh)                                    # [D, B, 3H]
+        zi = z[t]
+        r = torch.sigmoid(zi[..., :H] + hh[..., :H])
+        u = torch.sigmoid(zi[..., H:2 * H] + hh[..., H:2 * H])
+        n = torch.tanh(zi[..., 2 * H:] + r * (hh[..., 2 * H:] + b_hn))
+        nh = (1.0 - u) * n + u * h
+        k = keep[t]
+        h = torch.where(k, nh, h)
+        ys.append(torch.where(k, nh, 0.0))
+    return torch.stack(ys)
+
+
+class GRULayer(nn.Module):
+    """One GRU direction ``[B, T, D] -> [B, T, H]`` (``layers.py:269-302``),
+    ``reverse`` running it over the flipped padded sequence with its mask.
+    Gates r, z, n stack along the rows of ``w_ih [3H, D]``, ``b_ih [3H]`` and
+    ``w_hh [3H, H]``; ``b_hn [H]`` is the one recurrent bias."""
+
+    def __init__(self, in_dim: int, hidden: int, reverse: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden, self.reverse, self.dtype = hidden, reverse, dtype
+        self.w_ih = _param(3 * hidden, in_dim)
+        self.b_ih = _param(3 * hidden)
+        self.w_hh = _param(3 * hidden, hidden)
+        self.b_hn = _param(hidden)
+
+    def forward(self, x, lengths=None):
+        dt = self.dtype
+        B, T, _ = x.shape
+        valid = (torch.ones(B, T, dtype=torch.bool, device=x.device) if lengths is None
+                 else length_mask(lengths, T))
+        z = F.linear(x.to(dt), self.w_ih.to(dt), self.b_ih.to(dt)).transpose(0, 1)  # [T, B, 3H]
+        keep = valid.transpose(0, 1)[..., None]                                     # [T, B, 1]
+        if self.reverse:
+            z, keep = z.flip(0), keep.flip(0)
+        y = _gru_scan(z[:, None], keep[:, None], self.w_hh.to(dt).t()[None],
+                      self.b_hn.to(dt)[None, None])[:, 0]
+        if self.reverse:
+            y = y.flip(0)
+        return y.transpose(0, 1)
+
+
+class FusedBiGRULayer(nn.Module):
+    """One bidirectional GRU layer (``layers.py:305-318``'s ``fwd{i}`` and
+    ``bwd{i}``): the input projections of both directions for all frames run
+    before the loop, and both directions advance in one step.  Parameters
+    stack the directions as ``GRULayer``'s: index 0 forward, 1 backward."""
+
+    def __init__(self, in_dim: int, hidden: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden, self.dtype = hidden, dtype
+        self.w_ih = _param(2, 3 * hidden, in_dim)
+        self.b_ih = _param(2, 3 * hidden)
+        self.w_hh = _param(2, 3 * hidden, hidden)
+        self.b_hn = _param(2, hidden)
+
+    def forward(self, x, valid):
+        """``x [B, T, D]``, ``valid [B, T]`` bool -> ``[B, T, 2H]``."""
+        dt = self.dtype
+        x = x.to(dt)
+        w_ih, b_ih = self.w_ih.to(dt), self.b_ih.to(dt)
+        zf = F.linear(x, w_ih[0], b_ih[0]).transpose(0, 1)            # [T, B, 3H]
+        zb = F.linear(x, w_ih[1], b_ih[1]).transpose(0, 1).flip(0)
+        v = valid.transpose(0, 1)
+        keep = torch.stack([v, v.flip(0)], dim=1)[..., None]           # [T, 2, B, 1]
+        y = _gru_scan(torch.stack([zf, zb], dim=1), keep, self.w_hh.to(dt).transpose(1, 2),
+                      self.b_hn.to(dt)[:, None, :])
+        y = torch.cat([y[:, 0], y[:, 1].flip(0)], dim=-1)              # [T, B, 2H]
+        return y.transpose(0, 1)
+
+
+class BiGRU(nn.Module):
+    """Stacked bidirectional GRU ``[B, T, D] -> [B, T, 2 hidden]``
+    (``layers.py:305-318``)."""
+
+    def __init__(self, in_dim: int, hidden: int, num_layers: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        dims = [in_dim] + [2 * hidden] * (num_layers - 1)
+        self.layers = nn.ModuleList(FusedBiGRULayer(d, hidden, dtype) for d in dims)
+
+    def forward(self, x, lengths=None):
+        B, T, _ = x.shape
+        valid = (torch.ones(B, T, dtype=torch.bool, device=x.device) if lengths is None
+                 else length_mask(lengths, T))
         for layer in self.layers:
             x = layer(x, valid)
         return x

@@ -1,3 +1,4 @@
+from .korean import KoreanSyllableVocab
 from .tokenizer import CharTokenizer
 
-__all__ = ["CharTokenizer"]
+__all__ = ["CharTokenizer", "KoreanSyllableVocab"]

@@ -1,16 +1,45 @@
-"""Jamo-level error counts for Korean text.
+"""Korean text: the legacy family's syllable vocabulary and jamo-level
+error counts.
 
-Own copy of ``multimodal_av_model_tpu/text/korean.py:36-92``: each Hangul
-syllable decomposes into its choseong, jungseong and (if any) jongseong, so a
-wrong vowel costs a third of a syllable rather than a whole character.
+Own copy of ``multimodal_av_model_tpu/text/korean.py:17-92``:
+
+* ``KoreanSyllableVocab`` (``:17-33``): ``<blank>`` at id 0 and the 11,172
+  Hangul syllables U+AC00-U+D7A3, 11,173 ids in all; text -> ids drops
+  characters outside the block;
+* jamo counts: each Hangul syllable decomposes into its choseong, jungseong
+  and (if any) jongseong, so a wrong vowel costs a third of a syllable rather
+  than a whole character.
 """
 
 from __future__ import annotations
+
+from typing import Iterable
 
 from ..ops.metrics import corpus_counts
 
 _HANGUL_START = 0xAC00
 _HANGUL_END = 0xD7A3  # inclusive
+
+
+class KoreanSyllableVocab:
+    """The legacy family's vocabulary: ``<blank>`` (0) + every Hangul syllable."""
+
+    blank_id = 0
+
+    def __init__(self) -> None:
+        self.vocab = ["<blank>"] + [chr(c) for c in range(_HANGUL_START, _HANGUL_END + 1)]
+        self._char2idx = {ch: i for i, ch in enumerate(self.vocab)}
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    def text_to_indices(self, text: str) -> list[int]:
+        return [self._char2idx[ch] for ch in text if ch in self._char2idx]
+
+    def indices_to_text(self, indices: Iterable[int]) -> str:
+        return "".join(self.vocab[i] for i in indices if i != 0)
+
 _N_JUNG, _N_JONG = 21, 28
 
 _CHOSEONG = ["ㄱ", "ㄲ", "ㄴ", "ㄷ", "ㄸ", "ㄹ", "ㅁ", "ㅂ", "ㅃ", "ㅅ",

@@ -1,5 +1,5 @@
-"""Training: the flagship train and eval steps, the audio-only, visual-only
-and SSL families, checkpoints, the finite guard."""
+"""Training: the flagship train and eval steps, the audio-only, visual-only,
+SSL and legacy families, checkpoints, the finite guard."""
 
 from .checkpoints import (
     CheckpointManager,
@@ -7,6 +7,7 @@ from .checkpoints import (
     restore_checkpoint,
     save_checkpoint,
 )
+from .legacy import LegacyTrainer, load_legacy_sample, scan_legacy_root
 from .profiling import NonFiniteLossError, check_finite
 from .single_modality import SingleModalityTrainer, make_audio_trainer, make_visual_trainer
 from .ssl_pretrain import MaskedAudioPretrainer, MaskedAudioPretrainModel, flagship_audio_params
@@ -15,6 +16,7 @@ from .trainer import GroupAdam, MultiSpeakerTrainer, TrainState, label_params, m
 __all__ = [
     "CheckpointManager",
     "GroupAdam",
+    "LegacyTrainer",
     "MaskedAudioPretrainModel",
     "MaskedAudioPretrainer",
     "MultiSpeakerTrainer",
@@ -25,9 +27,11 @@ __all__ = [
     "flagship_audio_params",
     "graft_subtree",
     "label_params",
+    "load_legacy_sample",
     "make_audio_trainer",
     "make_lr_schedule",
     "make_visual_trainer",
     "restore_checkpoint",
     "save_checkpoint",
+    "scan_legacy_root",
 ]
