@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port's serving surface, serving export, training step,
 training run, the audio-only, visual-only, SSL and legacy families, the reference
-checkpoint import and offline lip extraction on one NVIDIA GPU (H100).
+checkpoint import, offline lip extraction, the runtime tools and the meshed
+training path on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py      # needs one CUDA card; a few minutes on an H100
 
@@ -158,17 +159,45 @@ Phases, each printing a line; any failure exits non-zero:
     mixture, served by phase 28's ``Transcriber`` (K1 1 and K2 2 each), and
     the extraction's frames per second (``--only=lip-extract`` runs phase 28
     too).
+30. ``[hostops]`` (right after phase 2): the native host ops
+    (``runtime/hostops.cpp``) built, ``have_native()``, and each op against
+    its numpy path at the pipeline's shapes: 5 minutes of 48 kHz PCM decoded
+    and resampled to 16 kHz, a 120-frame clip of 128x128 crops resized to
+    96, the edit distances of 2,000 transcript pairs; native and numpy ms;
+31. ``[dist]`` (after phase 29): a world-size-1 NCCL group
+    (``tcp://127.0.0.1`` on a free port) and a (1, 1) mesh; the flagship at
+    full width, B = 8 at ``bench.py``'s shapes, with ``fsdp=True``: K1 and K2
+    against their plain versions at the step's shapes, one step against the
+    unmeshed ``train_step`` from the same state (phase 8's bars), then 8
+    timed steps of each (the meshed ones the main path: raw batch ->
+    ``device_preprocessed_batches`` -> ``shard_batch`` -> the FSDP-wrapped
+    forward and backward -> Adam; K1 1 and K2 2 a step), and a sharded
+    checkpoint written, restored into a fresh meshed state and into the
+    unmeshed one, tensors equal;
+32. ``[dist-cli]``: ``torchrun --standalone --nproc-per-node=1`` of the CLI
+    (``main.main``, through this script's ``--cli-child``, which counts the
+    kernels' launches in that process) with ``mesh.fsdp=true
+    train.checkpoint_layout=sharded`` on a corpus written as phase 10's: one
+    epoch, a resume (``resuming from``), then one epoch with
+    ``mesh.model_axis=1 mesh.fsdp=false``; seconds, peak memory, launches;
+33. ``[runtime]`` (last, after every other profiler session): ``trace`` of
+    one bucket-128 request of phase 5 with ``annotate`` ranges (the trace
+    holds them, ``logmel_kernel`` and ``lip_kernel``), ``nan_guard`` on a
+    request with a NaN in the mixture, ``device_memory_stats``, and the
+    kernels and host ops built by two fresh processes under one
+    ``compile_cache_dir`` (the second finds them).
 
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
 the timed training steps of phase 9, the CLI calls of phase 10 and the main
-paths of phases 13, 15-17, 18-20, 22-25 and 27-29 (each path's own count is
-under ``launches_by_path``).  ``--only=`` with some of ``family-ref``,
-``family-audio``, ``family-visual``, ``families``, ``legacy-ref``,
-``legacy``, ``reference-import`` and ``lip-extract`` runs the card and build
-lines and those phases alone (a rehearsal: no kernels JSON, no result
-line).  The last three lines are the ``kernels`` JSON, the
-``nvidia-smi`` line and ``{"ok": true, "device": ...}``.  Nothing of JAX is
-imported.
+paths of phases 13, 15-17, 18-20, 22-25, 27-29, 31 and 32 (each path's own
+count is under ``launches_by_path``).  ``--only=`` with some of
+``family-ref``, ``family-audio``, ``family-visual``, ``families``,
+``legacy-ref``, ``legacy``, ``reference-import``, ``lip-extract``,
+``hostops``, ``runtime`` (which runs phase 5 first), ``dist`` and
+``dist-cli`` runs the card and build lines and those phases alone (a
+rehearsal: no kernels JSON, no result line).  The last three lines are the
+``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
+...}``.  Nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -2821,9 +2850,398 @@ def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def hostops_phase(torch) -> None:
+    """[hostops]: the native host ops built from ``runtime/hostops.cpp`` and
+    held against their numpy paths at the pipeline's shapes: 5 minutes of
+    48 kHz 16-bit PCM decoded and resampled to 16 kHz, a 120-frame clip of
+    128x128 crops resized to 96, the edit distances of 2,000 transcript
+    pairs.  Fails if the library did not build."""
+    from multimodal_av_model_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    build_s = time.perf_counter() - t0
+    if not native.have_native():
+        raise SystemExit("hostops: the native library did not load")
+    log(f"[hostops] {os.path.relpath(path, REPO)} built (or found) in {build_s:.2f} s")
+    rng = np.random.default_rng(9)
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    tt = np.arange(48000 * 300) / 48000.0
+    pcm = (np.clip(0.3 * np.sin(2 * np.pi * 220 * tt) + 0.05 * rng.standard_normal(tt.size),
+                   -1, 1) * 32767).astype(np.int16)
+    clip = rng.integers(0, 256, size=(120, 128, 128)).astype(np.float32)
+    alphabet = [chr(0xAC00 + i) for i in range(40)] + [" "]
+    pairs = [("".join(rng.choice(alphabet, size=int(rng.integers(10, 60)))),
+              "".join(rng.choice(alphabet, size=int(rng.integers(10, 60)))))
+             for _ in range(2000)]
+    checks = [
+        ("pcm16 -> f32, 5 min at 48 kHz", (native.pcm16_to_f32, native.pcm16_to_f32_numpy),
+         (pcm,), 1e-7, 0.0),
+        ("resample 48 -> 16 kHz, 5 min", (native.resample_linear, native.resample_linear_numpy),
+         (pcm.astype(np.float32) / 32768.0, 48000, 16000), 1e-6, 0.0),
+        ("resize [120, 128, 128] -> 96", (native.resize_bilinear, native.resize_bilinear_numpy),
+         (clip, 96, 96), 1e-3, 1e-5),
+    ]
+    ok = True
+    for tag, (fast, plain), args, atol, rtol in checks:
+        got, fast_ms = timed(fast, *args)
+        want, plain_ms = timed(plain, *args)
+        err = float(np.abs(got - want).max())
+        good = got.shape == want.shape and bool(np.allclose(got, want, rtol=rtol, atol=atol))
+        ok = ok and good
+        log(f"[hostops] {tag}: native {fast_ms:.1f} ms, numpy {plain_ms:.1f} ms; shape "
+            f"{got.shape}; max|native-numpy| {err:.3g} (atol {atol:g}, rtol {rtol:g}) "
+            f"{'ok' if good else 'FAILED'}")
+    got, fast_ms = timed(lambda: [native.levenshtein(a, b) for a, b in pairs])
+    want, plain_ms = timed(lambda: [native.levenshtein_numpy(a, b) for a, b in pairs])
+    ok = ok and got == want
+    log(f"[hostops] levenshtein of {len(pairs)} transcript pairs (10-60 syllables): native "
+        f"{fast_ms:.1f} ms, numpy {plain_ms:.1f} ms; distances equal {got == want}, total "
+        f"{sum(got)}")
+    if not ok:
+        raise SystemExit("hostops: a native op disagrees with its numpy path")
+
+
+def runtime_phase(torch, served) -> None:
+    """[runtime]: ``trace`` of one [serving] request (its trace holds the
+    ``annotate`` ranges and a K1 and a K2 launch), ``nan_guard`` on a forward
+    with a NaN in the mixture, ``device_memory_stats``, and the kernels and
+    host ops built twice in fresh processes under one ``compile_cache_dir``
+    (the second finds them).  Runs after every other profiler session."""
+    import glob
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch.train.profiling import (
+        annotate,
+        device_memory_stats,
+        nan_guard,
+        trace,
+    )
+
+    transcriber, requests = served[0], served[1]
+    root = tempfile.mkdtemp(prefix="mmav_runtime_")
+    try:
+        t0 = time.perf_counter()
+        with trace(os.path.join(root, "trace")) as prof:
+            with annotate("request"):
+                with annotate("preprocess"):
+                    batch = _flagship_batch(torch, requests[0])
+                with annotate("transcribe"):
+                    texts = transcriber.transcribe(batch)
+        dt = time.perf_counter() - t0
+        files = glob.glob(os.path.join(root, "trace", "*.pt.trace.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        names = {e.key for e in prof.key_averages()}
+        want = ["request", "preprocess", "transcribe", "logmel_kernel", "lip_kernel"]
+        missing = [w for w in want if f'"{w}' not in text and not any(w in n for n in names)]
+        log(f"[runtime] trace of one bucket-128 request: {len(files)} file "
+            f"{os.path.getsize(files[0]) / 1e6 if files else 0:.1f} MB, {len(names)} named "
+            f"events, {dt:.2f} s under the profiler; holds {want}: "
+            f"{'ok' if not missing and len(texts) == 4 else f'MISSING {missing}'}")
+        if missing or len(texts) != 4:
+            raise SystemExit(f"runtime: the trace lacks {missing} ({len(texts)} texts)")
+
+        bad = dict(batch)
+        bad["audio"] = batch["audio"].clone()
+        bad["audio"][0, 1000] = float("nan")
+        try:
+            with nan_guard():
+                transcriber.transcribe(bad)
+            caught = None
+        except FloatingPointError as e:
+            caught = str(e)
+        log(f"[runtime] nan_guard on a forward with one NaN sample: "
+            f"{caught or 'NOT CAUGHT'}; anomaly mode after: {torch.is_anomaly_enabled()}")
+        if caught is None or torch.is_anomaly_enabled():
+            raise SystemExit("runtime: nan_guard did not trap the NaN or left anomaly mode on")
+
+        stats = device_memory_stats()
+        peak = (stats.get("cuda:0") or {}).get("allocated_bytes.all.peak")
+        log(f"[runtime] device_memory_stats: {sorted(stats)}, cuda:0 "
+            f"{len(stats.get('cuda:0') or {})} counters, allocated peak "
+            f"{(peak or 0) / 2**30:.2f} GiB")
+        if peak is None:
+            raise SystemExit(f"runtime: device_memory_stats gave {list(stats)}")
+
+        cache = os.path.join(root, "cache")
+        code = ("import json, sys, time; sys.path.insert(0, sys.argv[2]); "
+                "from multimodal_av_model_tpu_torch.runtime.compile_cache import "
+                "enable_compile_cache; from multimodal_av_model_tpu_torch.ops import cuda_build; "
+                "from multimodal_av_model_tpu_torch.runtime import native; "
+                "enable_compile_cache(sys.argv[1]); t = time.perf_counter(); cuda_build.build(); "
+                "native.build(); print(json.dumps({'s': time.perf_counter() - t, "
+                "'ok': native.have_native()}))")
+        runs = []
+        for _ in range(2):
+            out = subprocess.run([sys.executable, "-c", code, cache, REPO], capture_output=True,
+                                 text=True, timeout=600, check=True)
+            runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+        built = sorted(os.path.relpath(p, cache) for p in glob.glob(f"{cache}/*/*.so"))
+        log(f"[runtime] compile_cache_dir: a fresh process built {built} in {runs[0]['s']:.2f} s, "
+            f"a second one found them in {runs[1]['s']:.3f} s")
+        if len(built) != 3 or not all(r["ok"] for r in runs) or runs[1]["s"] > 1.0:
+            raise SystemExit(f"runtime: compile cache {built} {runs}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
+    """[dist]: the flagship's meshed training step at full width on a
+    world-size-1 NCCL group and a (1, 1) mesh with FSDP: one step against
+    the unmeshed ``train_step`` from the same state (loss, ``grad_norm``,
+    every gradient at [train-ref]'s bars), then ``n_steps`` timed steps of
+    each (raw batch -> ``device_preprocessed_batches`` -> ``shard_batch`` ->
+    FSDP forward and backward -> Adam), a sharded checkpoint written and
+    restored into a fresh meshed state and into the unmeshed one."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.parallel import full_tensor, make_mesh
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
+    from multimodal_av_model_tpu_torch.train.checkpoints import host_snapshot
+    from multimodal_av_model_tpu_torch.train.sharded_checkpoints import (
+        restore_sharded,
+        save_sharded,
+    )
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+    root = tempfile.mkdtemp(prefix="mmav_dist_")
+    try:
+        mesh = make_mesh(model_parallel=1, device_type="cuda")
+        cfg = Config()
+        spec = make_bucket_specs((128,), cfg.data.audio_samples_per_video_frame,
+                                 cfg.data.max_label_len)[0]
+        raw = make_train_batch(rng, 8, spec)
+        train_kernel_check(torch, 8, raw, "dist")
+
+        def trainer(meshed):
+            model = MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype))
+            t = MultiSpeakerTrainer(cfg, model, tok, mesh=mesh if meshed else None,
+                                    fsdp=meshed)
+            return t, t.init_state(cfg.data.seed)
+
+        (plain, p_state), (meshed, m_state) = trainer(False), trainer(True)
+        (batch,) = device_preprocessed_batches([raw])
+        _, m_plain = plain.train_step(p_state, batch)
+        _, m_mesh = meshed.train_step(m_state, batch)
+        g_plain = {n: p.grad.float() for n, p in p_state.model.named_parameters()
+                   if p.grad is not None}
+        g_mesh = {n: full_tensor(p.grad).float() for n, p in m_state.model.named_parameters()
+                  if p.grad is not None}
+        lp, lm = m_plain["loss"].item(), m_mesh["loss"].item()
+        gp, gm = m_plain["grad_norm"].item(), m_mesh["grad_norm"].item()
+        floor = 1e-3 * gp
+        g_rel, g_name = max((float((g_mesh[n] - g).norm() / (g.norm() + floor)), n)
+                            for n, g in g_plain.items())
+        ok = (set(g_mesh) == set(g_plain) and abs(lm - lp) <= 1e-3 * abs(lp)
+              and abs(gm - gp) <= 1e-2 * gp and g_rel <= 1e-2)
+        placement = next(iter(m_state.model.parameters())).placements
+        log(f"[dist] world 1 (nccl), mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, FSDP "
+            f"(parameters {placement}): one step against the unmeshed step from the same "
+            f"state: loss {lm:.6f} vs {lp:.6f}, grad_norm {gm:.4f} vs {gp:.4f}, max per-tensor "
+            f"gradient rel {g_rel:.3g} at {g_name} (bars of [train-ref]) "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise SystemExit("dist: the meshed step disagrees with the unmeshed one")
+        del g_plain, g_mesh
+
+        def steps(t, state, count=False):
+            for _ in range(2):
+                (b,) = device_preprocessed_batches([raw])
+                t.train_step(state, b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            if count:
+                log_mel_spectrogram_cuda.launches = 0
+                lip_preprocess_cuda.launches = 0
+            times, losses = [], []
+            for _ in range(n_steps):                # the main path when counted
+                t0 = time.perf_counter()
+                (b,) = device_preprocessed_batches([raw])
+                _, m = t.train_step(state, b)
+                losses.append(m["loss"].item())
+                times.append(time.perf_counter() - t0)
+            k = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+            return times, losses, torch.cuda.max_memory_allocated(), k
+
+        for tag, t, state, count in (("unmeshed", plain, p_state, False),
+                                     ("meshed FSDP", meshed, m_state, True)):
+            times, losses, peak, (k1, k2) = steps(t, state, count)
+            log(f"[dist] {tag} B=8: {n_steps} steps, {np.median(times) * 1e3:.1f} ms median "
+                f"({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}), "
+                f"{8 * n_steps / sum(times):.2f} utt/s, peak device memory "
+                f"{peak / 2**30:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}"
+                + (f"; launches per step K1 {k1 / n_steps:g}, K2 {k2 / n_steps:g}"
+                   if count else ""))
+            if not all(math.isfinite(x) for x in losses):
+                raise SystemExit(f"dist: non-finite losses {losses}")
+        if (k1, k2) != (n_steps, 2 * n_steps):
+            raise SystemExit(f"dist: launches K1 {k1}, K2 {k2} over {n_steps} steps")
+        launches = {"logmel": k1, "lip_preprocess": k2}
+
+        ckpt = os.path.join(root, "sharded")
+        t0 = time.perf_counter()
+        save_sharded(ckpt, {"state": m_state, "epoch": 1})
+        save_s = time.perf_counter() - t0
+        saved = host_snapshot(m_state)
+        fresh, f_state = trainer(True)
+        t0 = time.perf_counter()
+        back = restore_sharded(ckpt, {"state": f_state, "epoch": 0})
+        load_s = time.perf_counter() - t0
+        restore_sharded(ckpt, {"state": p_state, "epoch": 0})
+        mismatch = [k for snap in (host_snapshot(f_state), host_snapshot(p_state))
+                    for k, v in _flat(snap).items() if not _same(v, _flat(saved)[k])]
+        nbytes = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        log(f"[dist] sharded checkpoint: {nbytes / 1e6:.0f} MB written in {save_s:.2f} s, "
+            f"restored into a fresh meshed state in {load_s:.2f} s and into the unmeshed "
+            f"state; epoch {back['epoch']}; tensors equal: "
+            f"{'all' if not mismatch else mismatch[:5]}")
+        if mismatch or back["epoch"] != 1:
+            raise SystemExit("dist: the sharded checkpoint did not restore equal")
+        log(f"[dist] card {smi}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        dist.destroy_process_group()
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _same(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def cli_child(argv: list[str]) -> int:
+    """``chip_smoke.py --cli-child <args>``, run by ``torchrun``: the port's
+    CLI (``multimodal_av_model_tpu_torch.main.main``) with the kernels'
+    launches counted around it, then one ``[cli-child]`` JSON line with the
+    launches, the train steps and the peak device memory."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from multimodal_av_model_tpu_torch import main as cli
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
+
+    n = {"train_step": 0}
+    step = MultiSpeakerTrainer.train_step
+
+    def counted(self, *args, **kwargs):
+        n["train_step"] += 1
+        return step(self, *args, **kwargs)
+
+    MultiSpeakerTrainer.train_step = counted
+    log_mel_spectrogram_cuda.launches = 0
+    lip_preprocess_cuda.launches = 0
+    cli.main(argv)
+    print("[cli-child] " + json.dumps({
+        "k1": log_mel_spectrogram_cuda.launches, "k2": lip_preprocess_cuda.launches,
+        "train_steps": n["train_step"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+    return 0
+
+
+def dist_cli_phase(torch, tok, smi: str) -> dict:
+    """[dist-cli]: ``torchrun --standalone --nproc-per-node=1`` of the port's
+    CLI at full width with ``mesh.fsdp=true train.checkpoint_layout=sharded``
+    on a corpus written as [fit]'s: one epoch, then a resume to epoch 2 (it
+    must print ``resuming from``), then one epoch with ``mesh.model_axis=1
+    mesh.fsdp=false``.  Each call's seconds, peak memory and launches (K1 1
+    and K2 2 per train step and eval batch)."""
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
+
+    root = tempfile.mkdtemp(prefix="mmav_dist_cli_")
+    try:
+        dirs = write_synthetic_corpus(os.path.join(root, "corpus"), tok, n_videos=8,
+                                      sentences_per_video=6, sentence_dur=(3.0, 4.2), seed=0)
+        vocab = os.path.join(REPO, Config().data.vocab_path)
+        common = ([f"data.{k}={v}" for k, v in dirs.items()]
+                  + [f"data.vocab_path={vocab}", "train.batch_size=8", "train.eval_batch_size=4",
+                     "data.num_pairs_per_epoch=32", "data.eval_pairs=8",
+                     "train.checkpoint_layout=sharded", "--device=cuda"])
+        launches = {"logmel": 0, "lip_preprocess": 0}
+        for tag, extra, want in (
+                ("mesh.fsdp=true, 1 epoch", ["mesh.fsdp=true", "train.max_epochs=1", "a"], None),
+                ("mesh.fsdp=true, resume to epoch 2", ["mesh.fsdp=true", "train.max_epochs=2",
+                                                       "a"], "resuming from"),
+                ("mesh.model_axis=1 mesh.fsdp=false, 1 epoch",
+                 ["mesh.model_axis=1", "mesh.fsdp=false", "train.max_epochs=1", "b"], None)):
+            args = common + extra[:-1] + [f"train.checkpoint_dir={os.path.join(root, extra[-1])}"]
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node=1", os.path.join(REPO, "chip_smoke.py"), "--cli-child", *args],
+                capture_output=True, text=True, timeout=600, cwd=REPO)
+            dt = time.perf_counter() - t0
+            out = proc.stdout
+            if proc.returncode != 0:
+                print(out[-4000:], proc.stderr[-4000:], sep="\n", flush=True)
+                raise SystemExit(f"dist-cli: {tag} exited {proc.returncode}")
+            child = json.loads(next(ln for ln in out.splitlines()
+                                    if ln.startswith("[cli-child] "))[len("[cli-child] "):])
+            epochs = [ln for ln in out.splitlines() if ln.startswith("[epoch ")]
+            mesh_line = next((ln for ln in out.splitlines() if ln.startswith("mesh: ")), "")
+            n_eval = 2 * len(epochs)                # 8 eval pairs at B = 4 per epoch
+            calls = child["train_steps"] + n_eval
+            log(f"[dist-cli] {tag}: {dt:.1f} s (torchrun, one process); {mesh_line[:90]}; peak "
+                f"device memory {child['peak_gib']:.2f} GiB; {child['train_steps']} train steps, "
+                f"{n_eval} eval batches; launches K1 {child['k1']}, K2 {child['k2']}; "
+                f"{epochs[-1][:100] if epochs else 'NO EPOCH'}")
+            if want and want not in out:
+                raise SystemExit(f"dist-cli: {tag} did not print {want!r}")
+            if not epochs or not mesh_line or child["k1"] != calls or child["k2"] != 2 * calls:
+                raise SystemExit(f"dist-cli: {tag}: epochs {len(epochs)}, launches {child}")
+            launches["logmel"] += child["k1"]
+            launches["lip_preprocess"] += child["k2"]
+        log(f"[dist-cli] card {smi}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("family-ref", "family-audio", "family-visual", "families", "legacy-ref", "legacy",
-          "reference-import", "lip-extract")
-UPSTREAM = PHASES[4:]
+          "reference-import", "lip-extract", "hostops", "runtime", "dist", "dist-cli")
+UPSTREAM = PHASES[4:8]
 
 
 def upstream_phases(torch, rng, tok, smi: str, only=UPSTREAM) -> dict:
@@ -2858,6 +3276,8 @@ def train_profile(torch, step) -> None:
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--cli-child"]:
+        return cli_child(sys.argv[2:])
     only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:] if a.startswith("--only=")]
     only = only[0] if only else None
     if only and not set(only) <= set(PHASES):
@@ -2891,18 +3311,23 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     tok = CharTokenizer(os.path.join(REPO, Config().data.vocab_path))
-    if only:                                # a rehearsal of this slice's phases alone
+    if only:                                # a rehearsal of some phases alone
         for name in only:
             if name in UPSTREAM:
                 continue
             {"family-ref": lambda: family_ref_phase(torch, tok),
              "family-audio": lambda: family_audio_phase(torch, tok, smi),
              "family-visual": lambda: family_visual_phase(torch, tok, smi),
-             "families": lambda: families_phase(torch, tok, smi)}[name]()
+             "families": lambda: families_phase(torch, tok, smi),
+             "hostops": lambda: hostops_phase(torch),
+             "runtime": lambda: runtime_phase(torch, serving_phase(torch, rng, tok)[2]),
+             "dist": lambda: dist_phase(torch, rng, tok, smi),
+             "dist-cli": lambda: dist_cli_phase(torch, tok, smi)}[name]()
         if set(only) & set(UPSTREAM):
             upstream_phases(torch, rng, tok, smi, only)
         log(f"[partial] {','.join(only)} done; no kernels JSON and no result line")
         return 0
+    hostops_phase(torch)
     (k1, k1_calls), (k2, k2_calls) = k1_phase(torch, rng), k2_phase(torch, rng)
     reference_phase(torch, rng)
     serving_launches, profile_request, served = serving_phase(torch, rng, tok)
@@ -2917,7 +3342,6 @@ def main() -> int:
     train_launches, train_step = train_phase(torch, rng, tok)
     fit_launches = fit_phase(torch, tok, smi)
     export_launches = export_phase(torch, served)
-    del served
     tf_launches = temporal_tf_phase(torch, rng, tok)
     structured_launches = structured_phase(torch, tok, smi)
     family_ref_phase(torch, tok)
@@ -2925,6 +3349,8 @@ def main() -> int:
     family_visual_launches = family_visual_phase(torch, tok, smi)
     families_launches = families_phase(torch, tok, smi)
     upstream_launches = upstream_phases(torch, rng, tok, smi)
+    dist_launches = dist_phase(torch, rng, tok, smi)
+    dist_cli_launches = dist_cli_phase(torch, tok, smi)
     kernels = [k1, k2]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
         by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
@@ -2941,7 +3367,8 @@ def main() -> int:
                    "families_cli": families_launches["families_cli"][k["name"]],
                    "legacy": upstream_launches["legacy"][k["name"]],
                    "reference_import": upstream_launches["reference_import"][k["name"]],
-                   "lip_extract": upstream_launches["lip_extract"][k["name"]]}
+                   "lip_extract": upstream_launches["lip_extract"][k["name"]],
+                   "dist": dist_launches[k["name"]], "dist_cli": dist_cli_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         dev_ms, caught = profiled_ms(*calls)
@@ -2950,6 +3377,8 @@ def main() -> int:
             f"{dev_ms / k['ms']:.3f} of the graph-replay {k['ms']:.4f} ms")
     profile_request()
     train_profile(torch, train_step)
+    runtime_phase(torch, served)
+    del served
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

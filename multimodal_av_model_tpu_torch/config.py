@@ -12,10 +12,8 @@ default.  Dropped on purpose:
   the JAX default does);
 * ``train.keep_checkpoints`` (``config.py:284``): nothing reads it, in
   either package, so an override fails as an unknown field;
-* the fields of parts not ported yet: the mesh and ``compile_cache_dir``.
-  The CLI refuses each of them with the ``ROADMAP.md`` item that brings it
-  (``main.py``); elsewhere an override of one fails as an unknown field
-  instead of changing nothing.
+* nothing else: the mesh (``MeshConfig``) and ``compile_cache_dir`` are the
+  JAX fields, read by the port's CLI (``main.py``).
 """
 
 from __future__ import annotations
@@ -193,11 +191,21 @@ class TrainConfig:
     check_finite: bool = True         # raise on non-finite metrics
     async_dispatch: bool = True       # fold metrics on the device, sync at log points
     checkpoint_dir: str = "checkpoints"
-    checkpoint_layout: str = "file"   # "sharded" is not ported (ROADMAP Queue 1 item 7)
+    checkpoint_layout: str = "file"   # or "sharded": DCP directories (train/sharded_checkpoints.py)
     async_checkpoint: bool = False    # snapshot to host, then write on a background thread
     handle_signals: bool = True       # SIGTERM/SIGINT in fit -> save last.ckpt and return
     tensorboard_dir: str = ""         # per-epoch scalars (tensorboardX, no-op if absent)
     log_every: int = 100
+
+
+@dataclass
+class MeshConfig:
+    """The ``(data, model)`` mesh of a ``torchrun`` training run
+    (``config.py:287-300``)."""
+
+    data_axis: int = -1               # -1: every rank not on ``model``; else checked
+    model_axis: int = 1               # tensor-parallel ranks (parallel/tp.py)
+    fsdp: bool = False                # shard parameters and Adam over data (parallel/fsdp.py)
 
 
 @dataclass
@@ -206,6 +214,9 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    compile_cache_dir: str = ""       # non-empty: build K1, K2 and the host ops there
+                                      # and reuse them (runtime/compile_cache.py)
 
 
 def _set_dotted(obj: Any, path: str, raw: str) -> None:

@@ -3,9 +3,9 @@
 Mirrors ``multimodal_av_model_tpu/data/pipeline.py:23-261``:
 
 * ``preprocess_lip_clip_host``: ``[T, H, W, C]`` crops -> ``[T, 1, 96, 96]``
-  f32 (channel mean, cv2 INTER_LINEAR resize, /255) in numpy.  The JAX
-  package may take its native host resize (``runtime/native.py``) instead;
-  the port has no native host ops yet (ROADMAP Queue 1 item 8);
+  f32 (channel mean, cv2 INTER_LINEAR resize, /255), the resize by the
+  native host ops (``runtime/native.py``), as in JAX, or in numpy where they
+  did not build;
 * ``FilePairSource``: ``load_pair`` (host preprocessing: mixing and lips,
   the ``collate_pairs`` layout) and ``load_pair_raw`` (per-speaker waveforms
   and raw crops for the on-device path, ``collate_pairs_raw``), with source
@@ -47,10 +47,12 @@ def _resize_bilinear_np(images: np.ndarray, out_h: int, out_w: int) -> np.ndarra
 
 def preprocess_lip_clip_host(lip: np.ndarray, out_size: int = 96) -> np.ndarray:
     """``[T, H, W, C]`` (or grey ``[T, H, W]``) 0..255 -> ``[T, 1, out, out]`` f32."""
+    from ..runtime import native
+
     lip = np.asarray(lip, np.float32)
     if lip.ndim == 4:
         lip = lip.mean(axis=-1)
-    resized = _resize_bilinear_np(lip, out_size, out_size)
+    resized = native.resize_bilinear(lip, out_size, out_size)
     return (resized / 255.0).astype(np.float32)[:, None, :, :]
 
 

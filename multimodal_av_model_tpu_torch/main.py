@@ -3,6 +3,8 @@
     python -m multimodal_av_model_tpu_torch.main [--synthetic] [--family=av|audio|visual|ssl]
         [--eval | --infer [--export=DIR]] [--stream=FILES] [--device=cuda|cpu]
         [key.path=value ...]
+    torchrun --nproc-per-node=N -m multimodal_av_model_tpu_torch.main [mesh.model_axis=M]
+        [mesh.fsdp=true] [train.checkpoint_layout=sharded] [key.path=value ...]
 
 Mirrors ``multimodal_av_model_tpu/main.py``: ``build_data``
 (``main.py:27-110``), ``run_infer`` and ``run_eval`` (``main.py:113-205``),
@@ -46,16 +48,27 @@ Mirrors ``multimodal_av_model_tpu/main.py``: ``build_data``
   writes one) and take ``decode.stream_chunk_seconds``,
   ``decode.stream_context_seconds`` and ``decode.quantize``;
   ``--stream=lips1.avi,lips2.avi,mix.wav`` streams the flagship
-  (``StreamingAVTranscriber``) on host-preprocessed lips.
+  (``StreamingAVTranscriber``) on host-preprocessed lips;
+* under ``torchrun`` (``main.py:657-691``) the flagship trains over a
+  ``(data, model)`` mesh of all the ranks (``mesh.model_axis`` of them per
+  tensor-parallel group, inside a node), with ``mesh.fsdp`` sharding the
+  parameters and Adam over ``data``; each process loads its share of
+  ``train.batch_size`` and ``train.eval_batch_size``.  As in JAX, every
+  process draws the same seeded pairs, so each pair appears once per data
+  rank in the global batch (ROADMAP Queue 3).  ``train.checkpoint_layout=
+  sharded`` writes DCP directories that each rank writes its shards into;
+* ``compile_cache_dir=<dir>`` builds K1, K2 and the host ops under ``<dir>``
+  and reuses them there (``runtime/compile_cache.py``).
 
 Differences from the JAX CLI: ``--device`` (default ``cuda``; with no card
 and no ``--device=cpu`` it fails), checkpoints are the port's ``torch.save``
 files (not JAX msgpack), the train sampler draws no example batch before
 training (torch needs no shapes to build a model), ``--export`` with another
 family than ``av`` is refused (JAX ignores it), and ``decode.quantize`` is
-read by the flagship's ``--infer`` and the streams only.  What is not ported
-fails with the ``ROADMAP.md`` item that brings it (``REFUSED``; sharded
-checkpoints in ``CheckpointManager``).
+read by the flagship's ``--infer`` and the streams only, a ``torchrun`` launch
+builds a mesh whatever its world size (a ``(1, 1)`` one on one rank; JAX
+builds none for one device), and only rank 0 writes files of the file layout
+and the CSV logs.
 """
 
 from __future__ import annotations
@@ -64,17 +77,7 @@ import json
 import os
 import sys
 
-# Flags and overrides of the JAX CLI that the port does not take yet, each
-# with the ROADMAP.md item that brings it.
-REFUSED = {
-    "mesh.": "Queue 1 item 7 (parallel layouts)",
-    "compile_cache_dir": "Queue 1 item 8 (runtime and CLI)",
-}
 FAMILIES = ("av", "audio", "visual", "ssl")
-
-
-def _refuse(what: str, item: str):
-    raise SystemExit(f"{what} is not ported to the PyTorch package yet: ROADMAP.md {item}")
 
 
 def build_data(cfg, tokenizer, synthetic: bool, device="cuda", device_put: bool = True):
@@ -458,15 +461,9 @@ def main(argv: list[str] | None = None) -> None:
             export_dir = value
         elif name == "--family":
             family = value
-        elif name in REFUSED:
-            _refuse(name, REFUSED[name])
         elif a.startswith("--"):
             raise SystemExit(f"unknown flag {a}")
         else:
-            refused = next((k for k in REFUSED if not k.startswith("--") and
-                            (name == k or k.endswith(("_", ".")) and name.startswith(k))), None)
-            if refused:
-                _refuse(name, REFUSED[refused])
             overrides.append(a)
     if family not in FAMILIES:
         raise SystemExit(f"--family must be av|audio|visual|ssl, got {family}")
@@ -481,17 +478,17 @@ def main(argv: list[str] | None = None) -> None:
 
     import torch
 
-    from .config import from_flat_overrides, torch_dtype
-    from .models import MultiSpeakerAVModel
+    from .config import from_flat_overrides
     from .text import CharTokenizer
-    from .train import MultiSpeakerTrainer
-    from .train.checkpoints import CheckpointManager, graft_subtree, restore_checkpoint
-    from .train.ssl_pretrain import flagship_audio_params
 
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the port runs on the card; pass --device=cpu "
                          "to run on the CPU")
     cfg = from_flat_overrides(overrides)
+    if cfg.compile_cache_dir:
+        from .runtime.compile_cache import enable_compile_cache
+
+        enable_compile_cache(cfg.compile_cache_dir)
 
     vocab = cfg.data.vocab_path
     if not os.path.exists(vocab):
@@ -526,26 +523,72 @@ def main(argv: list[str] | None = None) -> None:
     if family != "av":
         run_single_modality(cfg, tokenizer, family, synthetic, device)
         return
+    from .parallel import initialize_distributed
+
+    launched = initialize_distributed(device)
+    try:
+        run_train(cfg, tokenizer, synthetic, device, launched)
+    finally:
+        if launched:
+            torch.distributed.destroy_process_group()
+
+
+def _graft(state, source: dict, prefix: str) -> None:
+    """Copy ``source``'s tensors under ``prefix`` into the state's model in
+    place (whole or split over a mesh)."""
+    from .parallel import copy_into
+    from .train.checkpoints import graft_subtree
+
+    own = state.model.state_dict()
+    for k, v in graft_subtree(own, source, [prefix]).items():
+        if v is not own[k]:
+            copy_into(own[k], v)
+
+
+def run_train(cfg, tokenizer, synthetic: bool, device="cuda", launched: bool = False) -> None:
+    """Train the flagship (``main.py:652-752``); ``launched``: a process
+    group is up (``torchrun``), so over a mesh of its ranks."""
+    import torch
+
+    from .config import torch_dtype
+    from .models import MultiSpeakerAVModel
+    from .train import MultiSpeakerTrainer
+    from .train.checkpoints import CheckpointManager, restore_checkpoint
+    from .train.ssl_pretrain import flagship_audio_params
+
+    mesh = None
+    if launched:
+        from .parallel import make_hybrid_mesh, process_local_batch_size
+
+        world = torch.distributed.get_world_size()
+        mp = cfg.mesh.model_axis
+        if cfg.mesh.data_axis not in (-1, world // mp) or world % mp:
+            raise SystemExit(f"mesh.data_axis={cfg.mesh.data_axis} x mesh.model_axis={mp} "
+                             f"does not cover the {world} ranks")
+        mesh = make_hybrid_mesh(mp, device_type=device)
+        print(f"mesh: {mesh}")
+        cfg.train.batch_size = process_local_batch_size(cfg.train.batch_size, mp)
+        cfg.train.eval_batch_size = process_local_batch_size(cfg.train.eval_batch_size, mp)
+        print(f"process {torch.distributed.get_rank()}: local batch "
+              f"{cfg.train.batch_size} (train) / {cfg.train.eval_batch_size} (eval)")
 
     ckpts = CheckpointManager(cfg.train.checkpoint_dir, layout=cfg.train.checkpoint_layout)
     model = MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype))
     frozen = ("visual_encoder",) if cfg.train.freeze_visual_trunk else ()
-    trainer = MultiSpeakerTrainer(cfg, model, tokenizer, frozen_prefixes=frozen, device=device)
+    trainer = MultiSpeakerTrainer(cfg, model, tokenizer, frozen_prefixes=frozen, device=device,
+                                  mesh=mesh, fsdp=mesh is not None and cfg.mesh.fsdp)
     train_factory, val_factory = build_data(cfg, tokenizer, synthetic, device)
     state = trainer.init_state(cfg.data.seed)
 
     if cfg.train.visual_init_ckpt:
         src = restore_checkpoint(cfg.train.visual_init_ckpt)
         src_state = src.get("state", src)
-        state.model.load_state_dict(graft_subtree(
-            state.model.state_dict(), src_state.get("model", src_state), ["visual_encoder"]))
+        _graft(state, src_state.get("model", src_state), "visual_encoder")
         print(f"grafted visual encoder from {cfg.train.visual_init_ckpt}")
     if cfg.train.audio_init_ckpt:
         src = restore_checkpoint(cfg.train.audio_init_ckpt)
         src_state = src.get("state", src)
-        state.model.load_state_dict(graft_subtree(
-            state.model.state_dict(), flagship_audio_params(src_state.get("model", src_state)),
-            ["audio_encoder"]))
+        _graft(state, flagship_audio_params(src_state.get("model", src_state)), "audio_encoder")
         print(f"grafted audio encoder from {cfg.train.audio_init_ckpt}")
 
     fresh_dropout = state.generator.get_state()

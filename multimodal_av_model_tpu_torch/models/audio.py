@@ -44,7 +44,9 @@ def conv1d_same(x, weight, bias, stride: int = 1, groups: int = 1):
 
 
 class FeedForward(nn.Module):
-    """``audio.py:35-47``."""
+    """``audio.py:35-47``.  ``rows`` and ``hidden_cols`` place this rank's
+    block of the batch and of the hidden features in the mesh's whole
+    (``layers.dropout``; set by ``parallel``)."""
 
     def __init__(self, dim: int, ffn_dim: int, dropout_rate: float, dtype: torch.dtype):
         super().__init__()
@@ -52,15 +54,17 @@ class FeedForward(nn.Module):
         self.fc1 = Dense(dim, ffn_dim, dtype=dtype)
         self.fc2 = Dense(ffn_dim, dim, dtype=dtype)
         self.dropout_rate = dropout_rate
+        self.rows = self.hidden_cols = (0, 1)
 
     def forward(self, x, generator=None):
-        h = dropout(F.silu(self.fc1(self.norm(x))), self.dropout_rate, generator)
-        return dropout(self.fc2(h), self.dropout_rate, generator)
+        h = dropout(F.silu(self.fc1(self.norm(x))), self.dropout_rate, generator,
+                    rows=self.rows, cols=self.hidden_cols)
+        return dropout(self.fc2(h), self.dropout_rate, generator, rows=self.rows)
 
 
 class ConvModule(nn.Module):
     """``audio.py:50-68``: LN, pointwise GLU, padded frames zeroed, depthwise
-    conv (SAME), LN, swish, pointwise."""
+    conv (SAME), LN, swish, pointwise.  ``rows`` as ``FeedForward``'s."""
 
     def __init__(self, dim: int, kernel_size: int, dropout_rate: float, dtype: torch.dtype):
         super().__init__()
@@ -71,6 +75,7 @@ class ConvModule(nn.Module):
         self.depthwise_norm = LayerNorm(dim, dtype)
         self.pointwise_out = Dense(dim, dim, dtype=dtype)
         self.dtype, self.dropout_rate = dtype, dropout_rate
+        self.rows = (0, 1)
 
     def forward(self, x, valid, generator=None):
         dt = self.dtype
@@ -79,7 +84,7 @@ class ConvModule(nn.Module):
         h = conv1d_same(h, self.depthwise_weight.to(dt), self.depthwise_bias.to(dt),
                         groups=h.shape[-1])
         h = self.pointwise_out(F.silu(self.depthwise_norm(h)))
-        return dropout(h, self.dropout_rate, generator)
+        return dropout(h, self.dropout_rate, generator, rows=self.rows)
 
 
 class ConformerBlock(nn.Module):

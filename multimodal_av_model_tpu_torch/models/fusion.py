@@ -59,13 +59,18 @@ def interp_nearest_mask(mask_c, t_in, T_v: int):
 
 
 class CrossAttentionFusion(nn.Module):
-    """``fusion.py:78-141``: ``(fused [B, T_v, 2 fused_dim], input_lengths [B])``."""
+    """``fusion.py:78-141``: ``(fused [B, T_v, 2 fused_dim], input_lengths [B])``.
+
+    ``group``: a process group over which the batch is split (the mesh's
+    ``data`` axis, set by ``parallel.bind_data_axis``); ``t_in`` is then the
+    max over the whole batch, all-reduced, as under ``pjit``."""
 
     def __init__(self, config: FusionConfig, visual_dim: int, audio_dim: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         d = config.fused_dim
         self.config, self.dtype = config, dtype
+        self.group = None
         self.visual_proj = Dense(visual_dim, d, dtype=dtype)
         self.audio_proj = Dense(audio_dim, d, dtype=dtype)
         self.cross_attn_audio = MultiHeadAttention(d, config.num_heads, dtype)
@@ -91,6 +96,8 @@ class CrossAttentionFusion(nn.Module):
         B, T_v, _ = visual_feat.shape
         audio_c, mask_c, kept = compact_speech_frames(audio_feat.to(self.dtype), mask)
         t_in = kept.max()                                          # device scalar
+        if self.group is not None:
+            torch.distributed.all_reduce(t_in, torch.distributed.ReduceOp.MAX, self.group)
         a_i = interp_linear_to(audio_c, t_in, T_v)
         mask_i = interp_nearest_mask(mask_c, t_in, T_v)
 

@@ -25,14 +25,17 @@ def _param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape))
 
 
-class Dense(nn.Module):
-    """``flax.linen.Dense``: ``y = x W^T + b`` computed in ``dtype``."""
+class Dense(nn.Linear):
+    """``flax.linen.Dense``: ``y = x W^T + b`` computed in ``dtype``.  An
+    ``nn.Linear`` (whose initialiser, which draws from the global generator,
+    is not run), so the tensor-parallel styles of ``parallel/tp.py`` take it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
-        super().__init__()
+        nn.Module.__init__(self)
+        self.in_features, self.out_features = in_features, out_features
         self.weight = _param(out_features, in_features)
-        self.bias = _param(out_features) if bias else None
+        self.register_parameter("bias", _param(out_features) if bias else None)
         self.dtype = dtype
 
     def forward(self, x):
@@ -64,6 +67,12 @@ class BatchNorm(nn.Module):
     biased variance) and updates the buffers as flax does, ``0.9 old + 0.1
     batch`` with the *biased* batch variance, unless ``update_stats`` is off
     (the recompute of a checkpointed region, see ``remat``).
+
+    ``group``: a process group over which the batch is split (the mesh's
+    ``data`` axis, set by ``parallel.bind_data_axis``).  The statistics are
+    then those of the whole batch, as under ``pjit``: the sum, then the sum
+    of squared deviations, are all-reduced (with their gradients) and divided
+    by the global count.  Every rank holds the same number of rows.
     """
 
     momentum = 0.9
@@ -76,6 +85,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.dtype, self.eps = dtype, eps
         self.update_stats = True
+        self.group = None
+
+    def _global_stats(self, x):
+        """Mean and biased variance over dims 0, 2, ... of the batch split
+        over ``group`` -> ``(mean, var, count)``."""
+        from ..parallel.mesh import sum_over
+
+        dims = [0, *range(2, x.ndim)]
+        view = [1, -1] + [1] * (x.ndim - 2)
+        n = x.numel() // x.shape[1] * torch.distributed.get_world_size(self.group)
+        mean = sum_over(x.sum(dims), self.group) / n
+        d = x - mean.view(view)
+        var = sum_over((d * d).sum(dims), self.group) / n
+        return mean, var, n
 
     def forward(self, x, train: bool = False):
         # The f32 copy of x is an unnamed temporary: held by a local, it would
@@ -84,6 +107,18 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x.to(torch.promote_types(x.dtype, torch.float32)),
                              self.running_mean, self.running_var, self.weight, self.bias,
                              False, 0.0, self.eps)
+            return y.to(self.dtype)
+        if self.group is not None:
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            view = [1, -1] + [1] * (x.ndim - 2)
+            mean, var, n = self._global_stats(xf)
+            y = ((xf - mean.view(view)) * torch.rsqrt(var + self.eps).view(view)
+                 * self.weight.view(view) + self.bias.view(view))
+            if self.update_stats:
+                m = self.momentum
+                with torch.no_grad():
+                    self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+                    self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
             return y.to(self.dtype)
         # At momentum 1 the fused op writes the batch mean and the unbiased
         # batch variance into these buffers, computed once with the output.
@@ -184,19 +219,33 @@ def make_act(kind: str, channels: int) -> nn.Module:
     raise ValueError(f"unknown activation kind {kind!r}")
 
 
-def dropout(x, rate: float, generator: torch.Generator | None, shape=None):
+def dropout(x, rate: float, generator: torch.Generator | None, shape=None,
+            rows: tuple[int, int] = (0, 1), cols: tuple[int, int] = (0, 1)):
     """``flax.linen.Dropout``.  Eval (``generator`` None) or rate 0: ``x``.
     Train: keep each element with probability ``1 - rate`` and scale it by
-    ``1 / (1 - rate)``.  The keep mask has ``shape`` (default ``x.shape``; a
-    shape that broadcasts to it shares one draw across the broadcast axes)
-    and is drawn from ``generator``, which lives on ``x``'s device."""
+    ``1 / (1 - rate)``.  The keep mask has ``shape`` (a shape that broadcasts
+    to ``x`` shares one draw across the broadcast axes) and is drawn from
+    ``generator``, which lives on ``x``'s device.
+
+    Without ``shape``, ``x`` may be one block of a larger tensor split over a
+    mesh: block ``rows[0]`` of ``rows[1]`` along dim 0 and ``cols[0]`` of
+    ``cols[1]`` along the last dim.  The mask of the whole tensor is drawn
+    and this block of it kept, so the ranks of a mesh drop what one device
+    dropping the whole tensor would."""
     if generator is None or rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    shape = x.shape if shape is None else shape
+    if shape is None:
+        shape = list(x.shape)
+        shape[0] *= rows[1]
+        shape[-1] *= cols[1]
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if rows[1] > 1:
+        mask = mask.narrow(0, rows[0] * x.shape[0], x.shape[0])
+    if cols[1] > 1:
+        mask = mask.narrow(-1, cols[0] * x.shape[-1], x.shape[-1])
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -207,11 +256,16 @@ class MultiHeadAttention(nn.Module):
     flax), softmax, then the output projection.  Written as explicit matmuls
     so padded rows stay finite.  In train mode the attention weights take
     dropout at ``dropout_rate`` with one ``[Tq, Tk]`` mask shared by every
-    batch row and head (flax's default ``broadcast_dropout=True``)."""
+    batch row and head (flax's default ``broadcast_dropout=True``).
+
+    ``num_heads`` is the heads this module computes: under tensor parallelism
+    (``parallel/tp.py``) the projections hold ``num_heads / tp`` heads of
+    ``head_dim`` each, and the plan lowers it to that."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.query = Dense(dim, dim, dtype=dtype)
         self.key = Dense(dim, dim, dtype=dtype)
         self.value = Dense(dim, dim, dtype=dtype)
@@ -221,9 +275,8 @@ class MultiHeadAttention(nn.Module):
     def forward(self, q_in, kv_in, mask=None, generator=None):
         """``mask`` broadcasts to ``[B, heads, Tq, Tk]``; True = attend.
         ``generator``: train mode (dropout drawn from it); None: eval."""
-        B, Tq, E = q_in.shape
-        H = self.num_heads
-        hd = E // H
+        B, Tq = q_in.shape[:2]
+        H, hd = self.num_heads, self.head_dim
 
         def heads(x):
             return x.reshape(B, -1, H, hd).transpose(1, 2)         # [B, H, T, hd]
@@ -237,7 +290,7 @@ class MultiHeadAttention(nn.Module):
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         weights = dropout(torch.softmax(logits, dim=-1), self.dropout_rate, generator,
                           (1, 1) + tuple(logits.shape[-2:]))
-        out = (weights @ v).transpose(1, 2).reshape(B, Tq, E)
+        out = (weights @ v).transpose(1, 2).reshape(B, Tq, H * hd)
         return self.out(out)
 
 

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  The build
 happens at first use, into ``build/kernels/`` at the repository root (listed
-in ``.gitignore``); the library's file name carries a hash of its source, so
-an edited source is rebuilt.  Nothing here runs at import time: this module is
-imported on machines that have no CUDA toolkit, where only the plain versions
-of the kernels run.
+in ``.gitignore``), or under the directory ``set_build_root`` names
+(``runtime/compile_cache.py``); the library's file name carries a hash of its
+source, so an edited source is rebuilt and a built one is reused.  Nothing
+here runs at import time: this module is imported on machines that have no
+CUDA toolkit, where only the plain versions of the kernels run.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+_build_root = os.path.dirname(BUILD_DIR)
 
 # Kernel name -> source file under csrc/.
 SOURCES = {
@@ -46,10 +48,25 @@ def nvcc_path() -> str:
                        "cannot be built")
 
 
+def set_build_root(path: str) -> None:
+    """Build (and look for built) libraries under ``path`` from now on:
+    kernels in ``<path>/kernels``, the host ops in ``<path>/hostops``."""
+    global _build_root
+    _build_root = path
+
+
+def build_dir(kind: str = "kernels") -> str:
+    return os.path.join(_build_root, kind)
+
+
+def source_digest(path: str) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()[:16]
+
+
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    digest = source_digest(os.path.join(CSRC_DIR, SOURCES[name]))
+    return os.path.join(build_dir(), f"lib{name}-{digest}.so")
 
 
 def _nvcc_command(name: str, lib: str) -> list[str]:
@@ -62,7 +79,7 @@ def build(names=None) -> dict[str, str]:
     compiler log (ptxas register and shared-memory report); raises if any
     build fails."""
     names = list(SOURCES) if names is None else list(names)
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(), exist_ok=True)
     procs = {}
     logs = {}
     for name in names:

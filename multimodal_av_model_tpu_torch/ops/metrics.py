@@ -1,10 +1,10 @@
 """Word and character error-rate counts, in pure Python.
 
 Own copy of ``multimodal_av_model_tpu/ops/metrics.py:16-86``
-(``levenshtein_py``, the additive corpus counts and ``rate_from_counts``);
-the JAX package's native edit-distance kernel is not used.  A corpus rate is
-the total edit distance over the total reference length, so counts from
-several batches sum before the division.
+(``levenshtein_py``, ``levenshtein`` on the native host ops, the additive
+corpus counts and ``rate_from_counts``).  A corpus rate is the total edit
+distance over the total reference length, so counts from several batches
+sum before the division.
 """
 
 from __future__ import annotations
@@ -27,9 +27,23 @@ def levenshtein_py(a: Sequence, b: Sequence) -> int:
     return prev[-1]
 
 
+def levenshtein(a: Sequence, b: Sequence) -> int:
+    """Edit distance by the native kernel (``runtime/hostops.cpp``), the
+    tokens mapped to int codes first; ``levenshtein_py`` where it did not
+    build (``metrics.py:30-43``)."""
+    from ..runtime import native
+
+    if not native.have_native():
+        return levenshtein_py(a, b)
+    codes: dict = {}
+    enc = [codes.setdefault(t, len(codes)) for t in a]
+    enc_b = [codes.setdefault(t, len(codes)) for t in b]
+    return native.levenshtein(enc, enc_b)
+
+
 def corpus_counts(ref_seqs: list, hyp_seqs: list) -> tuple[int, int]:
     """(total edit distance, total reference length)."""
-    return (sum(levenshtein_py(r, h) for r, h in zip(ref_seqs, hyp_seqs)),
+    return (sum(levenshtein(r, h) for r, h in zip(ref_seqs, hyp_seqs)),
             sum(len(r) for r in ref_seqs))
 
 

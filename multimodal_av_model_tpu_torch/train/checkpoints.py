@@ -20,8 +20,13 @@ checkpoints; a JAX ``TrainState`` crosses through
 * ``average_checkpoints`` is the uniform "model soup" of the model's
   floating tensors;
 * ``CheckpointManager`` keeps ``last``, ``best_wer`` and ``best_loss`` and a
-  ``best.json`` sidecar.  ``layout="sharded"`` is not ported (ROADMAP
-  Queue 1 item 7) and raises.
+  ``best.json`` sidecar; ``layout="sharded"`` writes DCP directories
+  (``sharded_checkpoints.py``) under the same names.
+
+In a run over a mesh (several processes), the file layout is written by rank
+0 alone, of the whole state: ``host_snapshot`` gathers each split tensor
+whole, which every rank must call, and only rank 0 writes files (checkpoints,
+``best.json``).
 """
 
 from __future__ import annotations
@@ -45,12 +50,23 @@ def _to_saved(tree: Any) -> Any:
     return tree
 
 
+def writes_files() -> bool:
+    """Whether this process writes checkpoint files: rank 0 of a process
+    group, or a process outside one."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def host_snapshot(tree: Any) -> Any:
-    """The saved form of ``tree`` with every tensor copied to host memory:
+    """The saved form of ``tree`` with every tensor copied whole to host
+    memory (a tensor split over a mesh is gathered: every rank calls this):
     later in-place updates of the live tensors do not reach it."""
     tree = _to_saved(tree)
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+        from ..parallel import full_tensor
+
+        return full_tensor(tree.detach()).to("cpu", copy=True)
     if isinstance(tree, dict):
         return {k: host_snapshot(v) for k, v in tree.items()}
     return tree
@@ -71,7 +87,10 @@ def _write_atomic(path: str, data: bytes) -> None:
 
 
 def _write_files(snapshot: Any, paths: list[str]) -> None:
-    """Serialise a host snapshot once and write it to every path."""
+    """Serialise a host snapshot once and write it to every path (on the
+    process that writes files)."""
+    if not writes_files():
+        return
     buf = io.BytesIO()
     torch.save(snapshot, buf)
     for p in paths:
@@ -80,7 +99,7 @@ def _write_files(snapshot: Any, paths: list[str]) -> None:
 
 def save_checkpoint(path: str, tree: Any) -> None:
     """Atomic single-file checkpoint write (``path`` is a file)."""
-    _write_files(_to_saved(tree), [path])
+    _write_files(host_snapshot(tree), [path])
 
 
 class AsyncCheckpointer:
@@ -194,17 +213,20 @@ class CheckpointManager:
     and a ``best.json`` sidecar holding the bests and the early-stop count,
     so a resumed run keeps them (``checkpoints.py:204-320``).  With
     ``async_io`` the epoch's files are written by an ``AsyncCheckpointer``;
-    ``wait`` (``fit`` calls it at exit) drains it."""
+    ``wait`` (``fit`` calls it at exit) drains it.
+
+    ``layout="sharded"``: each checkpoint is a directory that every rank
+    writes its shards into (``sharded_checkpoints.save_sharded``), under the
+    same names and rolling policy.  Those writes are collective and always
+    synchronous: a barrier on a writer thread against a peer that already
+    crashed would hang instead of failing."""
 
     def __init__(self, directory: str, async_io: bool = False, layout: str = "file"):
-        if layout == "sharded":
-            raise NotImplementedError(
-                "train.checkpoint_layout=sharded is not ported yet (ROADMAP.md Queue 1 "
-                "item 7, parallel layouts: torch.distributed.checkpoint)")
-        if layout != "file":
+        if layout not in ("file", "sharded"):
             raise ValueError(f"unknown checkpoint layout {layout!r}")
         self.dir = directory
-        self._async = AsyncCheckpointer() if async_io else None
+        self._layout = layout
+        self._async = AsyncCheckpointer() if async_io and layout == "file" else None
         os.makedirs(directory, exist_ok=True)
         self.last = os.path.join(directory, "last.ckpt")
         self.best_wer = os.path.join(directory, "best_wer.ckpt")
@@ -223,7 +245,20 @@ class CheckpointManager:
             except (ValueError, OSError):
                 pass  # unreadable sidecar: fresh bests
 
+    def _write(self, tree: Any, paths: list[str]) -> None:
+        if self._layout == "sharded":
+            from .sharded_checkpoints import save_sharded
+
+            for p in paths:
+                save_sharded(p, tree)
+        elif self._async is not None:
+            self._async.save(tree, paths)
+        else:
+            _write_files(host_snapshot(tree), paths)
+
     def _save_best(self) -> None:
+        if not writes_files():
+            return
         tmp = self._best_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump({"best_wer": self._best_wer, "best_loss": self._best_loss,
@@ -249,10 +284,7 @@ class CheckpointManager:
             self._best_loss = eval_loss
             paths.append(self.best_loss)
             saved["best_loss"] = True
-        if self._async is not None:
-            self._async.save(tree, paths)
-        else:
-            _write_files(host_snapshot(tree), paths)
+        self._write(tree, paths)
         if saved["best_wer"] or saved["best_loss"]:
             self._save_best()
         return saved
@@ -261,7 +293,12 @@ class CheckpointManager:
         """Synchronous ``last.ckpt`` write (the preemption path), after the
         queued writes, so ``last`` is the newest."""
         self.wait()
-        save_checkpoint(self.last, tree)
+        if self._layout == "sharded":
+            from .sharded_checkpoints import save_sharded
+
+            save_sharded(self.last, tree)
+        else:
+            save_checkpoint(self.last, tree)
 
     def wait(self) -> None:
         """Drain the queued writes (nothing to do when synchronous)."""
@@ -270,10 +307,18 @@ class CheckpointManager:
 
     def exists(self) -> bool:
         """Is there a committed ``last`` checkpoint to resume from?"""
+        if self._layout == "sharded":
+            from .sharded_checkpoints import sharded_checkpoint_exists
+
+            return sharded_checkpoint_exists(self.last)
         return checkpoint_exists(self.last)
 
     def try_resume(self, template: Any = None) -> Any | None:
         self.wait()
         if not self.exists():
             return None
+        if self._layout == "sharded":
+            from .sharded_checkpoints import restore_sharded
+
+            return restore_sharded(self.last, template)
         return restore_checkpoint(self.last, template)

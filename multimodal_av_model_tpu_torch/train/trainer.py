@@ -22,6 +22,26 @@ logs, early stop, preemption):
 The trainer runs on the card unless built with ``device="cpu"``.  Its state
 lives in a ``TrainState``; ``train_step(state, batch)`` updates it in place
 and returns it with the step's metrics as device tensors.
+
+With a ``mesh`` (``parallel.make_mesh``; ``trainer.py:172-210, 348-365,
+458-486``) each rank is given its process-local rows and the step computes
+what one device computes on the whole batch, as JAX's sharded step does:
+
+* ``init_state`` seeds the whole model, then splits it (``parallel.parallelize``:
+  the tensor plan over ``model``, FSDP over ``data`` with ``fsdp``);
+* BatchNorm statistics and dropout masks are the whole batch's
+  (``parallel.bind_data_axis``);
+* the contrastive term spans every row, so the projected features and masks
+  are all-gathered over ``data`` (with their gradient) before it;
+* the CTC normaliser is the global valid count, all-reduced.  Gradients are
+  averaged over ``data`` (by FSDP, or by one all-reduce without it), so each
+  rank's objective is its rows' share of the loss times the ``data`` size;
+  the metrics are the global values;
+* clipping norms and ``grad_norm`` are taken over whole gradients; the
+  parameters the tensor plan leaves whole share one gradient across each
+  ``model`` group, so their copies cannot drift apart;
+* ``evaluate`` decodes each rank's rows and sums the error counts over
+  ``data``.
 """
 
 from __future__ import annotations
@@ -29,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import os
 import time
 from typing import Any, Callable, Iterable
 
@@ -42,8 +63,9 @@ from ..models.layers import init_weights
 from ..ops.contrastive import contrastive_loss_with_mask
 from ..ops.ctc import ctc_greedy_decode, ctc_loss
 from ..ops.metrics import cer_counts, rate_from_counts, wer_counts
+from ..parallel.mesh import local_batch_rows
 from ..text.korean import jamo_counts
-from .checkpoints import CheckpointManager
+from .checkpoints import CheckpointManager, writes_files
 from .logging_utils import CsvLogger, StepTimer, TensorBoardLogger
 from .preempt import GracefulShutdown
 from .profiling import NonFiniteLossError, check_finite
@@ -52,9 +74,40 @@ GROUPS = ("base", "audio")
 METRIC_KEYS = ("loss", "ctc1", "ctc2", "contrast1", "contrast2", "grad_norm")
 
 
-def _host(x) -> np.ndarray:
-    """A batch entry (numpy array or tensor on any device) as numpy."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The rank-local block of a (possibly split) tensor, sharing storage."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _on_model_axis(t: torch.Tensor) -> bool:
+    """Whether ``t`` is split over the mesh's ``model`` axis (by the tensor
+    plan), so each rank of a ``model`` group holds its own block."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel import MODEL_AXIS
+
+    return isinstance(t, DTensor) and MODEL_AXIS in (t.device_mesh.mesh_dim_names or ())
+
+
+def _layout(t: torch.Tensor):
+    """``(mesh, placements)`` of a tensor split over a mesh, else None."""
+    from torch.distributed.tensor import DTensor
+
+    return (t.device_mesh, t.placements) if isinstance(t, DTensor) else None
+
+
+def total_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm of all ``tensors`` together, whole: tensors split over a
+    mesh are normed per layout and the partial norms reduced."""
+    from ..parallel import full_tensor
+
+    by_layout: dict = {}
+    for t in tensors:
+        by_layout.setdefault(_layout(t), []).append(t)
+    norms = [full_tensor(torch.nn.utils.get_total_norm(ts)) for ts in by_layout.values()]
+    return norms[0] if len(norms) == 1 else torch.linalg.vector_norm(torch.stack(norms))
 
 
 def place_batch(batch: dict, device) -> dict:
@@ -128,9 +181,12 @@ class GroupAdam:
         self.params = {g: [by_name[n] for n in self.names[g]] for g in GROUPS}
         base_lr = {"base": tcfg.learning_rate, "audio": tcfg.audio_learning_rate}
         self.schedules = {g: make_lr_schedule(tcfg, base_lr[g]) for g in GROUPS}
+        # torch's multi-tensor Adam cannot mix tensors of several layouts
+        # (plain and split over a mesh): then it steps parameter by parameter.
+        layouts = {_layout(p) for g in GROUPS for p in self.params[g]}
         self.adam = torch.optim.Adam(
             [{"params": self.params[g], "lr": 0.0, "name": g} for g in GROUPS if self.params[g]],
-            betas=(0.9, 0.999), eps=1e-8)
+            betas=(0.9, 0.999), eps=1e-8, foreach=None if len(layouts) <= 1 else False)
         self.updates = 0            # optax's count: updates applied so far
         self.mini_step = 0          # micro-batches in the accumulator
         self._acc: list[torch.Tensor] | None = None
@@ -150,9 +206,10 @@ class GroupAdam:
                 self._acc = [g.clone() for g in grads]
             else:                       # running mean, as MultiSteps' _acc_update
                 n = self.mini_step
-                torch._foreach_mul_(self._acc, float(n))
-                torch._foreach_add_(self._acc, grads)
-                torch._foreach_div_(self._acc, float(n + 1))
+                acc = [_local(a) for a in self._acc]
+                torch._foreach_mul_(acc, float(n))
+                torch._foreach_add_(acc, [_local(g) for g in grads])
+                torch._foreach_div_(acc, float(n + 1))
             self.mini_step += 1
             if self.mini_step < k:
                 return False
@@ -163,12 +220,23 @@ class GroupAdam:
         for group in self.adam.param_groups:
             if clip:                    # optax.clip_by_global_norm over this group
                 grads = [p.grad for p in group["params"]]
-                norm = torch.nn.utils.get_total_norm(grads)
-                torch._foreach_mul_(grads, torch.where(norm < clip, 1.0, clip / norm))
+                norm = total_norm(grads)
+                torch._foreach_mul_([_local(g) for g in grads],
+                                    torch.where(norm < clip, 1.0, clip / norm))
             group["lr"] = self.schedules[group["name"]](self.updates)
         self.adam.step()
         self.updates += 1
         return True
+
+    def init_moments(self) -> None:
+        """Give every parameter its (zero) Adam moments now, as optax's
+        ``init`` does, so the state dict names them all before the first
+        update (a sharded checkpoint restores into that template)."""
+        for _, p in self._named():
+            if not self.adam.state.get(p):
+                self.adam.state[p] = {"step": torch.tensor(float(self.updates)),
+                                      "exp_avg": torch.zeros_like(p),
+                                      "exp_avg_sq": torch.zeros_like(p)}
 
     def state_dict(self) -> dict:
         mu, nu = {}, {}
@@ -182,18 +250,26 @@ class GroupAdam:
                 "acc": acc}
 
     def load_state_dict(self, sd: dict) -> None:
+        """Take ``sd``'s values (whole tensors, or split as the parameters
+        are) into this optimizer's own tensors."""
+        from ..parallel import copy_into
+
+        def like(p, value):
+            out = torch.zeros_like(p)
+            copy_into(out, value)
+            return out
+
         self.updates, self.mini_step = int(sd["updates"]), int(sd["mini_step"])
         for n, p in self._named():
             if n in sd["mu"]:
                 self.adam.state[p] = {
                     "step": torch.tensor(float(self.updates)),
-                    "exp_avg": sd["mu"][n].to(p.device, p.dtype).clone(),
-                    "exp_avg_sq": sd["nu"][n].to(p.device, p.dtype).clone()}
+                    "exp_avg": like(p, sd["mu"][n]),
+                    "exp_avg_sq": like(p, sd["nu"][n])}
             else:
                 self.adam.state.pop(p, None)
         acc = sd.get("acc")
-        self._acc = None if acc is None else [
-            acc[n].to(p.device, p.dtype).clone() for n, p in self._named()]
+        self._acc = None if acc is None else [like(p, acc[n]) for n, p in self._named()]
 
 
 @dataclasses.dataclass
@@ -207,13 +283,35 @@ class TrainState:
     generator: torch.Generator
 
     def state_dict(self) -> dict:
+        """Parameters and moments as the model holds them (split over a
+        mesh, they are ``DTensor``s; ``checkpoints.host_snapshot`` gathers
+        them whole)."""
         return {"step": self.step, "model": self.model.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "generator": self.generator.get_state()}
 
+    def sharded_state_dict(self) -> dict:
+        """``state_dict`` with every Adam moment present: the template a
+        sharded checkpoint is written from and restored into."""
+        self.optimizer.init_moments()
+        return self.state_dict()
+
     def load_state_dict(self, sd: dict) -> None:
+        """Take ``sd`` (whole tensors, or split as the model is) in place."""
+        from torch.distributed.tensor import DTensor
+
+        from ..parallel import copy_into
+
         self.step = int(sd["step"])
-        self.model.load_state_dict(sd["model"], strict=True)
+        own = self.model.state_dict()
+        if any(isinstance(v, DTensor) for v in own.values()):
+            if set(own) != set(sd["model"]):
+                raise KeyError("state dict keys differ from the model's: "
+                               f"{sorted(set(own) ^ set(sd['model']))[:8]}")
+            for k, v in own.items():
+                copy_into(v, sd["model"][k])
+        else:
+            self.model.load_state_dict(sd["model"], strict=True)
         self.optimizer.load_state_dict(sd["optimizer"])
         if "generator" in sd:
             self.generator.set_state(sd["generator"])
@@ -238,18 +336,30 @@ def one_group_adam(model, tcfg) -> GroupAdam:
 
 @dataclasses.dataclass
 class MultiSpeakerTrainer:
-    """The train and eval steps and the epoch loops of the flagship model."""
+    """The train and eval steps and the epoch loops of the flagship model.
+    ``mesh``: a ``(data, model)`` ``DeviceMesh`` this rank belongs to (each
+    rank then gets its process-local rows); ``fsdp``: shard parameters and
+    Adam's moments over ``data``."""
 
     config: Config
     model: MultiSpeakerAVModel
     tokenizer: Any
     frozen_prefixes: tuple[str, ...] = ()
     device: str = "cuda"
+    mesh: Any = None
+    fsdp: bool = False
 
     def __post_init__(self):
+        from ..parallel import DATA_AXIS, MODEL_AXIS, axis_size
+
         self.device = torch.device(self.device)
         self.model = self.model.to(self.device)
         self.lm = load_fusion_lm(self.config.decode.lm_path, self.device)
+        self.data_size = axis_size(self.mesh, DATA_AXIS)
+        self._data_group = None if self.data_size == 1 else self.mesh[DATA_AXIS].get_group()
+        tp = axis_size(self.mesh, MODEL_AXIS)
+        self._model_group = None if tp == 1 else self.mesh[MODEL_AXIS].get_group()
+        self._split = False
 
     # -- state ---------------------------------------------------------------
 
@@ -260,12 +370,31 @@ class MultiSpeakerTrainer:
         return GroupAdam(named, labels, self.config.train)
 
     def init_state(self, seed: int = 0) -> TrainState:
-        """``seeded_state`` of the model with a fresh two-group optimizer."""
-        return seeded_state(self.model, self.make_optimizer, self.device, seed)
+        """``seeded_state`` of the model with a fresh two-group optimizer.
+        With a mesh the seeded model is then split over it, once: a second
+        call raises."""
+        if self._split:
+            raise ValueError("a meshed trainer's model is split by its first init_state")
+
+        def make_optimizer():
+            if self.mesh is not None:
+                from ..parallel import parallelize
+
+                parallelize(self.model, self.mesh, self.fsdp)
+                self._split = True
+            return self.make_optimizer()
+
+        return seeded_state(self.model, make_optimizer, self.device, seed)
 
     # -- loss ----------------------------------------------------------------
 
     def _place(self, batch: dict) -> dict:
+        """The batch on this rank's device: under a mesh the batch is this
+        process's rows (``parallel.shard_batch``)."""
+        if self.mesh is not None:
+            from ..parallel import shard_batch
+
+            return shard_batch(self.mesh, batch, self.device)
         return place_batch(batch, self.device)
 
     def _losses(self, model, batch: dict, generator, train: bool):
@@ -285,29 +414,46 @@ class MultiSpeakerTrainer:
             row_ok = (valid > 0)[:, None]
             mask_ds1 = torch.where(row_ok, mask_ds1, 3)
             mask_ds2 = torch.where(row_ok, mask_ds2, 3)
-        con1 = contrastive_loss_with_mask(out["contrast1"], mask_ds1, ccfg.temperature,
-                                          ccfg.weight_pos_align, ccfg.weight_neg_suppress)
-        con2 = contrastive_loss_with_mask(out["contrast2"], mask_ds2, ccfg.temperature,
-                                          ccfg.weight_pos_align, ccfg.weight_neg_suppress)
+        group = self._data_group
+
+        def contrast(feat, mask):
+            if group is not None:       # every row of the batch is a candidate
+                from ..parallel import gather_rows
+
+                feat, mask = gather_rows(feat, self.mesh), gather_rows(mask, self.mesh)
+            return contrastive_loss_with_mask(feat, mask, ccfg.temperature,
+                                              ccfg.weight_pos_align, ccfg.weight_neg_suppress)
+
+        con1 = contrast(out["contrast1"], mask_ds1)
+        con2 = contrast(out["contrast2"], mask_ds2)
 
         def weighted_ctc(lp, labels, il, ll):
+            """-> (this rank's objective term, the global value)."""
             per = ctc_loss(lp, labels, il, ll, blank, reduction="none")
             per = per / ll.clamp(min=1).float()
-            if valid is None:
-                return per.mean()
-            return (per * valid).sum() / valid.sum().clamp(min=1.0)
+            if group is None:
+                v = per.mean() if valid is None else \
+                    (per * valid).sum() / valid.sum().clamp(min=1.0)
+                return v, v
+            w = torch.ones_like(per) if valid is None else valid
+            num = (per * w).sum()
+            sums = torch.stack([num.detach(), w.sum()])
+            torch.distributed.all_reduce(sums, group=group)
+            den = sums[1].clamp(min=1.0)
+            return self.data_size * num / den, sums[0] / den
 
         if self.config.train.contrastive_only:
             ctc1 = ctc2 = torch.zeros((), device=con1.device)
-            total = (con1 + con2) / 2
+            total = loss = (con1 + con2) / 2
         else:
-            ctc1 = weighted_ctc(out["log_probs1"], batch["text1"], out["input_lengths1"],
-                                batch["text1_lengths"])
-            ctc2 = weighted_ctc(out["log_probs2"], batch["text2"], out["input_lengths2"],
-                                batch["text2_lengths"])
+            obj1, ctc1 = weighted_ctc(out["log_probs1"], batch["text1"], out["input_lengths1"],
+                                      batch["text1_lengths"])
+            obj2, ctc2 = weighted_ctc(out["log_probs2"], batch["text2"], out["input_lengths2"],
+                                      batch["text2_lengths"])
             lam = self.config.train.lambda_contrastive
-            total = (ctc1 + ctc2) / 2 + lam * (con1 + con2) / 2
-        metrics = {"loss": total, "ctc1": ctc1, "ctc2": ctc2,
+            total = (obj1 + obj2) / 2 + lam * (con1 + con2) / 2
+            loss = (ctc1 + ctc2) / 2 + lam * (con1 + con2) / 2
+        metrics = {"loss": loss, "ctc1": ctc1, "ctc2": ctc2,
                    "contrast1": con1, "contrast2": con2}
         return total, metrics, out
 
@@ -325,11 +471,34 @@ class MultiSpeakerTrainer:
         model.zero_grad(set_to_none=True)
         total, metrics, _ = self._losses(model, self._place(batch), state.generator, True)
         total.backward()
-        metrics["grad_norm"] = torch.nn.utils.get_total_norm(
+        if self._data_group is not None and not self.fsdp:
+            self._average_grads(model.parameters(), self._data_group)
+        if self._model_group is not None:
+            # The parameters the tensor plan leaves whole are computed on
+            # every rank of a ``model`` group alike; nondeterministic kernels
+            # (cuDNN's) would let the copies drift apart, so they share one
+            # gradient.
+            self._average_grads([p for p in model.parameters() if not _on_model_axis(p)],
+                                self._model_group)
+        metrics["grad_norm"] = total_norm(
             [p.grad for p in model.parameters() if p.grad is not None])
         state.optimizer.step()
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
+
+    @staticmethod
+    def _average_grads(params, group) -> None:
+        """Average the gradients of ``params`` over ``group`` as one flat
+        all-reduce (over ``data``: the reduction FSDP does when it shards)."""
+        from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
+
+        grads = [_local(p.grad) for p in params if p.grad is not None]
+        if not grads:
+            return
+        flat = _flatten_dense_tensors(grads)
+        torch.distributed.all_reduce(flat, group=group)
+        flat /= torch.distributed.get_world_size(group)
+        torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict):
@@ -431,21 +600,28 @@ class MultiSpeakerTrainer:
                                            out["input_lengths" + s], True, self.lm)
                 else:
                     ids, lens = out["greedy" + s], out[f"greedy{s}_len"]
-                decoded.append((ids.cpu().numpy(), lens.cpu().numpy()))
-            t1, l1 = _host(batch["text1"]), _host(batch["text1_lengths"])
-            t2, l2 = _host(batch["text2"]), _host(batch["text2_lengths"])
+                decoded.append((local_batch_rows(ids), local_batch_rows(lens)))
+            t1, l1 = local_batch_rows(batch["text1"]), local_batch_rows(batch["text1_lengths"])
+            t2, l2 = local_batch_rows(batch["text2"]), local_batch_rows(batch["text2_lengths"])
             (ids1, len1), (ids2, len2) = decoded
             for b in range(num_real):
                 hyps1.append(self.tokenizer.decode(ids1[b, : len1[b]].tolist()))
                 refs1.append(self.tokenizer.decode(t1[b, : l1[b]].tolist()))
                 hyps2.append(self.tokenizer.decode(ids2[b, : len2[b]].tolist()))
                 refs2.append(self.tokenizer.decode(t2[b, : l2[b]].tolist()))
-        w1, w2 = wer_counts(refs1, hyps1), wer_counts(refs2, hyps2)
-        c = cer_counts(refs1 + refs2, hyps1 + hyps2)
-        j = jamo_counts(refs1 + refs2, hyps1 + hyps2)
-        wer1, wer2 = rate_from_counts(*w1), rate_from_counts(*w2)
-        return (total / max(n, 1), (wer1 + wer2) / 2, rate_from_counts(*c),
-                {"wer1": wer1, "wer2": wer2, "jer": rate_from_counts(*j)})
+        counts = torch.tensor([
+            *wer_counts(refs1, hyps1), *wer_counts(refs2, hyps2),
+            *cer_counts(refs1 + refs2, hyps1 + hyps2),
+            *jamo_counts(refs1 + refs2, hyps1 + hyps2), total, n], dtype=torch.float64)
+        if self._data_group is not None:
+            # Each rank scored its rows: the additive counts sum over ``data``
+            # (the ranks of one ``model`` group scored the same rows).
+            counts = counts.to(self.device)
+            torch.distributed.all_reduce(counts, group=self._data_group)
+        c = counts.tolist()
+        wer1, wer2 = rate_from_counts(c[0], c[1]), rate_from_counts(c[2], c[3])
+        return (c[8] / max(c[9], 1), (wer1 + wer2) / 2, rate_from_counts(c[4], c[5]),
+                {"wer1": wer1, "wer2": wer2, "jer": rate_from_counts(c[6], c[7])})
 
     def fit(self, state: TrainState, train_factory: Callable[[], Iterable[dict]],
             val_factory: Callable[[], Iterable[dict]], log_fn: Callable[[str], None] = print,
@@ -464,12 +640,16 @@ class MultiSpeakerTrainer:
         resume = start_epoch > 1
         ckpts = CheckpointManager(tcfg.checkpoint_dir, async_io=tcfg.async_checkpoint,
                                   layout=tcfg.checkpoint_layout)
-        train_log = CsvLogger(f"{tcfg.checkpoint_dir}/train_log.csv", ["epoch", "loss"],
-                              resume=resume)
-        eval_log = CsvLogger(f"{tcfg.checkpoint_dir}/eval_log.csv",
+        writer = writes_files()         # over a mesh, rank 0 alone writes the logs
+
+        def log_path(name):
+            return f"{tcfg.checkpoint_dir}/{name}" if writer else os.devnull
+
+        train_log = CsvLogger(log_path("train_log.csv"), ["epoch", "loss"], resume=resume)
+        eval_log = CsvLogger(log_path("eval_log.csv"),
                              ["epoch", "eval_loss", "wer1", "wer2", "average_wer", "cer", "jer"],
                              resume=resume)
-        tb = TensorBoardLogger(tcfg.tensorboard_dir)
+        tb = TensorBoardLogger(tcfg.tensorboard_dir if writer else "")
         best_loss, no_improve = ckpts.early_stop_state() if resume else (float("inf"), 0)
         with GracefulShutdown(enable=tcfg.handle_signals) as stop:
             for epoch in range(start_epoch, tcfg.max_epochs + 1):

@@ -1,8 +1,8 @@
 """PyTorch port, the command line: ``multimodal_av_model_tpu_torch.main.main``
 with ``--device=cpu`` at tiny widths, on a corpus written in the AI-Hub
 layout and on ``--synthetic`` pairs: train, resume, ``--eval``, ``--infer``,
-the visual-encoder graft with a frozen trunk, every flag the port refuses
-and the families' refusals, and ``--infer --export`` against the artifact it
+the visual-encoder graft with a frozen trunk, the flags the port refused
+until item 7 and 8 (which now train) and the families' refusals, and ``--infer --export`` against the artifact it
 writes.  Numbers
 are compared exactly (parameters after a frozen epoch).
 ``--stream`` in its three modes and ``--infer decode.quantize=true`` run
@@ -184,11 +184,26 @@ def test_visual_init_ckpt_with_a_frozen_trunk(trained, tmp_path, capsys):
     ("mesh.fsdp=true", "item 7"), ("compile_cache_dir=/x", "item 8"),
     ("train.checkpoint_layout=sharded", "item 7"),
 ])
-def test_refused_flags_name_their_roadmap_item(arg, item, tmp_path):
-    # The CLI refuses flags itself; CheckpointManager refuses the layout.
-    with pytest.raises((SystemExit, NotImplementedError), match=f"ROADMAP.md Queue 1 {item}"):
-        pmain.main(TINY + [arg, f"train.checkpoint_dir={tmp_path}"])
-    assert not os.listdir(tmp_path)
+def test_refused_flags_name_their_roadmap_item(arg, item, tmp_path, capsys, monkeypatch):
+    """The flags the CLI refused until their ROADMAP.md item was ported now
+    train (here outside ``torchrun``: no mesh; ``tests/test_torch_sharded_
+    checkpoints.py`` runs the CLI under it)."""
+    from multimodal_av_model_tpu_torch.ops import cuda_build
+    from multimodal_av_model_tpu_torch.runtime import compile_cache
+
+    monkeypatch.setattr(cuda_build, "_build_root", cuda_build._build_root)
+    monkeypatch.setattr(compile_cache, "_enabled", None)
+    assert not hasattr(pmain, "REFUSED"), item
+    ckpt = tmp_path / "ckpt"
+    pmain.main(TINY + SMALL + ["--synthetic", "train.max_epochs=1", f"train.checkpoint_dir={ckpt}",
+                               arg.replace("=/x", f"={tmp_path / 'cache'}")])
+    assert "[epoch 1] train_loss=" in capsys.readouterr().out
+    if arg.startswith("train.checkpoint_layout"):
+        assert os.path.isfile(ckpt / "last.ckpt" / "COMMITTED")
+    else:
+        assert os.path.isfile(ckpt / "last.ckpt")
+    if arg.startswith("compile_cache_dir"):
+        assert cuda_build.build_dir() == str(tmp_path / "cache" / "kernels")
 
 
 @pytest.mark.parametrize("args,message", [

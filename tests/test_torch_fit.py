@@ -563,8 +563,12 @@ def test_async_manager_matches_sync_and_save_now_drains_the_queue(tmp_path):
     writer.save({"x": w}, [str(blocker / "c.ckpt")])
     with pytest.raises(RuntimeError, match="async checkpoint write failed"):
         writer.wait()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        CheckpointManager(str(tmp_path / "s"), layout="sharded")
+    sharded = CheckpointManager(str(tmp_path / "s"), layout="sharded")
+    sharded.save_now({"state": {"w": w * 10}, "epoch": 7})
+    back = sharded.try_resume({"state": {"w": torch.zeros_like(w)}, "epoch": 0})
+    assert back["epoch"] == 7 and torch.equal(back["state"]["w"], w * 10)
+    with pytest.raises(ValueError, match="unknown checkpoint layout"):
+        CheckpointManager(str(tmp_path / "t"), layout="bogus")
 
 
 def test_average_checkpoints_and_a_transcriber_of_their_average(tiny, tmp_path):

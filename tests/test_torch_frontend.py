@@ -235,8 +235,7 @@ def test_config_defaults_equal_jax_defaults():
     with pytest.raises(AttributeError):
         tcfg.from_flat_overrides(["model.frontend.use_pallas=true"])
     # The fields fit and the training CLI read are in the port, the
-    # families' too; those of parts not ported yet are not: an override of
-    # one fails instead of changing nothing.
+    # families', the mesh's and the compile cache's too.
     cfg = tcfg.from_flat_overrides(["train.freeze_visual_trunk=true", "train.batch_size=16",
                                     "train.checkpoint_dir=ckpt", "data.device_preprocess=false"])
     assert cfg.train.freeze_visual_trunk and cfg.train.batch_size == 16
@@ -244,9 +243,12 @@ def test_config_defaults_equal_jax_defaults():
     cfg = tcfg.from_flat_overrides(["train.audio_init_ckpt=x.ckpt",
                                     "model.audio.specaug_time_masks=2"])
     assert cfg.train.audio_init_ckpt == "x.ckpt" and cfg.model.audio.specaug_time_masks == 2
-    for item in ("mesh.fsdp=true", "compile_cache_dir=cache"):
-        with pytest.raises(AttributeError):
-            tcfg.from_flat_overrides([item])
+    cfg = tcfg.from_flat_overrides(["mesh.fsdp=true", "mesh.model_axis=2",
+                                    "compile_cache_dir=cache"])
+    assert cfg.mesh.fsdp and cfg.mesh.model_axis == 2 and cfg.mesh.data_axis == -1
+    assert cfg.compile_cache_dir == "cache"
+    with pytest.raises(AttributeError):
+        tcfg.from_flat_overrides(["mesh.pipe_axis=2"])
     # Streaming and int8 serving are ported: their fields parse.
     cfg = tcfg.from_flat_overrides(["decode.quantize=true", "decode.stream_chunk_seconds=1.0",
                                     "decode.stream_context_seconds=4.0",
