@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port's serving surface, serving export, training step,
 training run, the audio-only, visual-only, SSL and legacy families, the reference
-checkpoint import, offline lip extraction, the runtime tools and the meshed
-training path on one NVIDIA GPU (H100).
+checkpoint import, offline lip extraction, the runtime tools, the meshed
+training path, the long-form encoder and the Conformer pipeline on one NVIDIA
+GPU (H100).
 
     python3 chip_smoke.py      # needs one CUDA card; a few minutes on an H100
 
@@ -186,16 +187,30 @@ Phases, each printing a line; any failure exits non-zero:
     request with a NaN in the mixture, ``device_memory_stats``, and the
     kernels and host ops built by two fresh processes under one
     ``compile_cache_dir`` (the second finds them).
+34. ``[longform]`` (after phase 32): K1 against its plain version at a
+    120 s and a 960 s stream (``[1, 1920000]``, ``[1, 15360000]``); then on a
+    world-size-1 NCCL group the long-form encoder (``make_cp_audio_encoder``,
+    the flagship's 12 x 512 Conformer in f32, seeded weights) with
+    ``impl="ring"`` and ``impl="gather"`` against the full-attention
+    ``AudioEncoder`` on the same parameters and a pad-free 120 s stream
+    (6,001 encoder frames): ``last`` and ``middle`` at atol 2e-4, rtol 1e-4,
+    ms per call and peak memory of each, K1 once per CP call;
+35. ``[pp]``: on a world-size-1 NCCL group, the flagship's 12 Conformer
+    blocks (f32, seeded) as one pipeline stage, ``pipeline_blocks`` with 4
+    microbatches on B = 8 rows of 201 frames against the blocks applied in
+    turn: forward within 2e-5, every parameter's gradient at rtol 5e-4 and
+    atol 5e-5; the ms of a forward and backward of each, peak memory, no
+    kernel launched.
 
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
 the timed training steps of phase 9, the CLI calls of phase 10 and the main
-paths of phases 13, 15-17, 18-20, 22-25, 27-29, 31 and 32 (each path's own
-count is under ``launches_by_path``).  ``--only=`` with some of
+paths of phases 13, 15-17, 18-20, 22-25, 27-29, 31, 32, 34 and 35 (each
+path's own count is under ``launches_by_path``).  ``--only=`` with some of
 ``family-ref``, ``family-audio``, ``family-visual``, ``families``,
 ``legacy-ref``, ``legacy``, ``reference-import``, ``lip-extract``,
-``hostops``, ``runtime`` (which runs phase 5 first), ``dist`` and
-``dist-cli`` runs the card and build lines and those phases alone (a
-rehearsal: no kernels JSON, no result line).  The last three lines are the
+``hostops``, ``runtime`` (which runs phase 5 first), ``dist``, ``dist-cli``,
+``longform`` and ``pp`` runs the card and build lines and those phases alone
+(a rehearsal: no kernels JSON, no result line).  The last three lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
 ...}``.  Nothing of JAX is imported.
 """
@@ -2999,6 +3014,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _one_rank_nccl() -> None:
+    """A world-size-1 NCCL process group on a free local port."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1)
+
+
 def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
     """[dist]: the flagship's meshed training step at full width on a
     world-size-1 NCCL group and a (1, 1) mesh with FSDP: one step against
@@ -3026,8 +3049,7 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
         save_sharded,
     )
 
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
-                            world_size=1)
+    _one_rank_nccl()
     root = tempfile.mkdtemp(prefix="mmav_dist_")
     try:
         mesh = make_mesh(model_parallel=1, device_type="cuda")
@@ -3239,8 +3261,175 @@ def dist_cli_phase(torch, tok, smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
+    """[longform]: K1 against its plain version at a 120 s and a 960 s
+    stream; then, on a world-size-1 NCCL group and its (1, 1) mesh, the
+    long-form encoder (``make_cp_audio_encoder``, the flagship's 12 x 512
+    Conformer in f32, seeded weights) with ``impl="ring"`` and
+    ``impl="gather"`` against the full-attention ``AudioEncoder`` on the same
+    parameters and one pad-free 120 s stream: ``last`` and ``middle`` at
+    JAX's long-form bars (atol 2e-4, rtol 1e-4), each encoder's median ms
+    per call and peak memory, and K1's launches over the CP calls (the main
+    path): one per call."""
+    import torch.distributed as dist
+
+    from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
+    from multimodal_av_model_tpu_torch.parallel import make_cp_audio_encoder, make_mesh
+
+    cfg = Config().model
+    sr = cfg.frontend.sample_rate
+    for seconds in (120, 960):
+        x = torch.from_numpy(_waveform(rng, seconds * sr)[None]).cuda()
+        k1_at(torch, x, "longform")
+        del x
+    wave = torch.from_numpy(_waveform(rng, 120 * sr)[None]).cuda()
+    T_enc = AudioEncoder.output_length(cfg.audio, cfg.frontend, wave.shape[1])
+    _one_rank_nccl()
+    try:
+        mesh = make_mesh(model_parallel=1, device_type="cuda")
+        full = init_weights(AudioEncoder(cfg.audio, cfg.frontend),
+                            torch.Generator().manual_seed(0)).cuda().eval()
+        encoders = {"full attention": full}
+        for impl in ("ring", "gather"):
+            enc = make_cp_audio_encoder(cfg, mesh, "data", impl).cuda().eval()
+            enc.load_state_dict(full.state_dict())
+            encoders[impl] = enc
+        outs, k1, k2 = {}, 0, 0
+        for name, enc in encoders.items():
+            with torch.no_grad():
+                outs[name] = enc(wave)
+                times, _, n1, n2, peak = _timed_steps(torch, lambda: enc(wave)[0].sum(), 0,
+                                                      n_calls)
+            if name != "full attention":            # the main path
+                k1, k2 = k1 + n1, k2 + n2
+            ms, peak = float(np.median(times)) * 1e3, peak / 2**30
+            last, middle, _ = outs[name]
+            ref_last, ref_middle, _ = outs["full attention"]
+            errs = [(a - b).abs().max().item() for a, b in ((last, ref_last),
+                                                            (middle, ref_middle))]
+            ok = all(torch.allclose(a, b, rtol=1e-4, atol=2e-4) for a, b in
+                     ((last, ref_last), (middle, ref_middle)))
+            ok = ok and bool(torch.isfinite(last).all())
+            log(f"[longform] {name}: [1, {wave.shape[1]}] (120 s) -> last {tuple(last.shape)}, "
+                f"T_enc {T_enc}; {ms:.1f} ms per call (median of {n_calls}), peak device "
+                f"memory {peak:.2f} GiB; max|diff| to full attention: last {errs[0]:.3g}, "
+                f"middle {errs[1]:.3g} (atol 2e-4, rtol 1e-4) {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise SystemExit(f"longform: {name} disagrees with the full-attention encoder")
+        calls = 2 * n_calls
+        log(f"[longform] launches over the {calls} timed CP encoder calls: K1 {k1}, K2 {k2}; "
+            f"card {smi}")
+        if (k1, k2) != (calls, 0):
+            raise SystemExit(f"longform: launches K1 {k1}, K2 {k2} over {calls} calls")
+        return {"logmel": k1, "lip_preprocess": k2}
+    finally:
+        dist.destroy_process_group()
+
+
+def pp_phase(torch, rng, smi: str, n_steps: int = 5, microbatches: int = 4) -> dict:
+    """[pp]: on a world-size-1 NCCL group and its (1, 1) ``("data", "pipe")``
+    mesh, the flagship's 12 Conformer blocks (d 512, 8 heads, FFN 2048,
+    kernel 15, f32, seeded weights) as one stage, ``pipeline_blocks`` with
+    ``microbatches`` microbatches on B = 8 rows of ``bench.py``'s 120 frames
+    (64,080 samples: 201 encoder frames, random lengths) against the blocks
+    applied in turn: the forward within 2e-5 and every parameter's gradient
+    of ``sum(y * valid)`` at rtol 5e-4, atol 5e-5 (JAX's PP bars); then the
+    median ms of a forward and backward of each, peak memory, and the
+    launches over the pipelined steps (the main path: none)."""
+    import torch.distributed as dist
+    from torch import nn
+
+    from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
+    from multimodal_av_model_tpu_torch.models.audio import ConformerBlock
+    from multimodal_av_model_tpu_torch.parallel import (
+        PIPE_AXIS,
+        bubble_fraction,
+        make_named_mesh,
+        pipeline_blocks,
+        shard_stacked_params,
+        stack_block_params,
+    )
+
+    cfg = Config().model
+    a = cfg.audio
+    _one_rank_nccl()
+    try:
+        mesh = make_named_mesh((1, 1), ("data", PIPE_AXIS), "cuda")
+
+        def block():
+            return ConformerBlock(a.d_model, a.num_heads, a.ffn_dim, a.conv_kernel_size,
+                                  a.dropout, torch.float32)
+
+        seq = init_weights(nn.ModuleList(block() for _ in range(a.num_layers)),
+                           torch.Generator().manual_seed(0)).cuda().eval()
+        stacked = stack_block_params({f"blocks.{k}": v for k, v in seq.state_dict().items()},
+                                     a.num_layers)
+        stage = shard_stacked_params(stacked, mesh, block).cuda().eval()
+        B, S = 8, 120 * 534
+        T = AudioEncoder.output_length(a, cfg.frontend, S)
+        x = torch.from_numpy(rng.standard_normal((B, T, a.d_model)).astype(np.float32)).cuda()
+        lens = torch.from_numpy(rng.integers(T // 2, T + 1, size=B)).cuda()
+        valid = torch.arange(T, device="cuda")[None] < lens[:, None]
+        amask = valid[:, None, None, :] & valid[:, None, :, None]
+
+        def pipelined():
+            y = pipeline_blocks(stage, x, valid, amask, mesh, microbatches)
+            (y * valid[..., None]).sum().backward()
+            return y
+
+        def sequential():
+            h = x
+            for b in seq:
+                h = b(h, valid, amask)
+            (h * valid[..., None]).sum().backward()
+            return h
+
+        y_pp, y_seq = pipelined().detach(), sequential().detach()
+        fwd_err = (y_pp - y_seq).abs().max().item()
+        ok = torch.allclose(y_pp, y_seq, rtol=2e-5, atol=2e-5)
+        g_seq = stack_block_params({f"blocks.{n}": p.grad for n, p in seq.named_parameters()},
+                                   a.num_layers)
+        g_pp = stack_block_params({f"blocks.{n}": p.grad for n, p in stage.named_parameters()},
+                                  a.num_layers)
+        worst, worst_at = 0.0, ""
+        for n, g in g_seq.items():
+            excess = ((g_pp[n] - g).abs() / (5e-5 + 5e-4 * g.abs())).max().item()
+            if excess > worst:
+                worst, worst_at = excess, n
+        ok = ok and worst <= 1.0
+        log(f"[pp] {a.num_layers} blocks x {a.d_model} (f32) as 1 stage, B={B}, T={T}, "
+            f"M={microbatches}: pipelined vs sequential forward max|diff| {fwd_err:.3g} "
+            f"(2e-5); gradients of sum(y*valid), {len(g_seq)} stacked tensors, worst at "
+            f"{worst:.3g} of its bar (rtol 5e-4, atol 5e-5) at {worst_at} "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise SystemExit("pp: the pipelined tower disagrees with the sequential one")
+        del y_pp, y_seq, g_seq, g_pp
+        for tag, fn, module in (("sequential", sequential, seq),
+                                ("pipelined", pipelined, stage)):   # the main path last
+            def step(fn=fn, module=module):
+                module.zero_grad(set_to_none=True)
+                return fn().detach().sum()
+
+            times, _, k1, k2, peak = _timed_steps(torch, step, 1, n_steps)
+            log(f"[pp] {tag}: forward + backward {float(np.median(times)) * 1e3:.1f} ms "
+                f"(median of {n_steps}), peak device memory {peak / 2**30:.2f} GiB")
+        launches = {"logmel": k1, "lip_preprocess": k2}
+        log(f"[pp] bubble_fraction(1, {microbatches}) = {bubble_fraction(1, microbatches):g} "
+            f"(4 stages: {bubble_fraction(4, microbatches):.4f}); launches over the pipelined "
+            f"steps K1 {launches['logmel']}, K2 {launches['lip_preprocess']}; card {smi}")
+        if any(launches.values()):
+            raise SystemExit(f"pp: kernels launched on the tower: {launches}")
+        return launches
+    finally:
+        dist.destroy_process_group()
+
+
 PHASES = ("family-ref", "family-audio", "family-visual", "families", "legacy-ref", "legacy",
-          "reference-import", "lip-extract", "hostops", "runtime", "dist", "dist-cli")
+          "reference-import", "lip-extract", "hostops", "runtime", "dist", "dist-cli", "longform",
+          "pp")
 UPSTREAM = PHASES[4:8]
 
 
@@ -3322,7 +3511,9 @@ def main() -> int:
              "hostops": lambda: hostops_phase(torch),
              "runtime": lambda: runtime_phase(torch, serving_phase(torch, rng, tok)[2]),
              "dist": lambda: dist_phase(torch, rng, tok, smi),
-             "dist-cli": lambda: dist_cli_phase(torch, tok, smi)}[name]()
+             "dist-cli": lambda: dist_cli_phase(torch, tok, smi),
+             "longform": lambda: longform_phase(torch, rng, smi),
+             "pp": lambda: pp_phase(torch, rng, smi)}[name]()
         if set(only) & set(UPSTREAM):
             upstream_phases(torch, rng, tok, smi, only)
         log(f"[partial] {','.join(only)} done; no kernels JSON and no result line")
@@ -3351,6 +3542,8 @@ def main() -> int:
     upstream_launches = upstream_phases(torch, rng, tok, smi)
     dist_launches = dist_phase(torch, rng, tok, smi)
     dist_cli_launches = dist_cli_phase(torch, tok, smi)
+    longform_launches = longform_phase(torch, rng, smi)
+    pp_launches = pp_phase(torch, rng, smi)
     kernels = [k1, k2]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
         by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
@@ -3368,7 +3561,8 @@ def main() -> int:
                    "legacy": upstream_launches["legacy"][k["name"]],
                    "reference_import": upstream_launches["reference_import"][k["name"]],
                    "lip_extract": upstream_launches["lip_extract"][k["name"]],
-                   "dist": dist_launches[k["name"]], "dist_cli": dist_cli_launches[k["name"]]}
+                   "dist": dist_launches[k["name"]], "dist_cli": dist_cli_launches[k["name"]],
+                   "longform": longform_launches[k["name"]], "pp": pp_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         dev_ms, caught = profiled_ms(*calls)

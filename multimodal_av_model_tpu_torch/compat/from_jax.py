@@ -28,12 +28,14 @@ running statistics: a gradient tree or Adam moments go through the same
 (parameters, statistics, both Adam groups, accumulation, step) across, so a
 JAX run can resume in the port; ``single_modality_state_from_jax`` and
 ``ssl_state_from_jax`` do the same for the families' states, and
-``legacy_state_from_jax`` for the legacy trainer's.
+``legacy_state_from_jax`` for the legacy trainer's.  ``stacked_blocks_from_jax``
+carries the pipeline's stacked Conformer blocks.
 """
 
 from __future__ import annotations
 
 import re
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -171,22 +173,25 @@ def _audio(tree, sd, src, dst):
     for name in tree.children("params", src):
         if not re.fullmatch(r"block\d+", name):
             continue                          # subsample / out_proj; leftovers raise
-        s, d = _p(src, name), _d(dst, "blocks", int(name[5:]))
-        for ff, dff in (("FeedForwardModule_0", "ff1"), ("FeedForwardModule_1", "ff2")):
-            _layer_norm(tree, sd, _p(s, ff, "LayerNorm_0"), _d(d, dff, "norm"))
-            _dense(tree, sd, _p(s, ff, "Dense_0"), _d(d, dff, "fc1"))
-            _dense(tree, sd, _p(s, ff, "Dense_1"), _d(d, dff, "fc2"))
-        _layer_norm(tree, sd, _p(s, "LayerNorm_0"), _d(d, "attn_norm"))
-        _mha(tree, sd, _p(s, "self_attention"), _d(d, "attn"))
-        c, dc = _p(s, "ConvModule_0"), _d(d, "conv")
-        _layer_norm(tree, sd, _p(c, "LayerNorm_0"), _d(dc, "norm"))
-        _dense(tree, sd, _p(c, "Dense_0"), _d(dc, "pointwise_in"))
-        _conv1d(tree, sd, _p(c, "Conv_0"), _d(dc, "depthwise_weight"),
-                _d(dc, "depthwise_bias"))
-        _layer_norm(tree, sd, _p(c, "LayerNorm_1"), _d(dc, "depthwise_norm"))
-        _dense(tree, sd, _p(c, "Dense_1"), _d(dc, "pointwise_out"))
-        _layer_norm(tree, sd, _p(s, "LayerNorm_1"), _d(d, "final_norm"))
+        _conformer_block(tree, sd, _p(src, name), _d(dst, "blocks", int(name[5:])))
     _dense(tree, sd, _p(src, "out_proj"), _d(dst, "out_proj"))
+
+
+def _conformer_block(tree, sd, s, d):
+    for ff, dff in (("FeedForwardModule_0", "ff1"), ("FeedForwardModule_1", "ff2")):
+        _layer_norm(tree, sd, _p(s, ff, "LayerNorm_0"), _d(d, dff, "norm"))
+        _dense(tree, sd, _p(s, ff, "Dense_0"), _d(d, dff, "fc1"))
+        _dense(tree, sd, _p(s, ff, "Dense_1"), _d(d, dff, "fc2"))
+    _layer_norm(tree, sd, _p(s, "LayerNorm_0"), _d(d, "attn_norm"))
+    _mha(tree, sd, _p(s, "self_attention"), _d(d, "attn"))
+    c, dc = _p(s, "ConvModule_0"), _d(d, "conv")
+    _layer_norm(tree, sd, _p(c, "LayerNorm_0"), _d(dc, "norm"))
+    _dense(tree, sd, _p(c, "Dense_0"), _d(dc, "pointwise_in"))
+    _conv1d(tree, sd, _p(c, "Conv_0"), _d(dc, "depthwise_weight"),
+            _d(dc, "depthwise_bias"))
+    _layer_norm(tree, sd, _p(c, "LayerNorm_1"), _d(dc, "depthwise_norm"))
+    _dense(tree, sd, _p(c, "Dense_1"), _d(dc, "pointwise_out"))
+    _layer_norm(tree, sd, _p(s, "LayerNorm_1"), _d(d, "final_norm"))
 
 
 def _bilstm(tree, sd, src, dst):
@@ -270,6 +275,27 @@ def _convert(variables, fill) -> dict[str, torch.Tensor]:
 def audio_encoder_from_jax(variables) -> dict[str, torch.Tensor]:
     """Variables of a flax ``AudioEncoder`` -> the port's ``AudioEncoder`` state_dict."""
     return _convert(variables, lambda tree, sd: _audio(tree, sd, "", ""))
+
+
+def stacked_blocks_from_jax(stacked_np: dict, num_layers: int) -> dict[str, torch.Tensor]:
+    """JAX's stacked Conformer blocks (``parallel/pp.py:stack_block_params``,
+    leaves ``[L, ...]``, as numpy) -> the port's stacked dict
+    (``parallel/pp.py:stack_block_params``): each layer's subtree through the
+    audio encoder's block mapping, then stacked again."""
+    from ..parallel.pp import stack_block_params
+
+    def fill(tree, sd):
+        for i in range(num_layers):
+            _conformer_block(tree, sd, f"block{i}", _d("blocks", i))
+
+    unstacked = {f"block{i}": _index_tree(stacked_np, i) for i in range(num_layers)}
+    return stack_block_params(_convert({"params": unstacked}, fill), num_layers)
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, Mapping):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
 
 
 def visual_encoder_from_jax(variables) -> dict[str, torch.Tensor]:

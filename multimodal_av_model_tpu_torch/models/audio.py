@@ -88,14 +88,19 @@ class ConvModule(nn.Module):
 
 
 class ConformerBlock(nn.Module):
-    """``audio.py:71-103``."""
+    """``audio.py:71-103``.  ``attention``: the self-attention's constructor,
+    ``(dim, num_heads, dtype, dropout_rate) -> module`` called as
+    ``module(q_in, kv_in, mask, generator)`` (``attention_module``,
+    ``audio.py:78-81``); None is ``MultiHeadAttention``.  A replacement keeps
+    its ``query``/``key``/``value``/``out`` parameters, so state dicts
+    interchange (``parallel/longform.py``)."""
 
     def __init__(self, dim: int, num_heads: int, ffn_dim: int, kernel_size: int,
-                 dropout_rate: float, dtype: torch.dtype):
+                 dropout_rate: float, dtype: torch.dtype, attention=None):
         super().__init__()
         self.ff1 = FeedForward(dim, ffn_dim, dropout_rate, dtype)
         self.attn_norm = LayerNorm(dim, dtype)
-        self.attn = MultiHeadAttention(dim, num_heads, dtype, dropout_rate)
+        self.attn = (attention or MultiHeadAttention)(dim, num_heads, dtype, dropout_rate)
         self.conv = ConvModule(dim, kernel_size, dropout_rate, dtype)
         self.ff2 = FeedForward(dim, ffn_dim, dropout_rate, dtype)
         self.final_norm = LayerNorm(dim, dtype)
@@ -116,10 +121,13 @@ class AudioEncoder(nn.Module):
 
     ``mask_embedding``: build the learned ``[d_model]`` vector that replaces
     masked positions (the SSL model's encoder; flax creates the parameter
-    only when ``mask_spans`` is given, so the flagship's encoder has none)."""
+    only when ``mask_spans`` is given, so the flagship's encoder has none).
+    ``attention``: every block's self-attention constructor
+    (``ConformerBlock``; ``audio.py:110``, ``:208-211``)."""
 
     def __init__(self, config: AudioEncoderConfig, frontend: AudioFrontendConfig,
-                 dtype: torch.dtype = torch.float32, mask_embedding: bool = False):
+                 dtype: torch.dtype = torch.float32, mask_embedding: bool = False,
+                 attention=None):
         super().__init__()
         cfg = config
         if cfg.middle_layers and max(cfg.middle_layers) >= cfg.num_layers:
@@ -130,7 +138,7 @@ class AudioEncoder(nn.Module):
         self.subsample_bias = _param(cfg.d_model)
         self.blocks = nn.ModuleList(
             ConformerBlock(cfg.d_model, cfg.num_heads, cfg.ffn_dim,
-                           cfg.conv_kernel_size, cfg.dropout, dtype)
+                           cfg.conv_kernel_size, cfg.dropout, dtype, attention)
             for _ in range(cfg.num_layers))
         self.out_proj = Dense(cfg.d_model, cfg.output_dim, dtype=dtype)
         self.mask_embedding = _param(cfg.d_model) if mask_embedding else None

@@ -21,6 +21,9 @@ dimensions ``("data", "model")``.  So:
 
 ``full_tensor`` and ``copy_into`` move values between a plain tensor and a
 tensor that tensor or data parallelism has split (a ``DTensor``).
+``make_named_mesh`` builds a mesh of other axes (``("data", "pipe")`` for
+``parallel/pp.py``), and ``ring_hop`` is ``lax.ppermute`` one step round an
+axis, with the reverse step as its gradient.
 """
 
 from __future__ import annotations
@@ -39,7 +42,6 @@ def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
     ``model`` group.  ``device_type`` defaults to ``cuda`` when there is a
     card, else ``cpu``."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
 
     world = dist.get_world_size()
     n = world if n_devices is None else n_devices
@@ -48,10 +50,26 @@ def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
                          f"{world} ranks")
     if n % model_parallel != 0:
         raise ValueError(f"{n} devices not divisible by model_parallel={model_parallel}")
+    return make_named_mesh((n // model_parallel, model_parallel), (DATA_AXIS, MODEL_AXIS),
+                           device_type)
+
+
+def make_named_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
+                    device_type: str | None = None):
+    """A mesh of ``shape`` over every rank of the process group, its
+    dimensions named ``axes`` (the last one over consecutive ranks), as JAX's
+    ``Mesh(devices.reshape(shape), axes)``: ``((2, 4), ("data", "pipe"))``
+    for the pipeline, ``((4,), ("data",))`` for a sequence axis.
+    ``device_type`` defaults to ``cuda`` when there is a card, else ``cpu``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if int(np.prod(shape)) != dist.get_world_size():
+        raise ValueError(f"a mesh spans the whole process group: shape {tuple(shape)}, "
+                         f"{dist.get_world_size()} ranks")
     if device_type is None:
         device_type = "cuda" if torch.cuda.is_available() else "cpu"
-    return init_device_mesh(device_type, (n // model_parallel, model_parallel),
-                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -220,3 +238,43 @@ def copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
         dst.to_local().copy_(src.to_local())
     else:
         dst.copy_(full_tensor(src))
+
+
+def _hop(x: torch.Tensor, group, size: int, rank: int, shift: int) -> torch.Tensor:
+    """Send ``x`` to group rank ``rank + shift`` and receive from ``rank -
+    shift`` (mod ``size``), both posted before either is waited on."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    to = dist.get_global_rank(group, (rank + shift) % size)
+    frm = dist.get_global_rank(group, (rank - shift) % size)
+    for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, to, group),
+                                        dist.P2POp(dist.irecv, out, frm, group)]):
+        work.wait()
+    return out
+
+
+class _RingHop(torch.autograd.Function):
+    """One step round a ring; the backward is the reverse step, as JAX
+    transposes ``ppermute`` (``parallel/pp.py:22-24``)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size: int, rank: int):
+        ctx.args = (group, size, rank)
+        return _hop(x, group, size, rank, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _hop(grad, *ctx.args, -1), None, None, None
+
+
+def ring_hop(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``lax.ppermute(x, axis, [(i, (i + 1) % n)])``: ``x`` goes to the next
+    rank along ``axis`` and the previous rank's comes back, differentiably.
+    Every rank of the group must call it.  In a group of one it is ``x``
+    itself and sends nothing (NCCL cannot send to its own rank)."""
+    size = axis_size(mesh, axis)
+    if size == 1:
+        return x
+    return _RingHop.apply(x, mesh[axis].get_group(), size, axis_rank(mesh, axis))

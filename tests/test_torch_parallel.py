@@ -379,6 +379,7 @@ def test_meshed_step_matches_jax(meshed, refs):
 def test_dryrun_multichip_four_processes():
     report = graft_entry.dryrun_multichip(4)
     assert report["loss_diff"] < 1e-4 and np.isfinite(report["loss"])
+    assert report["pp_diff"] < 2e-5 and np.isfinite(report["pp_loss"])     # the pipeline leg
 
 
 def test_every_process_loads_the_same_pairs_in_both_packages():

@@ -1,12 +1,17 @@
-"""The meshed training step over several ranks, held against the
-one-process step: DP, TP and FSDP with their collectives on NCCL.
+"""The parallel layouts over several ranks, each held against one process,
+with their collectives on NCCL: the meshed training step (DP, TP, FSDP), the
+long-form encoder's context parallelism and the Conformer pipeline.
 
     torchrun --standalone --nproc-per-node=4 tools/mesh_check.py          # four CUDA cards
+    torchrun --standalone --nproc-per-node=4 tools/mesh_check.py --checks=cp,cp-long,pp
     torchrun --standalone --nproc-per-node=4 tools/mesh_check.py --dtype=float32
     torchrun --standalone --nproc-per-node=4 tools/mesh_check.py --device=cpu --tiny
 
-For each layout over the ranks (DP4, DP2 x TP2, DP2 x TP2 x FSDP; with
-another world size, DP over all and, when it is even, DP x TP2 with and
+``--checks`` takes some of ``train``, ``cp``, ``cp-long`` and ``pp`` (default:
+all, in that order).
+
+``train``: for each layout over the ranks (DP4, DP2 x TP2, DP2 x TP2 x FSDP;
+with another world size, DP over all and, when it is even, DP x TP2 with and
 without FSDP), every rank trains the flagship (at the shipped widths,
 BatchNorm, dropout 0.1, in ``--dtype`` compute, bf16 by default; ``--tiny``:
 ``graft_entry``'s tiny flagship in f32)
@@ -26,8 +31,25 @@ about the learning rate.  With TP, the parameters the plan leaves whole
 must stay bitwise equal across each model group.  Then the DP2 x TP2 x
 FSDP state is
 written as a sharded checkpoint and restored into a DP layout: tensors
-equal.  It prints one line per check, the card and its power limit, and a
-last JSON line ``{"ok": ...}``; any miss exits non-zero.
+equal.
+
+``cp``: the long-form encoder (``parallel/longform.py``: the flagship's audio
+encoder in f32, seeded weights, ``--tiny`` the tiny one) with time split over
+every rank, ring and gather-KV, on one pad-free stream of about 240 s
+(``--tiny`` 4 s) cut so that the ranks divide its encoder frames, against
+rank 0's full-attention encoder in one process at JAX's long-form bars
+(atol 2e-4, rtol 1e-4); ``cp-long``: the ring alone at about 960 s
+(``--tiny`` 16 s), where one card could not hold the full encoder's logits
+(8 x 48,000^2 f32 = 74 GB a block), its outputs finite.  Both print the ms
+per call and every rank's peak device memory, and hold K1 against its plain
+version at the stream's shape on rank 0.  ``pp``: the flagship's 12
+Conformer blocks over the ranks as pipeline stages (``parallel/pp.py``, f32,
+B = 8 at 201 frames, 4 microbatches), the forward and every parameter's
+gradient against rank 0's blocks applied in turn at JAX's bars (2e-5; rtol
+5e-4, atol 5e-5), with the ms of each and ``bubble_fraction``.
+
+It prints one line per check, the card and its power limit, and a last JSON
+line ``{"ok": ...}``; any miss exits non-zero.
 """
 
 from __future__ import annotations
@@ -73,26 +95,16 @@ def _steps(trainer, state, batch, n_steps, sync):
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--tiny", action="store_true")
-    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
-                    help="compute dtype (default: bfloat16, with --tiny float32)")
-    ap.add_argument("--steps", type=int, default=3)
-    args = ap.parse_args()
-
+def train_checks(args, log, sync) -> tuple[bool, dict]:
+    """The meshed training step in each layout against the one-process
+    step, and the sharded checkpoint across layouts (``train``)."""
     import torch
     import torch.distributed as dist
 
     from multimodal_av_model_tpu_torch import graft_entry
     from multimodal_av_model_tpu_torch.config import torch_dtype
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
-    from multimodal_av_model_tpu_torch.parallel import (
-        initialize_distributed,
-        make_mesh,
-        process_rows,
-    )
+    from multimodal_av_model_tpu_torch.parallel import make_mesh, process_rows
     from multimodal_av_model_tpu_torch.text import CharTokenizer
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
     from multimodal_av_model_tpu_torch.train.checkpoints import host_snapshot
@@ -101,16 +113,6 @@ def main() -> int:
         save_sharded,
     )
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        print("mesh_check: no CUDA device (pass --device=cpu for gloo)", file=sys.stderr)
-        return 2
-    if not initialize_distributed(args.device):
-        print("mesh_check: run it under torchrun", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if args.device == "cpu":
-        torch.set_num_threads(1)
     rank, world = dist.get_rank(), dist.get_world_size()
     tok = CharTokenizer(graft_entry.VOCAB)
     cfg = graft_entry.flagship_config(tiny=args.tiny)
@@ -126,15 +128,6 @@ def main() -> int:
         bars = (1e-3, 1e-2, 1e-2)
     batch["valid"] = np.ones(2 * world, np.float32)
     dtype = torch_dtype(cfg.model.dtype)
-
-    def sync():
-        if args.device == "cuda":
-            torch.cuda.synchronize()
-
-    def log(msg):
-        if rank == 0:
-            print(msg, flush=True)
-
     layouts = [("DP%d" % world, 1, False)]
     if world % 2 == 0 and world > 2:
         layouts += [(f"DP{world // 2} x TP2", 2, False), (f"DP{world // 2} x TP2 x FSDP", 2, True)]
@@ -240,6 +233,261 @@ def main() -> int:
                 f"{world} ranks, restored under DP{world}: {len(pairs) - len(differ)} of "
                 f"{len(pairs)} tensors equal"
                 + (f"; differ (max abs): {differ[:8]}" if differ else ""))
+    return ok, report
+
+
+def _stream_samples(seconds: float, world: int, cfg) -> int:
+    """The longest stream of at most ``seconds`` whose encoder frames the
+    ranks divide."""
+    from multimodal_av_model_tpu_torch.models import AudioEncoder
+
+    fe = cfg.frontend
+    S = int(seconds * fe.sample_rate)
+    while AudioEncoder.output_length(cfg.audio, fe, S) % world:
+        S -= fe.hop_length
+    return S
+
+
+def _peaks(device: str) -> list[float]:
+    """Every rank's peak device memory in GiB (0 on the CPU)."""
+    import torch
+    import torch.distributed as dist
+
+    mine = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else 0.0
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, mine)
+    return out
+
+
+def _timed(fn, sync, n: int):
+    """``fn()`` once to warm up, then ``n`` times: the ms of each and the
+    last result."""
+    fn()
+    times = []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, out
+
+
+def cp_checks(args, log, sync, seconds: float, impls, reference: bool) -> tuple[bool, dict]:
+    """The long-form encoder (``parallel/longform.py``, f32, seeded weights)
+    with time split over every rank on one pad-free stream of about
+    ``seconds`` (cut so that the ranks divide its encoder frames), each of
+    ``impls``: ms per call and every rank's peak memory; with ``reference``,
+    ``last`` and ``middle`` against rank 0's full-attention encoder in one
+    process at JAX's long-form bars (atol 2e-4, rtol 1e-4), else finite.
+    Rank 0 holds K1 against its plain version at the stream's shape."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_av_model_tpu_torch import graft_entry
+    from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
+    from multimodal_av_model_tpu_torch.ops import logmel
+    from multimodal_av_model_tpu_torch.parallel import make_cp_audio_encoder, make_mesh
+
+    rank, world, dev = dist.get_rank(), dist.get_world_size(), args.device
+    cfg = graft_entry.flagship_config(tiny=args.tiny).model
+    S = _stream_samples(seconds, world, cfg)
+    wave = torch.from_numpy((np.random.default_rng(0).standard_normal((1, S)) * 0.1)
+                            .astype(np.float32)).to(dev)
+
+    def encoder(impl=None):
+        enc = (AudioEncoder(cfg.audio, cfg.frontend) if impl is None
+               else make_cp_audio_encoder(cfg, mesh, "data", impl))
+        return init_weights(enc, torch.Generator().manual_seed(0)).to(dev).eval()
+
+    mesh = make_mesh(model_parallel=1, device_type=dev)
+    ok, report, ref = True, {}, None
+    tag = f"CP{world} {S / cfg.frontend.sample_rate:.1f} s"
+    if rank == 0:
+        got, plain = logmel.log_mel_spectrogram_cuda(wave), logmel.log_mel_spectrogram(wave)
+        k1_err = float((got - plain).abs().max())
+        k1_ok = bool(torch.allclose(got, plain, rtol=2e-3, atol=2e-3))
+        ok = ok and k1_ok
+        log(f"[mesh] {tag}: K1 {tuple(wave.shape)} -> {tuple(got.shape)} against its plain "
+            f"version: max|diff| {k1_err:.3g} (rtol=atol=2e-3) {'ok' if k1_ok else 'FAILED'}")
+        report["k1_err"] = k1_err
+        del got, plain
+        if reference:
+            if dev == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                times, ref = _timed(lambda: encoder()(wave), sync, 1)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else 0.0
+            report["full_ms"], report["full_peak_gib"] = times, peak
+            log(f"[mesh] {tag}: full attention in one process: {times[0]:.1f} ms, peak "
+                f"{peak:.2f} GiB, T_enc {ref[0].shape[1]}")
+    dist.barrier()
+    for impl in impls:
+        enc = encoder(impl)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            times, (last, middle, _) = _timed(lambda: enc(wave), sync, 2)
+        peaks = _peaks(dev)
+        good = bool(torch.isfinite(last).all() and torch.isfinite(middle).all())
+        errs = None
+        if rank == 0 and ref is not None:
+            errs = [float((a - b).abs().max()) for a, b in ((last, ref[0]), (middle, ref[1]))]
+            good = good and all(torch.allclose(a, b, rtol=1e-4, atol=2e-4)
+                                for a, b in ((last, ref[0]), (middle, ref[1])))
+        ok = ok and good
+        report[impl] = {"ms": times, "peak_gib_by_rank": peaks, "max_abs_err": errs}
+        log(f"[mesh] {tag}, {impl}: T_enc {last.shape[1]} ({last.shape[1] // world} a rank), "
+            f"{', '.join(f'{t:.1f}' for t in times)} ms per call, peak device memory by rank "
+            f"{', '.join(f'{p:.2f}' for p in peaks)} GiB; "
+            + (f"max|diff| to full attention last {errs[0]:.3g}, middle {errs[1]:.3g} "
+               f"(atol 2e-4, rtol 1e-4)" if errs else "finite")
+            + f" {'ok' if good else 'FAILED'}")
+        del enc, last, middle
+    return ok, report
+
+
+def pp_check(args, log, sync, n_steps: int = 3, microbatches: int = 4) -> tuple[bool, dict]:
+    """PP over every rank: the flagship's 12 Conformer blocks (``--tiny``: 4
+    of width 32) in f32, seeded, ``12 / world`` a stage on a ``(1, world)``
+    ``("data", "pipe")`` mesh; B = 8 rows of 201 frames (``bench.py``'s 120
+    frames; ``--tiny`` 21), random lengths, ``microbatches`` microbatches.
+    The forward and every parameter's gradient of ``sum(y * valid)`` against
+    rank 0's blocks applied in turn (JAX's bars: 2e-5; rtol 5e-4, atol
+    5e-5), the ms of a forward and backward of each, ``bubble_fraction``."""
+    import torch
+    import torch.distributed as dist
+    from torch import nn
+
+    from multimodal_av_model_tpu_torch import graft_entry
+    from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
+    from multimodal_av_model_tpu_torch.models.audio import ConformerBlock
+    from multimodal_av_model_tpu_torch.parallel import (
+        PIPE_AXIS,
+        bubble_fraction,
+        make_named_mesh,
+        pipeline_blocks,
+        shard_stacked_params,
+        stack_block_params,
+        stage_layers,
+    )
+
+    rank, world, dev = dist.get_rank(), dist.get_world_size(), args.device
+    cfg = graft_entry.flagship_config(tiny=args.tiny).model
+    a = cfg.audio
+    L = 4 if args.tiny else a.num_layers
+    mesh = make_named_mesh((1, world), ("data", PIPE_AXIS), dev)
+
+    def block():
+        return ConformerBlock(a.d_model, a.num_heads, a.ffn_dim, a.conv_kernel_size, 0.0,
+                              torch.float32)
+
+    seq = init_weights(nn.ModuleList(block() for _ in range(L)),
+                       torch.Generator().manual_seed(0)).to(dev).eval()
+    stacked = stack_block_params({f"blocks.{k}": v for k, v in seq.state_dict().items()}, L)
+    stage = shard_stacked_params(stacked, mesh, block).to(dev).eval()
+    B = 8
+    T = AudioEncoder.output_length(a, cfg.frontend, (12 if args.tiny else 120) * 534)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((B, T, a.d_model)).astype(np.float32)).to(dev)
+    lens = torch.from_numpy(rng.integers(T // 2, T + 1, size=B)).to(dev)
+    valid = torch.arange(T, device=dev)[None] < lens[:, None]
+    amask = valid[:, None, None, :] & valid[:, None, :, None]
+
+    def run(fn, module):
+        def step():
+            module.zero_grad(set_to_none=True)
+            y = fn()
+            (y * valid[..., None]).sum().backward()
+            return y
+        return step
+
+    def sequential():
+        h = x
+        for b in seq:
+            h = b(h, valid, amask)
+        return h
+
+    times, y = _timed(run(lambda: pipeline_blocks(stage, x, valid, amask, mesh, microbatches),
+                          stage), sync, n_steps)
+    grads = {n: torch.zeros_like(t) for n, t in stacked.items()}
+    for j, i in enumerate(stage_layers(L, mesh)):
+        for n, p in stage[j].named_parameters():
+            grads[n][i] = p.grad
+    for g in grads.values():
+        dist.all_reduce(g, group=mesh[PIPE_AXIS].get_group())
+    ok, report = True, {"pp_ms": times, "bubble_fraction": bubble_fraction(world, microbatches)}
+    if rank == 0:
+        seq_times, y_seq = _timed(run(sequential, seq), sync, n_steps)
+        want = stack_block_params({f"blocks.{n}": p.grad for n, p in seq.named_parameters()}, L)
+        fwd = float((y - y_seq).abs().max().detach())
+        excess, at = max((float(((grads[n] - g).abs() / (5e-5 + 5e-4 * g.abs())).max()), n)
+                         for n, g in want.items())
+        ok = bool(torch.allclose(y, y_seq, rtol=2e-5, atol=2e-5)) and excess <= 1.0
+        report.update({"sequential_ms": seq_times, "fwd_err": fwd, "grad_worst": excess})
+        log(f"[mesh] PP{world}: {L} blocks x {a.d_model} (f32), {L // world} a stage, B={B}, "
+            f"T={T}, M={microbatches}: forward max|diff| {fwd:.3g} (2e-5), gradients of "
+            f"sum(y*valid) worst at {excess:.3g} of their bar (rtol 5e-4, atol 5e-5) at {at}; "
+            f"forward + backward {', '.join(f'{t:.1f}' for t in times)} ms pipelined, "
+            f"{', '.join(f'{t:.1f}' for t in seq_times)} ms sequential in one process; "
+            f"bubble_fraction({world}, {microbatches}) = "
+            f"{bubble_fraction(world, microbatches):.4f} {'ok' if ok else 'FAILED'}")
+    dist.barrier()
+    return ok, report
+
+
+CHECKS = ("train", "cp", "cp-long", "pp")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--tiny", action="store_true")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    help="compute dtype of train (default: bfloat16, with --tiny float32)")
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--checks", default=",".join(CHECKS),
+                    help=f"some of {','.join(CHECKS)} (default: all)")
+    args = ap.parse_args()
+    checks = args.checks.split(",")
+    if not set(checks) <= set(CHECKS):
+        print(f"mesh_check: --checks takes some of {','.join(CHECKS)}", file=sys.stderr)
+        return 2
+
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_av_model_tpu_torch.parallel import initialize_distributed
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("mesh_check: no CUDA device (pass --device=cpu for gloo)", file=sys.stderr)
+        return 2
+    if not initialize_distributed(args.device):
+        print("mesh_check: run it under torchrun", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.device == "cpu":
+        torch.set_num_threads(1)
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def sync():
+        if args.device == "cuda":
+            torch.cuda.synchronize()
+
+    def log(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    seconds = (4, 16) if args.tiny else (240, 960)
+    runs = {"train": lambda: train_checks(args, log, sync),
+            "cp": lambda: cp_checks(args, log, sync, seconds[0], ("ring", "gather"), True),
+            "cp-long": lambda: cp_checks(args, log, sync, seconds[1], ("ring",), False),
+            "pp": lambda: pp_check(args, log, sync)}
+    ok, report = True, {}
+    for name in checks:
+        good, report[name] = runs[name]()
+        ok = ok and good
     log(f"[mesh] card {_card()}")
     log(json.dumps({"ok": ok, "world": world, "device": args.device, "report": report}))
     dist.barrier()
