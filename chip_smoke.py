@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch port's serving surface, serving export, training step,
 training run, the audio-only, visual-only, SSL and legacy families, the reference
 checkpoint import, offline lip extraction, the runtime tools, the meshed
-training path, the long-form encoder and the Conformer pipeline on one NVIDIA
-GPU (H100).
+training path, the long-form encoder, the Conformer pipeline, the double audio
+pass and the raw-media corpus on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py      # needs one CUDA card; a few minutes on an H100
 
@@ -200,16 +200,37 @@ Phases, each printing a line; any failure exits non-zero:
     microbatches on B = 8 rows of 201 frames against the blocks applied in
     turn: forward within 2e-5, every parameter's gradient at rtol 5e-4 and
     atol 5e-5; the ms of a forward and backward of each, peak memory, no
-    kernel launched.
+    kernel launched;
+36. ``[shared-pass]``: ``model.shared_audio_pass=false``, the double audio
+    pass (the encoder on ``[2B]`` rows, each under its own speaker's mask,
+    K1 once on ``[2B, S]``): phase 4's small f32 check of the double pass,
+    card against CPU and against the shared pass with the same parameters
+    (log-probs, exact prefix-beam ids); at full width K1 against its plain
+    version at ``[8, 68352]`` and ``[16, 68352]``, one bucket-128 request of
+    4 mixtures served with the double pass (K1 1, K2 2), and the B = 8 step
+    at ``bench.py``'s shapes, 2 warm-up steps of each pass, then 5 timed
+    steps of each in turns, shared, double, double, shared (K1 1, K2 2 a
+    step): step times, utt/s, peak memory, FLOPs a step and the audio
+    encoder's forward FLOPs (``FlopCounterMode``; they must double);
+37. ``[raw-media]``: the port's ``write_raw_media_corpus`` (4 videos x 4
+    sentences of 2 s, 320x240 AVIs at 30 fps, 48 kHz stereo WAVs; about 270
+    MB), ``extract_clips`` of 128x128x3 crops from the precomputed boxes,
+    ``save_all_sentence_labels`` and ``build_data_list``; K1 and K2 against
+    their plain versions at these clips' shapes; then 3 flagship steps at
+    full width on B = 8 speaker-distinct pairs each, through
+    ``load_pair_raw`` -> ``collate_pairs_raw`` ->
+    ``device_preprocessed_batches`` (K1 1 and K2 2 a step); the write,
+    extraction and step seconds.
 
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
 the timed training steps of phase 9, the CLI calls of phase 10 and the main
-paths of phases 13, 15-17, 18-20, 22-25, 27-29, 31, 32, 34 and 35 (each
+paths of phases 13, 15-17, 18-20, 22-25, 27-29, 31, 32 and 34-37 (each
 path's own count is under ``launches_by_path``).  ``--only=`` with some of
 ``family-ref``, ``family-audio``, ``family-visual``, ``families``,
 ``legacy-ref``, ``legacy``, ``reference-import``, ``lip-extract``,
 ``hostops``, ``runtime`` (which runs phase 5 first), ``dist``, ``dist-cli``,
-``longform`` and ``pp`` runs the card and build lines and those phases alone
+``longform``, ``pp``, ``shared-pass`` and ``raw-media`` runs the card and
+build lines and those phases alone
 (a rehearsal: no kernels JSON, no result line).  The last three lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
 ...}``.  Nothing of JAX is imported.
@@ -217,6 +238,7 @@ path's own count is under ``launches_by_path``).  ``--only=`` with some of
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -688,6 +710,35 @@ def device_profile(torch, tag: str, what: str, run, plain_wall_ms: float) -> Non
     log(f"[{tag}] {what}: device busy {busy:.2f} ms; idle share "
         f"{1 - busy / plain_wall_ms:.3f} of the {plain_wall_ms:.1f} ms unprofiled wall "
         f"({1 - busy / wall:.3f} of the {wall:.1f} ms wall under the profiler)")
+
+
+def step_breakdown(torch, run) -> dict:
+    """``torch.profiler`` over one ``run()`` -> its wall and device busy time
+    (ms), the kernels it launched, its cudaMalloc calls, its synchronising
+    runtime calls and the host time in them, and its table of host ops by
+    self CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    stats = prof.key_averages()
+    key = "device_time_total" if hasattr(stats[0], "device_time_total") else "cuda_time_total"
+    device = [e for e in stats if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    host = {e.key: e for e in stats if e.device_type != DeviceType.CUDA}
+    syncs = [host[k] for k in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                               "cudaEventSynchronize", "cudaMemcpy") if k in host]
+    return {"wall": wall, "busy": sum(getattr(e, "self_" + key) for e in device) / 1e3,
+            "kernels": sum(e.count for e in device),
+            "malloc": host["cudaMalloc"].count if "cudaMalloc" in host else 0,
+            "sync": sum(e.count for e in syncs),
+            "sync_ms": sum(e.self_cpu_time_total for e in syncs) / 1e3,
+            "table": stats.table(sort_by="self_cpu_time_total", row_limit=12,
+                                 max_name_column_width=50)}
 
 
 def kernel_profile(torch, serve, raw, plain_wall_ms: float):
@@ -3427,9 +3478,337 @@ def pp_phase(torch, rng, smi: str, n_steps: int = 5, microbatches: int = 4) -> d
         dist.destroy_process_group()
 
 
+
+def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
+    """[shared-pass]: ``model.shared_audio_pass=false``, the reference-shaped
+    double audio pass (the encoder on ``[2B]`` rows, K1 once on ``[2B, S]``).
+    A small f32 check, card against CPU: the double pass against the shared
+    pass in eval with the same parameters, log-probs compared and prefix-beam
+    ids held exactly; then at full width one bucket-128 request of 4
+    mixtures served with the double pass, and the B = 8 training step at
+    ``bench.py``'s shapes: each pass alone (2 warm-up, 5 timed steps, the
+    allocator's device calls, one profiled step), then both alive, 2
+    warm-up and 5 timed steps of each in turns (shared, double, double,
+    shared), with FLOPs by ``FlopCounterMode`` (the audio encoder's forward
+    doubles).  Returns the double pass's launches (request and the timed
+    steps in turns)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.device_pipeline import (
+        device_preprocessed_batches,
+        preprocess_batch_device,
+    )
+    from multimodal_av_model_tpu_torch.infer import Transcriber, decode_ids
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
+    from multimodal_av_model_tpu_torch.train.trainer import place_batch
+
+    tag = "shared-pass"
+    # Small f32: the double pass on the card against the CPU and against the
+    # shared pass, one set of parameters.
+    cfg = tiny_model_config()
+    spec = make_bucket_specs((16,), 534, 8)[0]
+    raw = make_request(rng, 2, spec, crop=48)
+    shared = init_weights(MultiSpeakerAVModel(cfg.model), torch.Generator().manual_seed(1))
+    cfg_d = tiny_model_config()
+    cfg_d.model.shared_audio_pass = False
+    double = MultiSpeakerAVModel(cfg_d.model)
+    double.load_state_dict(shared.state_dict())
+    keys = ("lip1", "lip2", "audio", "mask1", "mask2", "lip1_lengths", "lip2_lengths")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        batch = preprocess_batch_device(raw["lip1_raw"], raw["lip2_raw"], raw["audio1"],
+                                        raw["audio2"], raw["audio1_len"], raw["audio2_len"],
+                                        out_size=24, device=dev)
+        batch["lip1_lengths"] = torch.from_numpy(raw["lip1_lengths"]).to(dev)
+        batch["lip2_lengths"] = torch.from_numpy(raw["lip2_lengths"]).to(dev)
+        for name, m in (("shared", shared), ("double", double)):
+            with torch.no_grad():
+                outs[dev, name] = m.to(dev).eval()(*[batch[k] for k in keys])
+
+    def valid_err(a, b):
+        err = 0.0
+        for s in ("1", "2"):
+            if not torch.equal(a["input_lengths" + s].cpu(), b["input_lengths" + s].cpu()):
+                raise SystemExit(f"{tag}: input_lengths differ")
+            for r, n in enumerate(b["input_lengths" + s].tolist()):
+                d = a["log_probs" + s][r, :n].cpu() - b["log_probs" + s][r, :n].cpu()
+                err = max(err, d.abs().max().item() if n else 0.0)
+        return err
+
+    def ids(o):
+        lp = torch.cat([o["log_probs1"], o["log_probs2"]])
+        out, n = decode_ids(cfg, lp, torch.cat([o["input_lengths1"], o["input_lengths2"]]))
+        return out.cpu(), n.cpu()
+
+    card_cpu = valid_err(outs["cuda", "double"], outs["cpu", "double"])
+    double_shared = valid_err(outs["cuda", "double"], outs["cuda", "shared"])
+    ref_ids = ids(outs["cpu", "double"])
+    same = all(torch.equal(a, b) for o in (outs["cuda", "double"], outs["cuda", "shared"])
+               for a, b in zip(ids(o), ref_ids))
+    ok = card_cpu <= 1e-3 and double_shared <= 1e-4 and same
+    log(f"[{tag}] small f32 model, eval, the double pass: card vs CPU max|log_probs| on valid "
+        f"frames {card_cpu:.3g} (<= 1e-3); vs the shared pass on the card {double_shared:.3g} "
+        f"(<= 1e-4); prefix-beam ids of both passes on the card "
+        f"{'equal' if same else 'DIFFER from'} the CPU's {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"{tag}: small check failed")
+    del shared, double, outs
+
+    # Full width: one bucket-128 request of 4 mixtures served with the double pass.
+    launches = {"logmel": 0, "lip_preprocess": 0}
+    cfg = Config()
+    cfg.model.shared_audio_pass = False
+    dtype = torch_dtype(cfg.model.dtype)
+    model = init_weights(MultiSpeakerAVModel(cfg.model, dtype), torch.Generator().manual_seed(0))
+    transcriber = Transcriber(cfg, tok, model, device="cuda")
+    spec = make_bucket_specs((128,), cfg.data.audio_samples_per_video_frame,
+                             cfg.data.max_label_len)[0]
+    raw = make_request(rng, 4, spec)
+    request = _flagship_batch(torch, raw)
+    k1_at(torch, torch.cat([request["audio"]] * 2).float().contiguous(), tag)
+    captured = []
+    hook = model.register_forward_hook(lambda mod, args, out: captured.append(out))
+    transcriber.transcribe(_flagship_batch(torch, raw))                 # warm-up
+    torch.cuda.synchronize()
+    captured.clear()
+    torch.cuda.reset_peak_memory_stats()
+    log_mel_spectrogram_cuda.launches = 0
+    lip_preprocess_cuda.launches = 0
+    t0 = time.perf_counter()                                            # the main path
+    texts = transcriber.transcribe(_flagship_batch(torch, raw))
+    torch.cuda.synchronize()
+    req_ms = (time.perf_counter() - t0) * 1e3
+    k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+    hook.remove()
+    for s in ("1", "2"):
+        lp = captured[0]["log_probs" + s].float()
+        if (lp.shape != (4, 128, cfg.model.decoder.vocab_size) or not torch.isfinite(lp).all()
+                or (lp.logsumexp(-1).abs() > 1e-3).any()):
+            raise SystemExit(f"{tag}: bad log-probs {tuple(lp.shape)}")
+    log(f"[{tag}] full width, double pass: one bucket-128 request of 4 mixtures in "
+        f"{req_ms:.1f} ms, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB, launches K1 {k1} K2 {k2}; first texts {json.dumps(texts[0])[:80]}")
+    if (k1, k2) != (1, 2) or len(texts) != 4:
+        raise SystemExit(f"{tag}: request launches K1 {k1}, K2 {k2} (expected 1 and 2)")
+    launches["logmel"] += k1
+    launches["lip_preprocess"] += k2
+    del transcriber, model, captured
+
+    # Full width: the B = 8 step of each pass on bench.py's shapes.
+    raw = make_train_batch(rng, 8, spec)
+    (batch,) = device_preprocessed_batches([raw])
+    k1_at(torch, torch.cat([batch["audio"]] * 2).float().contiguous(), tag)
+    del batch
+
+    def make_step(shared_pass: bool):
+        cfg = Config()
+        cfg.model.shared_audio_pass = shared_pass
+        trainer = MultiSpeakerTrainer(
+            cfg, MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)), tok)
+        state = trainer.init_state(cfg.data.seed)
+
+        def step():
+            (b,) = device_preprocessed_batches([raw])
+            return trainer.train_step(state, b)[1]["loss"]
+
+        for _ in range(2):                              # warm-up
+            step()
+        return step, state
+
+    def allocator_calls():
+        s = torch.cuda.memory_stats()
+        return np.array([s.get("num_device_alloc", 0), s.get("num_device_free", 0)])
+
+    # Each pass alone (only its trainer alive), the double pass built first:
+    # 5 timed steps, the caching allocator's cudaMalloc / cudaFree calls over
+    # them, and one step under torch.profiler.
+    alone = {}
+    for name in ("double", "shared"):
+        step = make_step(name == "shared")[0]
+        before = allocator_calls()
+        times, _, _, _, peak = _timed_steps(torch, step, 0, 5)
+        calls = allocator_calls() - before
+        alone[name] = times
+        bd = step_breakdown(torch, step)
+        log(f"[{tag}] B=8 {name} pass alone: {_ms(times)} per step; peak device memory "
+            f"{peak / 2**30:.2f} GiB; device cudaMalloc / cudaFree over the 5 steps "
+            f"{calls[0]} / {calls[1]}; one profiled step: wall {bd['wall']:.1f} ms, device busy "
+            f"{bd['busy']:.1f} ms, {bd['kernels']} kernels, {bd['malloc']} cudaMalloc, "
+            f"{bd['sync']} synchronisations ({bd['sync_ms']:.1f} ms of host time in them)")
+        log(f"[{tag}] {name} pass alone, host ops by self CPU time:\n" + bd["table"])
+        del step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # Both trainers alive, the shared pass built first, in turns (shared,
+    # double, double, shared): the main path.
+    rows = {}
+    for name, shared_pass in (("shared", True), ("double", False)):
+        step, state = make_step(shared_pass)
+        rows[name] = {"step": step, "state": state, "times": [], "losses": [], "k1": 0,
+                      "k2": 0, "peak": 0, "calls": np.zeros(2, np.int64)}
+    for name in ("shared", "double", "double", "shared"):   # in turns; the main path
+        r = rows[name]
+        before = allocator_calls()
+        times, losses, k1, k2, peak = _timed_steps(torch, r["step"], 0, 5)
+        r["calls"] += allocator_calls() - before
+        r["times"] += times
+        r["losses"] += losses
+        r["k1"], r["k2"], r["peak"] = r["k1"] + k1, r["k2"] + k2, max(r["peak"], peak)
+    for name, r in rows.items():
+        with FlopCounterMode(display=False) as counter:
+            r["step"]()
+            torch.cuda.synchronize()
+        r["flops"] = counter.get_total_flops()
+        b = place_batch(next(device_preprocessed_batches([raw])), "cuda")
+        with FlopCounterMode(display=False) as fwd, torch.no_grad():
+            r["state"].model(*[b[k] for k in keys], train=True, generator=r["state"].generator)
+        r["enc"] = sum(sum(v.values()) for k, v in fwd.get_flop_counts().items()
+                       if k.split(".")[-1] == "audio_encoder")
+        times, losses, n = r["times"], r["losses"], len(r["times"])
+        log(f"[{tag}] B=8 {name} pass, 2 x 5 timed steps in turns with the other (both "
+            f"trainers alive): {_ms(times)} per step, {8 * n / sum(times):.2f} utt/s; device "
+            f"cudaMalloc / cudaFree over them {r['calls'][0]} / {r['calls'][1]}; peak device "
+            f"memory {r['peak'] / 2**30:.2f} GiB; {r['flops'] / 1e12:.3f} TFLOP a step, the "
+            f"audio encoder's forward {r['enc'] / 1e12:.4f} TFLOP (FlopCounterMode); launches "
+            f"per step K1 {r['k1'] / n:g}, K2 {r['k2'] / n:g}; loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}")
+        if (r["k1"], r["k2"]) != (n, 2 * n):
+            raise SystemExit(f"{tag}: {name} pass launches K1 {r['k1']}, K2 {r['k2']} over "
+                             f"{n} steps (expected 1 and 2 per step)")
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"{tag}: non-finite losses {losses}")
+    launches["logmel"] += rows["double"]["k1"]
+    launches["lip_preprocess"] += rows["double"]["k2"]
+    ratio = rows["double"]["enc"] / rows["shared"]["enc"]
+    cost = np.median(rows["double"]["times"]) / np.median(rows["shared"]["times"])
+    cost_alone = np.median(alone["double"]) / np.median(alone["shared"])
+    log(f"[{tag}] double against shared at B=8: audio encoder forward FLOPs x{ratio:.3f}, step "
+        f"FLOPs x{rows['double']['flops'] / rows['shared']['flops']:.3f}, median step "
+        f"x{cost_alone:.3f} alone, x{cost:.3f} in turns with both alive; card {smi}")
+    if not 1.99 <= ratio <= 2.01:
+        raise SystemExit(f"{tag}: the audio encoder's FLOPs did not double (x{ratio:.3f})")
+    return launches
+
+
+def raw_media_phase(torch, tok, smi: str) -> dict:
+    """[raw-media]: the raw-media corpus written by the port's
+    ``write_raw_media_corpus`` (4 videos x 4 sentences of 2 s, 320x240 AVIs
+    at 30 fps with a moving mouth patch and its boxes, 48 kHz stereo WAVs),
+    128x128x3 crops by ``extract_clips`` from the precomputed boxes,
+    ``save_all_sentence_labels`` and ``build_data_list``; then 3 flagship
+    training steps at full width, B = 8 speaker-distinct pairs a step,
+    through ``load_pair_raw`` -> ``collate_pairs_raw`` ->
+    ``device_preprocessed_batches`` (K2 x2) -> ``train_step`` (K1 x1), with
+    K1 and K2 held against their plain versions at these clips' shapes."""
+    import shutil
+    import tempfile
+
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.data.avi import avi_frame_reader
+    from multimodal_av_model_tpu_torch.data.collate import collate_pairs_raw, make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
+    from multimodal_av_model_tpu_torch.data.lip_extract import extract_clips
+    from multimodal_av_model_tpu_torch.data.manifest import (
+        build_data_list,
+        save_all_sentence_labels,
+        speaker_id_of,
+    )
+    from multimodal_av_model_tpu_torch.data.pipeline import FilePairSource
+    from multimodal_av_model_tpu_torch.data.synth_corpus import write_raw_media_corpus
+    from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
+    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
+
+    tag = "raw-media"
+    root = tempfile.mkdtemp(prefix="mmav_raw_media_")
+    try:
+        t0 = time.perf_counter()
+        dirs = write_raw_media_corpus(root, tok, n_videos=4, sentences_per_video=4,
+                                      width=320, height=240, sentence_dur=2.0, gap=0.3,
+                                      seed=0)
+        write_s = time.perf_counter() - t0
+        mb = sum(os.path.getsize(os.path.join(d, f)) for d in (dirs["video_dir"], dirs["wav_dir"])
+                 for f in os.listdir(d)) / 1e6
+        t0 = time.perf_counter()
+        clips = []
+        for name in sorted(os.listdir(dirs["json_folder"])):
+            base = name[:-len(".json")]
+            boxes = np.load(os.path.join(dirs["boxes_dir"], base + "_boxes.npy"))
+            res = extract_clips(avi_frame_reader(os.path.join(dirs["video_dir"], base + ".avi")),
+                                os.path.join(dirs["json_folder"], name), dirs["npy_dir"], base,
+                                fps=30, out_size=128,
+                                boxes_for_range=lambda s, e, b=boxes: b[s:e])
+            if res.skipped or len(res.saved) != 4:
+                raise SystemExit(f"{tag}: {base}: saved {len(res.saved)}, skipped {res.skipped}")
+            clips += res.saved
+        extract_s = time.perf_counter() - t0
+        n_labels = save_all_sentence_labels(dirs["json_folder"], dirs["text_dir"])
+        entries, skipped = build_data_list(dirs["json_folder"], dirs["npy_dir"],
+                                           dirs["text_dir"], dirs["wav_dir"])
+        if n_labels != 16 or len(entries) != 16 or skipped:
+            raise SystemExit(f"{tag}: {n_labels} labels, {len(entries)} entries, {skipped}")
+        shapes = sorted({np.load(p, mmap_mode="r").shape for p in clips})
+        log(f"[{tag}] corpus: 4 AVIs of 320x240 at 30 fps and 4 stereo 48 kHz WAVs, {mb:.1f} MB, "
+            f"written in {write_s:.2f} s; 16 clips {shapes} uint8 extracted from the boxes in "
+            f"{extract_s:.2f} s; {n_labels} labels, manifest of {len(entries)} entries")
+
+        cfg = Config()
+        spec = make_bucket_specs((64,), cfg.data.audio_samples_per_video_frame,
+                                 cfg.data.max_label_len)[0]
+        source = FilePairSource(tok, cfg.data.sample_rate)
+        raws = []
+        for offset in (4, 8, 12):                       # speaker = video: entries 4v..4v+3
+            pairs = [(entries[k], entries[(k + offset) % 16]) for k in range(8)]
+            if any(speaker_id_of(a.lip_path) == speaker_id_of(b.lip_path) for a, b in pairs):
+                raise SystemExit(f"{tag}: a pair of one speaker")
+            raws.append(collate_pairs_raw([source.load_pair_raw(a, b) for a, b in pairs], spec))
+        train_kernel_check(torch, 8, raws[0], tag)
+
+        trainer = MultiSpeakerTrainer(
+            cfg, MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)), tok)
+        state = trainer.init_state(cfg.data.seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        log_mel_spectrogram_cuda.launches = 0
+        lip_preprocess_cuda.launches = 0
+        times, pulls, losses = [], [], []
+        batches = device_preprocessed_batches(raws)     # the main path
+        for _ in raws:
+            t0 = time.perf_counter()                    # the batch's copies and K2 included
+            b = next(batches)
+            torch.cuda.synchronize()
+            pulls.append(time.perf_counter() - t0)
+            state, m = trainer.train_step(state, b)
+            losses.append(m["loss"].item())
+            times.append(time.perf_counter() - t0)
+        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        log(f"[{tag}] 3 flagship steps at full width (B=8 speaker-distinct pairs, bucket 64): "
+            f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms (the first with cuDNN's warm-up; "
+            f"each from the pull of its raw batch, of which the pull, its host-to-device "
+            f"copies, mixing and K2, took {', '.join(f'{x * 1e3:.1f}' for x in pulls)} ms); "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; launches K1 {k1} K2 {k2}; card {smi}")
+        if (k1, k2) != (3, 6):
+            raise SystemExit(f"{tag}: launches K1 {k1}, K2 {k2} over 3 steps (expected 1 and "
+                             f"2 per step)")
+        if not all(math.isfinite(x) for x in losses):
+            raise SystemExit(f"{tag}: non-finite losses {losses}")
+        return {"logmel": k1, "lip_preprocess": k2}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 PHASES = ("family-ref", "family-audio", "family-visual", "families", "legacy-ref", "legacy",
           "reference-import", "lip-extract", "hostops", "runtime", "dist", "dist-cli", "longform",
-          "pp")
+          "pp", "shared-pass", "raw-media")
 UPSTREAM = PHASES[4:8]
 
 
@@ -3513,7 +3892,9 @@ def main() -> int:
              "dist": lambda: dist_phase(torch, rng, tok, smi),
              "dist-cli": lambda: dist_cli_phase(torch, tok, smi),
              "longform": lambda: longform_phase(torch, rng, smi),
-             "pp": lambda: pp_phase(torch, rng, smi)}[name]()
+             "pp": lambda: pp_phase(torch, rng, smi),
+             "shared-pass": lambda: shared_pass_phase(torch, rng, tok, smi),
+             "raw-media": lambda: raw_media_phase(torch, tok, smi)}[name]()
         if set(only) & set(UPSTREAM):
             upstream_phases(torch, rng, tok, smi, only)
         log(f"[partial] {','.join(only)} done; no kernels JSON and no result line")
@@ -3544,6 +3925,8 @@ def main() -> int:
     dist_cli_launches = dist_cli_phase(torch, tok, smi)
     longform_launches = longform_phase(torch, rng, smi)
     pp_launches = pp_phase(torch, rng, smi)
+    shared_pass_launches = shared_pass_phase(torch, rng, tok, smi)
+    raw_media_launches = raw_media_phase(torch, tok, smi)
     kernels = [k1, k2]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
         by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
@@ -3562,7 +3945,9 @@ def main() -> int:
                    "reference_import": upstream_launches["reference_import"][k["name"]],
                    "lip_extract": upstream_launches["lip_extract"][k["name"]],
                    "dist": dist_launches[k["name"]], "dist_cli": dist_cli_launches[k["name"]],
-                   "longform": longform_launches[k["name"]], "pp": pp_launches[k["name"]]}
+                   "longform": longform_launches[k["name"]], "pp": pp_launches[k["name"]],
+                   "shared_pass": shared_pass_launches[k["name"]],
+                   "raw_media": raw_media_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         dev_ms, caught = profiled_ms(*calls)

@@ -7,17 +7,18 @@ default.  Dropped on purpose:
 
 * ``frontend.use_pallas`` (``config.py:32``): the port picks the kernel or
   its plain version by the tensor's device alone;
-* ``model.shared_audio_pass`` (``config.py:171``): the port always encodes
-  the mixture once (in training both speakers share one dropout draw, as
-  the JAX default does);
-* ``train.keep_checkpoints`` (``config.py:284``): nothing reads it, in
-  either package, so an override fails as an unknown field;
+* ``train.keep_checkpoints`` (``config.py:284``), ``frontend.power``
+  (``:31``), ``audio.max_len`` (``:56``), ``visual.image_size`` (``:82``)
+  and ``decoder.input_dim`` (``:121``): nothing reads them, in either
+  package, so an override of one fails as an unknown field rather than
+  parsing and doing nothing;
 * nothing else: the mesh (``MeshConfig``) and ``compile_cache_dir`` are the
   JAX fields, read by the port's CLI (``main.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -135,6 +136,11 @@ class ModelConfig:
     contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
     decoder: DecoderConfig = field(default_factory=DecoderConfig)
     dtype: str = "bfloat16"           # activation dtype; params stay float32
+    # True: encode the mixture once for both speakers (exact in eval; in
+    # training they share one dropout draw).  False: the reference-shaped
+    # double pass, the encoder on [2B] rows, each with its own speaker's
+    # mask (``config.py:164-171``).
+    shared_audio_pass: bool = True
 
 
 @dataclass
@@ -269,3 +275,8 @@ def torch_dtype(name: str):
     if name not in dtypes:
         raise ValueError(f"unknown model dtype {name!r}")
     return dtypes[name]
+
+
+def to_dict(cfg: Any) -> dict:
+    """The configuration tree as nested dicts (``config.py:366-367``)."""
+    return dataclasses.asdict(cfg)

@@ -88,13 +88,16 @@ def _write_avi_container(path: str, payloads: list, W: int, H: int, fps: int,
     hdrl = _lst(b"hdrl", _chunk(b"avih", avih)
                 + _lst(b"strl", _chunk(b"strh", strh) + _chunk(b"strf", strf)))
 
-    movi_payload = b"movi"
+    # The chunks are joined once: appending each to one bytes object would
+    # copy everything so far per frame, quadratic in the frames.
+    chunks = [b"movi"]
     index_entries = []
+    offset = 4          # idx1 offsets are measured from the 'movi' fourcc
     for p in payloads:
-        # idx1 offsets are measured from the 'movi' fourcc (first chunk = 4).
-        index_entries.append((len(movi_payload), len(p)))
-        movi_payload += _chunk(chunk_tag, p)
-    movi = _chunk(b"LIST", movi_payload)
+        index_entries.append((offset, len(p)))
+        chunks.append(_chunk(chunk_tag, p))
+        offset += len(chunks[-1])
+    movi = _chunk(b"LIST", b"".join(chunks))
 
     idx1 = b"".join(
         chunk_tag + struct.pack("<III", 0x10, off, size)   # AVIIF_KEYFRAME

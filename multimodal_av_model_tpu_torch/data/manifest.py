@@ -91,6 +91,16 @@ def save_sentence_labels(json_path: str, save_dir: str) -> int:
     return len(sentences)
 
 
+def save_all_sentence_labels(json_folder: str, save_dir: str) -> int:
+    """``save_sentence_labels`` of every ``*.json`` in ``json_folder``, in
+    sorted order -> the sentences written (``manifest.py:118-123``)."""
+    total = 0
+    for name in sorted(os.listdir(json_folder)):
+        if name.endswith(".json"):
+            total += save_sentence_labels(os.path.join(json_folder, name), save_dir)
+    return total
+
+
 def train_val_test_split(entries: list, val_frac: float = 0.05, test_frac: float = 0.05,
                          seed: int = 42) -> tuple[list, list, list]:
     """Seeded 90/5/5 split -> ``(train, val, test)``; val and test hold at

@@ -1,8 +1,9 @@
 """Two-speaker waveform mixing and per-speaker sample masks.
 
-Mirrors ``multimodal_av_model_tpu/data/mixing.py:21-90``: one pair on the
-host (numpy, ``mix_pair``) and a padded batch on the device
-(``mix_pair_batched_device``).  Both utterances are summed and
+Mirrors ``multimodal_av_model_tpu/data/mixing.py:21-105``: one pair on the
+host (numpy, ``mix_pair``), a padded batch on the device
+(``mix_pair_batched_device``), and a mask resampled to a frame rate on the
+host (``downsample_mask_nearest``).  Both utterances are summed and
 peak-normalised by ``max|mixed| + 1e-6``; each speaker's mask codes ``0``
 other speaker solo, ``1`` overlap, ``2`` target speaker solo, ``3`` batch
 padding.
@@ -81,3 +82,15 @@ def mix_pair_batched_device(audio1: torch.Tensor, audio2: torch.Tensor,
     mask1 = torch.where(pad, MASK_PAD, code(in1)).to(torch.int32)
     mask2 = torch.where(pad, MASK_PAD, code(in2)).to(torch.int32)
     return mixed, mask1, mask2, mix_len[:, 0]
+
+
+def downsample_mask_nearest(mask: np.ndarray, target_len: int) -> np.ndarray:
+    """Nearest-neighbour resampling of the last axis to ``target_len``
+    (``mixing.py:93-105``, as ``F.interpolate(mode="nearest")``): output
+    ``j`` reads input ``floor(j * (S / target_len))``, computed in float64
+    as JAX does (``models/av_model.py:downsample_mask_to`` uses integer
+    math instead), clipped to ``S - 1``."""
+    mask = np.asarray(mask)
+    S = mask.shape[-1]
+    idx = np.floor(np.arange(target_len) * (S / target_len)).astype(np.int64)
+    return mask[..., np.minimum(idx, S - 1)]

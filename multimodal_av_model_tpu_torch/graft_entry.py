@@ -9,14 +9,13 @@ processes on the CPU, held against the same step in one process.
   BatchNorm, transformer temporal model) at ``(n / 2, 2)`` (DP x TP) with
   FSDP over ``n`` gloo processes, one step on an ``n``-row batch, its loss
   and ``grad_norm`` checked against the one-process step
-  (``__graft_entry__.py:149-219``); then, when 4 divides ``n``, the
-  pipeline leg (``:221-297``): 4 seeded Conformer blocks of width 16 over a
-  ``(n / 4 data, 4 pipe)`` mesh of the same processes, 4 x data rows of 8
-  frames in 2 microbatches, the pipelined forward against the blocks
-  applied in turn (below 2e-5) and one SGD step through the pipeline with a
-  finite loss (``parallel/spawn.py:pipeline_leg``).  JAX runs the leg on the
-  first ``4 (n // 4)`` of any ``n >= 4`` devices; a port mesh spans every
-  rank, so another ``n`` has no leg.
+  (``__graft_entry__.py:149-219``); then, for every ``n >= 4``, the
+  pipeline leg (``:241-297``) on ``4 (n // 4)`` gloo processes of a second
+  spawn, as JAX runs it on the first ``4 (n // 4)`` devices: 4 seeded
+  Conformer blocks of width 16 over a ``(n // 4 data, 4 pipe)`` mesh,
+  4 x data rows of 8 frames in 2 microbatches, the pipelined forward against
+  the blocks applied in turn (below 2e-5) and one SGD step through the
+  pipeline with a finite loss (``parallel/spawn.py:pipeline_leg``).
 """
 
 from __future__ import annotations
@@ -104,13 +103,13 @@ def entry(device: str = "cuda"):
 def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> dict:
     """One DP x TP x FSDP training step of the tiny flagship over
     ``n_devices`` gloo processes, checked against the one-process step on
-    the same batch, and the pipeline leg when 4 divides ``n_devices`` ->
-    ``{"loss", "loss_diff", "grad_norm_diff"}`` (and ``"pp_diff",
-    "pp_loss"``)."""
+    the same batch, and for ``n_devices >= 4`` the pipeline leg over
+    ``4 (n_devices // 4)`` more -> ``{"loss", "loss_diff",
+    "grad_norm_diff"}`` (and ``"pp_diff", "pp_loss"``)."""
     import torch
 
     from .models import MultiSpeakerAVModel
-    from .parallel.spawn import dryrun_ranks, run_ranks
+    from .parallel.spawn import meshed_train_steps, pipeline_leg, run_ranks
     from .text import CharTokenizer
     from .train import MultiSpeakerTrainer
 
@@ -121,12 +120,15 @@ def dryrun_multichip(n_devices: int, timeout: float = 300.0) -> dict:
     batch = train_batch(np.random.default_rng(0), n_devices, tok.vocab_size)
     with tempfile.TemporaryDirectory(prefix="mmav-dryrun-") as work:
         out = os.path.join(work, "result.pt")
-        pp_out = os.path.join(work, "pp.pt") if n_devices % 4 == 0 else None
-        run_ranks(dryrun_ranks, n_devices, work,
+        run_ranks(meshed_train_steps, n_devices, work,
                   ([{"out": out, "cfg": cfg, "model_parallel": model_parallel, "fsdp": True,
-                     "steps": 1}], VOCAB, batch, pp_out), timeout=timeout)
+                     "steps": 1}], VOCAB, batch), timeout=timeout)
         meshed = torch.load(out, weights_only=True)["metrics"][0]
-        pp = torch.load(pp_out, weights_only=True) if pp_out else None
+        pp = None
+        if n_devices >= 4:
+            pp_out = os.path.join(work, "pp.pt")
+            run_ranks(pipeline_leg, 4 * (n_devices // 4), work, (pp_out,), timeout=timeout)
+            pp = torch.load(pp_out, weights_only=True)
 
     trainer = MultiSpeakerTrainer(cfg, MultiSpeakerAVModel(cfg.model), tok, device="cpu")
     _, one = trainer.train_step(trainer.init_state(0), batch)

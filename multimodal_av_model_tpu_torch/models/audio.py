@@ -46,7 +46,8 @@ def conv1d_same(x, weight, bias, stride: int = 1, groups: int = 1):
 class FeedForward(nn.Module):
     """``audio.py:35-47``.  ``rows`` and ``hidden_cols`` place this rank's
     block of the batch and of the hidden features in the mesh's whole
-    (``layers.dropout``; set by ``parallel``)."""
+    (``layers.dropout``; set by ``parallel``); ``parts`` is 2 in the encoder
+    of the double audio pass (set by ``MultiSpeakerAVModel``)."""
 
     def __init__(self, dim: int, ffn_dim: int, dropout_rate: float, dtype: torch.dtype):
         super().__init__()
@@ -55,16 +56,19 @@ class FeedForward(nn.Module):
         self.fc2 = Dense(ffn_dim, dim, dtype=dtype)
         self.dropout_rate = dropout_rate
         self.rows = self.hidden_cols = (0, 1)
+        self.parts = 1
 
     def forward(self, x, generator=None):
         h = dropout(F.silu(self.fc1(self.norm(x))), self.dropout_rate, generator,
-                    rows=self.rows, cols=self.hidden_cols)
-        return dropout(self.fc2(h), self.dropout_rate, generator, rows=self.rows)
+                    rows=self.rows, cols=self.hidden_cols, parts=self.parts)
+        return dropout(self.fc2(h), self.dropout_rate, generator, rows=self.rows,
+                       parts=self.parts)
 
 
 class ConvModule(nn.Module):
     """``audio.py:50-68``: LN, pointwise GLU, padded frames zeroed, depthwise
-    conv (SAME), LN, swish, pointwise.  ``rows`` as ``FeedForward``'s."""
+    conv (SAME), LN, swish, pointwise.  ``rows`` and ``parts`` as
+    ``FeedForward``'s."""
 
     def __init__(self, dim: int, kernel_size: int, dropout_rate: float, dtype: torch.dtype):
         super().__init__()
@@ -75,7 +79,7 @@ class ConvModule(nn.Module):
         self.depthwise_norm = LayerNorm(dim, dtype)
         self.pointwise_out = Dense(dim, dim, dtype=dtype)
         self.dtype, self.dropout_rate = dtype, dropout_rate
-        self.rows = (0, 1)
+        self.rows, self.parts = (0, 1), 1
 
     def forward(self, x, valid, generator=None):
         dt = self.dtype
@@ -84,7 +88,7 @@ class ConvModule(nn.Module):
         h = conv1d_same(h, self.depthwise_weight.to(dt), self.depthwise_bias.to(dt),
                         groups=h.shape[-1])
         h = self.pointwise_out(F.silu(self.depthwise_norm(h)))
-        return dropout(h, self.dropout_rate, generator, rows=self.rows)
+        return dropout(h, self.dropout_rate, generator, rows=self.rows, parts=self.parts)
 
 
 class ConformerBlock(nn.Module):
@@ -123,7 +127,8 @@ class AudioEncoder(nn.Module):
     masked positions (the SSL model's encoder; flax creates the parameter
     only when ``mask_spans`` is given, so the flagship's encoder has none).
     ``attention``: every block's self-attention constructor
-    (``ConformerBlock``; ``audio.py:110``, ``:208-211``)."""
+    (``ConformerBlock``; ``audio.py:110``, ``:208-211``).  ``rows`` and
+    ``parts`` place SpecAugment's draws as ``FeedForward``'s dropout."""
 
     def __init__(self, config: AudioEncoderConfig, frontend: AudioFrontendConfig,
                  dtype: torch.dtype = torch.float32, mask_embedding: bool = False,
@@ -142,6 +147,7 @@ class AudioEncoder(nn.Module):
             for _ in range(cfg.num_layers))
         self.out_proj = Dense(cfg.d_model, cfg.output_dim, dtype=dtype)
         self.mask_embedding = _param(cfg.d_model) if mask_embedding else None
+        self.rows, self.parts = (0, 1), 1
 
     def forward(self, waveform, sample_mask=None, generator=None, mask_spans=None):
         """``waveform [B, S]`` f32; ``sample_mask [B, S]`` bool, True on valid
@@ -168,7 +174,8 @@ class AudioEncoder(nn.Module):
                                freq_masks=cfg.specaug_freq_masks,
                                freq_mask_width=cfg.specaug_freq_width,
                                time_masks=cfg.specaug_time_masks,
-                               time_mask_frac=cfg.specaug_time_frac)
+                               time_mask_frac=cfg.specaug_time_frac,
+                               rows=self.rows, parts=self.parts)
 
         f = cfg.subsample_factor
         x = conv1d_same(mel.to(dt), self.subsample_weight.to(dt),

@@ -1,12 +1,15 @@
 """The flagship two-speaker audio-visual CTC model, and the audio-only and
 visual-only CTC models.
 
-``MultiSpeakerAVModel`` mirrors ``multimodal_av_model_tpu/models/av_model.py:27-145`` with
-``shared_audio_pass=True``: both speakers run as one ``[2B]`` batch through
-the visual encoder, fusion and decoder (so train-mode BatchNorm takes its
-statistics over the joint ``2B`` batch); the mixture is encoded once, on the
-union of the two speakers' non-pad masks, and reused for both (exact in eval;
-in train mode both speakers share one dropout draw).  The fusion has no
+``MultiSpeakerAVModel`` mirrors ``multimodal_av_model_tpu/models/av_model.py:27-145``:
+both speakers run as one ``[2B]`` batch through the visual encoder, fusion
+and decoder (so train-mode BatchNorm takes its statistics over the joint
+``2B`` batch).  With ``shared_audio_pass`` (the default) the mixture is
+encoded once, on the union of the two speakers' non-pad masks, and reused
+for both (exact in eval; in train mode both speakers share one dropout
+draw).  Without it, the reference-shaped double pass: the encoder runs on
+the mixture twice as one ``[2B]`` batch (K1 once, on ``[2B, S]``), each row
+under its own speaker's mask, each with its own dropout draw.  The fusion has no
 train-mode behaviour (its attention has no dropout, the BiLSTM none, and the
 transformer temporal model is built with dropout 0, as in JAX).
 ``AudioOnlyCTC`` mirrors ``av_model.py:148-161`` and ``VisualOnlyCTC``
@@ -56,6 +59,12 @@ class MultiSpeakerAVModel(nn.Module):
         self.decoder = CTCDecoder(config.decoder, fused_out, dtype)
         self.contrastive_proj = Dense(config.audio.d_model, config.contrastive.projection_dim,
                                       dtype=torch.float32)
+        if not config.shared_audio_pass:
+            # The encoder's rows are two stacked batches, one per speaker: a
+            # mesh rank's dropout and SpecAugment draws keep its block of each.
+            for m in self.audio_encoder.modules():
+                if hasattr(m, "parts"):
+                    m.parts = 2
 
     def forward(self, lip1, lip2, audio, mask1, mask2, lip1_len=None, lip2_len=None,
                 train: bool = False, stop_visual_grad: bool = False, generator=None):
@@ -86,12 +95,17 @@ class MultiSpeakerAVModel(nn.Module):
             lens = torch.cat([full if lip1_len is None else lip1_len,
                               full if lip2_len is None else lip2_len], 0)
 
-        # One audio pass on the union mask serves both speakers.
-        last_1, middle_1, _ = self.audio_encoder(
-            audio, sample_mask=(mask1 != MASK_PAD) | (mask2 != MASK_PAD),
-            generator=generator if train else None)
-        last = torch.cat([last_1, last_1], 0)
-        middle = torch.cat([middle_1, middle_1], 0)
+        gen = generator if train else None
+        if self.config.shared_audio_pass:
+            # One audio pass on the union mask serves both speakers.
+            last_1, middle_1, _ = self.audio_encoder(
+                audio, sample_mask=(mask1 != MASK_PAD) | (mask2 != MASK_PAD), generator=gen)
+            last = torch.cat([last_1, last_1], 0)
+            middle = torch.cat([middle_1, middle_1], 0)
+        else:
+            # The double pass (av_model.py:127-130): [2B] rows, each speaker's mask.
+            last, middle, _ = self.audio_encoder(
+                torch.cat([audio, audio], 0), sample_mask=masks != MASK_PAD, generator=gen)
         mask_ds = downsample_mask_to(masks, last.shape[1])
         contrast = self.contrastive_proj(middle.to(torch.float32))
         fused, input_lengths = self.fusion(v, last, mask_ds, visual_lengths=lens)

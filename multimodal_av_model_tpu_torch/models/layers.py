@@ -1,7 +1,8 @@
 """Shared building blocks: dense and norm layers, PReLU, dropout, positions,
-BiLSTM, the legacy family's GRU and BiGRU, the transformer temporal model.
+one LSTM direction and the BiLSTM, the legacy family's GRU and BiGRU, the
+transformer temporal model.
 
-Mirrors ``multimodal_av_model_tpu/models/layers.py:21-83,134-355``.  Every
+Mirrors ``multimodal_av_model_tpu/models/layers.py:21-355``.  Every
 layer keeps f32 parameters and computes in its ``dtype`` (bfloat16 when
 serving), as the flax modules do: inputs and parameters are cast at use.
 Norms compute their statistics in f32.  Eps values follow flax: LayerNorm and
@@ -220,7 +221,7 @@ def make_act(kind: str, channels: int) -> nn.Module:
 
 
 def dropout(x, rate: float, generator: torch.Generator | None, shape=None,
-            rows: tuple[int, int] = (0, 1), cols: tuple[int, int] = (0, 1)):
+            rows: tuple[int, int] = (0, 1), cols: tuple[int, int] = (0, 1), parts: int = 1):
     """``flax.linen.Dropout``.  Eval (``generator`` None) or rate 0: ``x``.
     Train: keep each element with probability ``1 - rate`` and scale it by
     ``1 / (1 - rate)``.  The keep mask has ``shape`` (a shape that broadcasts
@@ -231,7 +232,9 @@ def dropout(x, rate: float, generator: torch.Generator | None, shape=None,
     mesh: block ``rows[0]`` of ``rows[1]`` along dim 0 and ``cols[0]`` of
     ``cols[1]`` along the last dim.  The mask of the whole tensor is drawn
     and this block of it kept, so the ranks of a mesh drop what one device
-    dropping the whole tensor would."""
+    dropping the whole tensor would.  ``parts``: ``x`` stacks that many
+    equal batches along dim 0 (the double audio pass's two speakers), each
+    of them block ``rows[0]`` of its own part of the whole tensor."""
     if generator is None or rate == 0.0:
         return x
     if rate == 1.0:
@@ -243,10 +246,17 @@ def dropout(x, rate: float, generator: torch.Generator | None, shape=None,
         shape[-1] *= cols[1]
     mask = torch.rand(shape, generator=generator, device=x.device) < keep
     if rows[1] > 1:
-        mask = mask.narrow(0, rows[0] * x.shape[0], x.shape[0])
+        mask = block_rows(mask, rows, parts)
     if cols[1] > 1:
         mask = mask.narrow(-1, cols[0] * x.shape[-1], x.shape[-1])
     return torch.where(mask, x / keep, 0.0)
+
+
+def block_rows(whole: torch.Tensor, rows: tuple[int, int], parts: int = 1) -> torch.Tensor:
+    """The rows of ``whole`` (a draw over the whole batch) that block
+    ``rows[0]`` of ``rows[1]`` holds, in each of ``parts`` equal parts along
+    dim 0, the parts' blocks stacked in order (``dropout``'s placement)."""
+    return whole.unflatten(0, (parts, rows[1], -1))[:, rows[0]].flatten(0, 1)
 
 
 class MultiHeadAttention(nn.Module):
@@ -360,6 +370,74 @@ def length_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
     return torch.arange(T, device=lengths.device)[None, :] < lengths[:, None]
 
 
+def _lstm_scan(z: torch.Tensor, keep: torch.Tensor, w_hh: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """The recurrence of ``D`` LSTM directions advanced together.
+
+    ``z [T, D, B, 4H]`` holds each frame's input projections (gates i, f,
+    g, o), ``keep [T, D, B, 1]`` the frames that advance each direction,
+    ``w_hh [D, H, 4H]`` and ``bias [D, 1, 4H]`` the recurrent side (flax
+    ``OptimizedLSTMCell``: the one bias is the recurrent one).  The carry
+    starts at 0 and freezes on the frames ``keep`` leaves out, whose output
+    is 0.  Returns ``[T, D, B, H]``."""
+    T, D, B, H4 = z.shape
+    h = z.new_zeros(D, B, H4 // 4)
+    c = z.new_zeros(D, B, H4 // 4)
+    ys = []
+    for t in range(T):
+        gates = z[t] + torch.baddbmm(bias, h, w_hh)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        nc = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        nh = torch.sigmoid(o) * torch.tanh(nc)
+        k = keep[t]
+        c = torch.where(k, nc, c)
+        h = torch.where(k, nh, h)
+        ys.append(torch.where(k, nh, 0.0))
+    return torch.stack(ys)
+
+
+class LSTMLayer(nn.Module):
+    """One LSTM direction ``[B, T, D] -> [B, T, H]`` (``layers.py:86-132``),
+    the masked scan the BiLSTM is held against: past each length the carry
+    freezes and the output is exactly 0; ``reverse`` runs it over the
+    flipped padded sequence with its mask, so the padding comes first and
+    leaves the carry at 0.  Parameters are one direction of
+    ``FusedBiLSTMLayer``'s (``from_fused``)."""
+
+    def __init__(self, in_dim: int, hidden: int, reverse: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden, self.reverse, self.dtype = hidden, reverse, dtype
+        self.w_ih = _param(4 * hidden, in_dim)
+        self.w_hh = _param(4 * hidden, hidden)
+        self.b_hh = _param(4 * hidden)
+
+    @classmethod
+    def from_fused(cls, layer: "FusedBiLSTMLayer", direction: int) -> "LSTMLayer":
+        """Direction ``direction`` (0 forward, 1 backward) of ``layer``,
+        with a copy of its parameters."""
+        out = cls(layer.w_ih.shape[-1], layer.hidden, reverse=direction == 1, dtype=layer.dtype)
+        with torch.no_grad():
+            for name in ("w_ih", "w_hh", "b_hh"):
+                getattr(out, name).copy_(getattr(layer, name)[direction])
+        return out
+
+    def forward(self, x, lengths=None):
+        dt = self.dtype
+        B, T, _ = x.shape
+        valid = (torch.ones(B, T, dtype=torch.bool, device=x.device) if lengths is None
+                 else length_mask(lengths, T))
+        z = F.linear(x.to(dt), self.w_ih.to(dt)).transpose(0, 1)             # [T, B, 4H]
+        keep = valid.transpose(0, 1)[..., None]                              # [T, B, 1]
+        if self.reverse:
+            z, keep = z.flip(0), keep.flip(0)
+        y = _lstm_scan(z[:, None], keep[:, None], self.w_hh.to(dt).t()[None],
+                       self.b_hh.to(dt)[None, None])[:, 0]
+        if self.reverse:
+            y = y.flip(0)
+        return y.transpose(0, 1)
+
+
 class FusedBiLSTMLayer(nn.Module):
     """One bidirectional LSTM layer (``layers.py:182-239``).
 
@@ -381,31 +459,15 @@ class FusedBiLSTMLayer(nn.Module):
 
     def forward(self, x, valid):
         """``x [B, T, D]``, ``valid [B, T]`` bool -> ``[B, T, 2H]``."""
-        dt, H = self.dtype, self.hidden
-        B, T, _ = x.shape
+        dt = self.dtype
         x = x.to(dt)
-        w_ih, w_hh, b_hh = self.w_ih.to(dt), self.w_hh.to(dt), self.b_hh.to(dt)
+        w_ih = self.w_ih.to(dt)
         zf = F.linear(x, w_ih[0]).transpose(0, 1)                  # [T, B, 4H]
         zb = F.linear(x, w_ih[1]).transpose(0, 1).flip(0)
-        z = torch.stack([zf, zb], dim=1)                           # [T, 2, B, 4H]
         v = valid.transpose(0, 1)                                  # [T, B]
         keep = torch.stack([v, v.flip(0)], dim=1)[..., None]       # [T, 2, B, 1]
-        w_hh_t = w_hh.transpose(1, 2)                              # [2, H, 4H]
-        bias = b_hh[:, None, :]                                    # [2, 1, 4H]
-
-        h = x.new_zeros(2, B, H)
-        c = x.new_zeros(2, B, H)
-        ys = []
-        for t in range(T):
-            gates = z[t] + torch.baddbmm(bias, h, w_hh_t)
-            i, f, g, o = gates.chunk(4, dim=-1)
-            nc = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            nh = torch.sigmoid(o) * torch.tanh(nc)
-            k = keep[t]
-            c = torch.where(k, nc, c)
-            h = torch.where(k, nh, h)
-            ys.append(torch.where(k, nh, 0.0))
-        y = torch.stack(ys)                                        # [T, 2, B, H]
+        y = _lstm_scan(torch.stack([zf, zb], dim=1), keep, self.w_hh.to(dt).transpose(1, 2),
+                       self.b_hh.to(dt)[:, None, :])               # [T, 2, B, H]
         y = torch.cat([y[:, 0], y[:, 1].flip(0)], dim=-1)          # [T, B, 2H]
         return y.transpose(0, 1)
 

@@ -3,3 +3,7 @@ their plain versions, the CTC loss, collapse and greedy decode, prefix beam
 search (offline and streaming), the reference path beam, int8 weight-only
 quantization, the masked contrastive loss, SpecAugment, the masked-span
 InfoNCE and the error-rate counts."""
+
+from .metrics import cer, wer
+
+__all__ = ["cer", "wer"]

@@ -1,6 +1,6 @@
 """CTC loss, collapse and greedy decoding on the device.
 
-Mirrors ``multimodal_av_model_tpu/ops/ctc.py:39-130,140-185``.  The JAX loss
+Mirrors ``multimodal_av_model_tpu/ops/ctc.py:39-185``.  The JAX loss
 is a ``lax.scan`` forward recursion, not a Pallas kernel; here it is ATen's
 ``F.ctc_loss`` (its native kernel: cuDNN's takes blank 0 only).
 """
@@ -38,6 +38,17 @@ def ctc_loss(log_probs: torch.Tensor, labels: torch.Tensor, input_lengths: torch
     if reduction == "mean":
         return (per / label_lengths.clamp(min=1).float()).mean()
     raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def ctc_loss_from_logits(logits: torch.Tensor, labels: torch.Tensor,
+                         input_lengths: torch.Tensor, label_lengths: torch.Tensor,
+                         blank_id: int = 0, **kw) -> torch.Tensor:
+    """``ctc_loss`` after an f32 ``log_softmax`` of ``logits [B, T, V]``
+    (``ctc.py:133-137``).  The ``log_softmax`` is in the graph, so the
+    gradient with respect to ``logits`` is the true one (``ctc_loss``'s
+    note)."""
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    return ctc_loss(log_probs, labels, input_lengths, label_lengths, blank_id, **kw)
 
 
 def ctc_collapse(ids: torch.Tensor, lengths: torch.Tensor, blank_id: int, pad_id: int = -1):

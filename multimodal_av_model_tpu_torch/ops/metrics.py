@@ -1,8 +1,8 @@
 """Word and character error-rate counts, in pure Python.
 
-Own copy of ``multimodal_av_model_tpu/ops/metrics.py:16-86``
+Own copy of ``multimodal_av_model_tpu/ops/metrics.py:16-100``
 (``levenshtein_py``, ``levenshtein`` on the native host ops, the additive
-corpus counts and ``rate_from_counts``).  A corpus rate is the total edit
+corpus counts, ``rate_from_counts`` and the ``wer`` / ``cer`` rates).  A corpus rate is the total edit
 distance over the total reference length, so counts from several batches
 sum before the division.
 """
@@ -67,3 +67,22 @@ def cer_counts(references: Sequence[str], hypotheses: Sequence[str],
 
     return corpus_counts([list(norm(r)) for r in references],
                          [list(norm(h)) for h in hypotheses])
+
+
+def _as_lists(references, hypotheses):
+    """One ``str`` each -> one-element lists (``metrics.py:81-82``)."""
+    if isinstance(references, str):
+        return [references], [hypotheses]
+    return references, hypotheses
+
+
+def wer(references: Sequence[str] | str, hypotheses: Sequence[str] | str) -> float:
+    """Corpus word error rate over whitespace-split words (``metrics.py:79-83``)."""
+    return rate_from_counts(*wer_counts(*_as_lists(references, hypotheses)))
+
+
+def cer(references: Sequence[str] | str, hypotheses: Sequence[str] | str,
+        remove_spaces: bool = False) -> float:
+    """Corpus character error rate, whitespace runs collapsed to one space
+    (``metrics.py:86-100``)."""
+    return rate_from_counts(*cer_counts(*_as_lists(references, hypotheses), remove_spaces))

@@ -38,26 +38,36 @@ class SpecAugmentDraws:
 
 def draw_spec_augment(generator: torch.Generator, frame_valid: torch.Tensor, n_bins: int,
                       freq_masks: int = 2, freq_mask_width: int = 27, time_masks: int = 2,
-                      time_mask_frac: float = 0.05) -> SpecAugmentDraws:
+                      time_mask_frac: float = 0.05, rows: tuple[int, int] = (0, 1),
+                      parts: int = 1) -> SpecAugmentDraws:
     """Stripes for ``frame_valid [B, T]`` (bool) and ``n_bins`` mel bins,
     drawn from ``generator`` (on ``frame_valid``'s device), with the bounds
-    of ``specaugment.py:54-76``."""
+    of ``specaugment.py:54-76``.
+
+    ``rows`` and ``parts`` place these ``B`` rows in a batch split over a
+    mesh, as ``models/layers.py:dropout`` does: every draw is made for the
+    whole batch and these rows of it kept, so the ranks draw what one
+    device drawing for the whole batch would (``layers.block_rows``)."""
+    from ..models.layers import block_rows       # here: models imports this module
+
     B = frame_valid.shape[0]
     dev = frame_valid.device
     valid_len = frame_valid.sum(dim=1).clamp(min=1)                       # [B]
+
+    def uniform(m):
+        return block_rows(torch.rand(B * rows[1], m, generator=generator, device=dev), rows,
+                          parts)
+
     empty = torch.zeros(B, 0, dtype=torch.int64, device=dev)
     fw = fs = tw = ts = empty
     if freq_masks > 0 and freq_mask_width > 0:
-        fw = torch.randint(0, freq_mask_width + 1, (B, freq_masks), generator=generator,
-                           device=dev)
-        fs = (torch.rand(B, freq_masks, generator=generator, device=dev)
-              * (n_bins - fw).clamp(min=1)).long()
+        fw = block_rows(torch.randint(0, freq_mask_width + 1, (B * rows[1], freq_masks),
+                                      generator=generator, device=dev), rows, parts)
+        fs = (uniform(freq_masks) * (n_bins - fw).clamp(min=1)).long()
     if time_masks > 0 and time_mask_frac > 0:
         max_w = (valid_len.float() * time_mask_frac).clamp(min=1.0)
-        tw = (torch.rand(B, time_masks, generator=generator, device=dev)
-              * (max_w[:, None] + 1.0)).long()
-        ts = (torch.rand(B, time_masks, generator=generator, device=dev)
-              * (valid_len[:, None] - tw).clamp(min=1)).long()
+        tw = (uniform(time_masks) * (max_w[:, None] + 1.0)).long()
+        ts = (uniform(time_masks) * (valid_len[:, None] - tw).clamp(min=1)).long()
     return SpecAugmentDraws(fw, fs, tw, ts)
 
 
@@ -90,10 +100,12 @@ def apply_spec_augment(mel: torch.Tensor, frame_valid: torch.Tensor | None,
 def spec_augment(generator: torch.Generator, mel: torch.Tensor,
                  frame_valid: torch.Tensor | None = None, *, freq_masks: int = 2,
                  freq_mask_width: int = 27, time_masks: int = 2,
-                 time_mask_frac: float = 0.05) -> torch.Tensor:
-    """Draw, then apply (``specaugment.py:22-87``)."""
+                 time_mask_frac: float = 0.05, rows: tuple[int, int] = (0, 1),
+                 parts: int = 1) -> torch.Tensor:
+    """Draw, then apply (``specaugment.py:22-87``); ``rows`` and ``parts``
+    as ``draw_spec_augment``'s."""
     if frame_valid is None:
         frame_valid = torch.ones(mel.shape[:2], dtype=torch.bool, device=mel.device)
     draws = draw_spec_augment(generator, frame_valid, mel.shape[2], freq_masks,
-                              freq_mask_width, time_masks, time_mask_frac)
+                              freq_mask_width, time_masks, time_mask_frac, rows, parts)
     return apply_spec_augment(mel, frame_valid, draws)

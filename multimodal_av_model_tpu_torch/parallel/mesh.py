@@ -146,8 +146,8 @@ def bind_data_axis(model: torch.nn.Module, mesh) -> None:
     """Make ``model`` compute what one device would on the whole batch when
     its rows are split over the ``data`` axis: BatchNorms all-reduce their
     statistics over it, the fusion its batch-max kept length, and dropout
-    draws the whole batch's masks."""
-    from ..models.audio import ConvModule, FeedForward
+    and SpecAugment draw for the whole batch."""
+    from ..models.audio import AudioEncoder, ConvModule, FeedForward
     from ..models.fusion import CrossAttentionFusion
     from ..models.layers import BatchNorm
 
@@ -159,7 +159,7 @@ def bind_data_axis(model: torch.nn.Module, mesh) -> None:
     for m in model.modules():
         if isinstance(m, (BatchNorm, CrossAttentionFusion)):
             m.group = group
-        elif isinstance(m, (FeedForward, ConvModule)):
+        elif isinstance(m, (FeedForward, ConvModule, AudioEncoder)):
             m.rows = rows
 
 

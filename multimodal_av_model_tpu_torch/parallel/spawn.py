@@ -274,11 +274,3 @@ def pipeline_leg(out: str, num_layers: int = 4, dim: int = 16, T: int = 8,
             dist.all_reduce(p.grad, group=mesh["data"].get_group())
             p -= 0.1 * p.grad
     _save_on_rank0({"pp_diff": diff, "pp_loss": loss.item()}, out)
-
-
-def dryrun_ranks(jobs: list[dict], vocab_path: str, batch: dict, pp_out: str | None) -> None:
-    """``graft_entry.dryrun_multichip``'s rank function: ``meshed_train_steps``,
-    then with ``pp_out`` the pipeline leg."""
-    meshed_train_steps(jobs, vocab_path, batch)
-    if pp_out:
-        pipeline_leg(pp_out)

@@ -1,4 +1,4 @@
 from .korean import KoreanSyllableVocab
-from .tokenizer import CharTokenizer
+from .tokenizer import CharTokenizer, Tokenizer
 
-__all__ = ["CharTokenizer", "KoreanSyllableVocab"]
+__all__ = ["CharTokenizer", "KoreanSyllableVocab", "Tokenizer"]

@@ -6,16 +6,17 @@ Own copy of ``multimodal_av_model_tpu/text/korean.py:17-92``:
 * ``KoreanSyllableVocab`` (``:17-33``): ``<blank>`` at id 0 and the 11,172
   Hangul syllables U+AC00-U+D7A3, 11,173 ids in all; text -> ids drops
   characters outside the block;
-* jamo counts: each Hangul syllable decomposes into its choseong, jungseong
-  and (if any) jongseong, so a wrong vowel costs a third of a syllable rather
-  than a whole character.
+* jamo counts and ``jamo_error_rate`` (``:74-92``): each Hangul syllable
+  decomposes into its choseong, jungseong and (if any) jongseong, so a wrong
+  vowel costs a third of a syllable rather than a whole character;
+* ``is_hangul_syllable`` (``:36-37``).
 """
 
 from __future__ import annotations
 
 from typing import Iterable
 
-from ..ops.metrics import corpus_counts
+from ..ops.metrics import corpus_counts, rate_from_counts
 
 _HANGUL_START = 0xAC00
 _HANGUL_END = 0xD7A3  # inclusive
@@ -51,9 +52,14 @@ _JONGSEONG = ["", "ㄱ", "ㄲ", "ㄳ", "ㄴ", "ㄵ", "ㄶ", "ㄷ", "ㄹ", "ㄺ",
               "ㅆ", "ㅇ", "ㅈ", "ㅊ", "ㅋ", "ㅌ", "ㅍ", "ㅎ"]
 
 
+def is_hangul_syllable(ch: str) -> bool:
+    """True for a character of the Hangul syllable block U+AC00-U+D7A3."""
+    return _HANGUL_START <= ord(ch) <= _HANGUL_END
+
+
 def syllable_to_jamo(ch: str) -> list[str]:
     """One Hangul syllable -> its jamo; other characters pass through."""
-    if not _HANGUL_START <= ord(ch) <= _HANGUL_END:
+    if not is_hangul_syllable(ch):
         return [ch]
     cho, rem = divmod(ord(ch) - _HANGUL_START, _N_JUNG * _N_JONG)
     jung, jong = divmod(rem, _N_JONG)
@@ -74,3 +80,8 @@ def jamo_counts(references, hypotheses) -> tuple[int, int]:
         references, hypotheses = [references], [hypotheses]
     return corpus_counts([text_to_jamo(" ".join(r.split())) for r in references],
                          [text_to_jamo(" ".join(h.split())) for h in hypotheses])
+
+
+def jamo_error_rate(references, hypotheses) -> float:
+    """The corpus error rate at the jamo level (``korean.py:74-79``)."""
+    return rate_from_counts(*jamo_counts(references, hypotheses))

@@ -3,7 +3,8 @@
 Own copy of ``multimodal_av_model_tpu/text/tokenizer.py:31-149``
 (``CharTokenizer``): one ``token<TAB>logprob`` line per id, per-character
 encode with ``' '`` -> ``'▁'``, decode that drops out-of-range ids,
-``decode_ctc`` (blanks dropped, no merge) and ``encode_array``.  On the
+``decode_ctc`` (blanks dropped, no merge) and ``encode_array``;
+``Tokenizer`` is its other name (``tokenizer.py:93-94``).  On the
 shipped ``assets/tokenizer800.vocab`` the special ids are ``unk=0, <s>=1,
 </s>=2, blank=3, ▁=4``.  ``build_char_vocab``, ``write_vocab`` and
 ``train_tokenizer_from_txt_folder`` build such a vocab from text files, byte
@@ -75,6 +76,10 @@ class CharTokenizer:
     @property
     def unk_id(self) -> int:
         return self.token_to_id.get("<unk>", 0)
+
+
+# The reference's class name (``tokenizer.py:93-94``).
+Tokenizer = CharTokenizer
 
 
 def build_char_vocab(texts: Iterable[str], vocab_size: int = 800,

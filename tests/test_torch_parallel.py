@@ -382,6 +382,15 @@ def test_dryrun_multichip_four_processes():
     assert report["pp_diff"] < 2e-5 and np.isfinite(report["pp_loss"])     # the pipeline leg
 
 
+def test_dryrun_multichip_six_processes_runs_the_pipeline_leg_on_four():
+    """JAX runs the pipeline leg for every ``n >= 4``, on the first
+    ``4 (n // 4)`` devices (``__graft_entry__.py:241-252``); the port runs
+    it on a second spawn of that many processes."""
+    report = graft_entry.dryrun_multichip(6)
+    assert report["loss_diff"] < 1e-4 and np.isfinite(report["loss"])
+    assert report["pp_diff"] < 2e-5 and np.isfinite(report["pp_loss"])
+
+
 def test_every_process_loads_the_same_pairs_in_both_packages():
     """JAX's ``build_data`` is not process-aware (``main.py:27-110``): each
     process of a multi-process run draws the same seeded pairs, so a pair

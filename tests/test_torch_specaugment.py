@@ -186,7 +186,8 @@ def test_encoder_applies_it_in_train_mode_only(monkeypatch):
     train_out = enc(wave, mask, generator=g)[0]
     (mel, out, kw), = seen
     assert not mel.requires_grad and kw == {"freq_masks": 2, "freq_mask_width": 5,
-                                            "time_masks": 2, "time_mask_frac": 0.2}
+                                            "time_masks": 2, "time_mask_frac": 0.2,
+                                            "rows": (0, 1), "parts": 1}
     assert not torch.equal(out, mel) and not torch.equal(train_out, eval_out)
     replay = torch.Generator().manual_seed(0)
     replay.set_state(state)
