@@ -29,9 +29,8 @@ Phases, each printing a line; any failure exits non-zero:
    (CUPTI) over launches issued one by one at the shapes of phase 3 (after
    the timed requests, and in the process's first profiler session, which
    catches every launch);
-7. outside the counted run, one more request timed by layer with CUDA
-   events, and one under ``torch.profiler`` (its table of ops by device time
-   is printed);
+7. outside the counted run, one more request with the port's recorder on
+   (``tracing``: host and device ms and host syncs of each span);
 8. ``[train-ref]`` (run after phase 5): one training step of a small f32
    model (BatchNorm, no dropout, B = 2, bucket 64) from one seeded state on
    the card (K1, K2) and on the CPU (plain versions), on the same raw batch:
@@ -60,8 +59,8 @@ Phases, each printing a line; any failure exits non-zero:
     losses, 3 rows of
     ``eval_log.csv``, ``last.ckpt`` at epoch 3, the ``--eval`` JSON and 8
     transcribed pairs;
-11. ``[train-profile]`` (after phase 7): one B = 8 step under
-    ``torch.profiler``;
+11. ``[train-profile]`` (after phase 7): one B = 8 step with the
+    recorder on;
 12. ``[beam-ref]`` (after phase 5): ``decode.algorithm="reference_beam"`` on
     one bucket-128 request; the card's ids equal a CPU run of the reference
     beam on the same log-probs, and the decode's ms;
@@ -638,113 +637,30 @@ def serving_phase(torch, rng, tok):
         f"{json.dumps(all_texts[0][0])[:120]}")
 
     def profile_request():
-        wall = layer_breakdown(torch, transcriber, serve, requests[0])
-        kernel_profile(torch, serve, requests[0], wall)
+        traced(torch, "layers", "one bucket-128 request", lambda: serve(requests[0]))
     return launches, profile_request, (transcriber, requests, plan, lat)
 
 
-def layer_breakdown(torch, transcriber, serve, raw, tag: str = "layers"):
-    """Device-stream time per layer for one bucket-128 request, by CUDA events
-    recorded from forward hooks (after the main path, not counted in it)."""
-    model = transcriber.model
-    parts = {"forward": model, "visual_encoder": model.visual_encoder,
-             "audio_encoder": model.audio_encoder, "fusion": model.fusion,
-             "decoder": model.decoder}
-    events, handles = {}, []
+def traced(torch, tag: str, what: str, run) -> None:
+    """``run()`` once with the port's recorder on (``tracing``): its spans by
+    name with their host and device ms and host syncs."""
+    from multimodal_av_model_tpu_torch import tracing
 
-    def new_event():
-        return torch.cuda.Event(enable_timing=True)
-
-    def hooks(name):
-        def pre(mod, args):
-            events[name] = (new_event(), new_event())
-            events[name][0].record()
-
-        def post(mod, args, out):
-            events[name][1].record()
-        return pre, post
-
-    for name, mod in parts.items():
-        pre, post = hooks(name)
-        handles += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-    start, end = new_event(), new_event()
+    torch.cuda.synchronize()
+    tracing.enable("cuda")
     try:
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        start.record()
-        serve(raw)
-        end.record()
+        with tracing.unit(0):
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     finally:
-        for h in handles:
-            h.remove()
-    fwd = events.pop("forward")
-    row = {"preprocess (H2D + mixing + K2)": start.elapsed_time(fwd[0])}
-    row.update({k: a.elapsed_time(b) for k, (a, b) in events.items()})
-    row["prefix-beam decode + readback"] = fwd[1].elapsed_time(end)
-    log(f"[{tag}] one bucket-128 request, {wall:.1f} ms wall; stream time by layer (ms): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in row.items())
-        + f"; total {start.elapsed_time(end):.2f}")
-    return wall
-
-
-def device_profile(torch, tag: str, what: str, run, plain_wall_ms: float) -> None:
-    """``torch.profiler`` over one ``run()``: its table of ops by device time,
-    and the device's busy time and idle share of the wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    stats = prof.key_averages()
-    key = "device_time_total" if hasattr(stats[0], "device_time_total") else "cuda_time_total"
-    busy = sum(getattr(e, "self_" + key) for e in stats       # device rows only, as
-               if e.device_type == DeviceType.CUDA            # the table's total
-               and not getattr(e, "is_user_annotation", False)) / 1e3
-    table = stats.table(sort_by=key, row_limit=30, max_name_column_width=60)
-    log(f"[{tag}] ops by device time:\n" + table)
-    log(f"[{tag}] {what}: device busy {busy:.2f} ms; idle share "
-        f"{1 - busy / plain_wall_ms:.3f} of the {plain_wall_ms:.1f} ms unprofiled wall "
-        f"({1 - busy / wall:.3f} of the {wall:.1f} ms wall under the profiler)")
-
-
-def step_breakdown(torch, run) -> dict:
-    """``torch.profiler`` over one ``run()`` -> its wall and device busy time
-    (ms), the kernels it launched, its cudaMalloc calls, its synchronising
-    runtime calls and the host time in them, and its table of host ops by
-    self CPU time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    stats = prof.key_averages()
-    key = "device_time_total" if hasattr(stats[0], "device_time_total") else "cuda_time_total"
-    device = [e for e in stats if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)]
-    host = {e.key: e for e in stats if e.device_type != DeviceType.CUDA}
-    syncs = [host[k] for k in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
-                               "cudaEventSynchronize", "cudaMemcpy") if k in host]
-    return {"wall": wall, "busy": sum(getattr(e, "self_" + key) for e in device) / 1e3,
-            "kernels": sum(e.count for e in device),
-            "malloc": host["cudaMalloc"].count if "cudaMalloc" in host else 0,
-            "sync": sum(e.count for e in syncs),
-            "sync_ms": sum(e.self_cpu_time_total for e in syncs) / 1e3,
-            "table": stats.table(sort_by="self_cpu_time_total", row_limit=12,
-                                 max_name_column_width=50)}
-
-
-def kernel_profile(torch, serve, raw, plain_wall_ms: float):
-    """torch.profiler over one request."""
-    device_profile(torch, "profile", "one bucket-128 request", lambda: serve(raw),
-                   plain_wall_ms)
+        tracing.disable()
+    rows = tracing.summary(tracing.collect())
+    log(f"[{tag}] {what}, {wall:.1f} ms wall with the recorder on; spans (n, host ms, device "
+        "ms, host syncs): " + "; ".join(
+            f"{k} {r['n']:g} {r['host_ms']:.2f} {r['device_ms']:.2f} {r.get('host_syncs', 0):g}"
+            for k, r in rows.items()))
 
 
 def make_train_batch(rng, B: int, spec, crop: int = 128, frames: int = 120,
@@ -1787,7 +1703,7 @@ def temporal_tf_phase(torch, rng, tok) -> dict:
         f"bf16: 3 bucket-128 requests of 4 "
         + ", ".join(f"{ms:.1f}" for ms in lat) + f" ms; peak device memory "
         f"{peak / 2**30:.2f} GiB; launches per request {per_request}")
-    layer_breakdown(torch, transcriber, serve, requests[0], "temporal-tf")
+    traced(torch, "temporal-tf", "one bucket-128 request", lambda: serve(requests[0]))
     del transcriber, model
     train_launches, _ = train_phase(torch, rng, tok, runs=((8, "none", 5),),
                                     temporal_model="transformer", tag="temporal-tf")
@@ -3487,7 +3403,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     ids held exactly; then at full width one bucket-128 request of 4
     mixtures served with the double pass, and the B = 8 training step at
     ``bench.py``'s shapes: each pass alone (2 warm-up, 5 timed steps, the
-    allocator's device calls, one profiled step), then both alive, 2
+    allocator's device calls, one step with the recorder on), then both alive, 2
     warm-up and 5 timed steps of each in turns (shared, double, double,
     shared), with FLOPs by ``FlopCounterMode`` (the audio encoder's forward
     doubles).  Returns the double pass's launches (request and the timed
@@ -3626,7 +3542,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
 
     # Each pass alone (only its trainer alive), the double pass built first:
     # 5 timed steps, the caching allocator's cudaMalloc / cudaFree calls over
-    # them, and one step under torch.profiler.
+    # them, and one step with the recorder on.
     alone = {}
     for name in ("double", "shared"):
         step = make_step(name == "shared")[0]
@@ -3634,13 +3550,10 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
         times, _, _, _, peak = _timed_steps(torch, step, 0, 5)
         calls = allocator_calls() - before
         alone[name] = times
-        bd = step_breakdown(torch, step)
         log(f"[{tag}] B=8 {name} pass alone: {_ms(times)} per step; peak device memory "
             f"{peak / 2**30:.2f} GiB; device cudaMalloc / cudaFree over the 5 steps "
-            f"{calls[0]} / {calls[1]}; one profiled step: wall {bd['wall']:.1f} ms, device busy "
-            f"{bd['busy']:.1f} ms, {bd['kernels']} kernels, {bd['malloc']} cudaMalloc, "
-            f"{bd['sync']} synchronisations ({bd['sync_ms']:.1f} ms of host time in them)")
-        log(f"[{tag}] {name} pass alone, host ops by self CPU time:\n" + bd["table"])
+            f"{calls[0]} / {calls[1]}")
+        traced(torch, tag, f"one B=8 step of the {name} pass alone", step)
         del step
         gc.collect()
         torch.cuda.empty_cache()
@@ -3829,16 +3742,10 @@ def upstream_phases(torch, rng, tok, smi: str, only=UPSTREAM) -> dict:
 
 
 def train_profile(torch, step) -> None:
-    """One B = 8 training step timed (after one more to warm the caching
-    allocator again after the B = 32 steps), then one under
-    ``torch.profiler``."""
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    device_profile(torch, "train-profile", "one B=8 training step", step, wall)
+    """One B = 8 training step (after one more to warm the caching allocator
+    again after the B = 32 steps) with the recorder on."""
+    step()
+    traced(torch, "train-profile", "one B=8 training step", step)
 
 
 def main() -> int:

@@ -5,6 +5,8 @@ is decode and pad-to-bucket; on the device run the two-speaker mixing with its
 0/1/2/3 masks (``mixing.mix_pair_batched_device``) and the lip preprocessing
 (grey, bilinear resize, /255), which is kernel K2 on a CUDA device.  The output
 has the collator's layout, so the model does not know which pipeline made it.
+Spans (``tracing``): ``preprocess`` over a call, ``preprocess.h2d`` over each
+copy of a raw input, ``preprocess.mix`` and ``preprocess.lips`` (K2).
 """
 
 from __future__ import annotations
@@ -13,13 +15,15 @@ import numpy as np
 import torch
 
 from ..ops.resize import lip_preprocess_cuda
+from ..tracing import span
 from .mixing import mix_pair_batched_device
 
 
 def _on(x, device) -> torch.Tensor:
     if not isinstance(x, torch.Tensor):
         x = torch.from_numpy(np.ascontiguousarray(x))
-    return x.to(device)
+    with span("preprocess.h2d"):
+        return x.to(device)
 
 
 def preprocess_batch_device(lips1_raw, lips2_raw, audio1, audio2, audio1_len,
@@ -40,20 +44,22 @@ def preprocess_batch_device(lips1_raw, lips2_raw, audio1, audio2, audio1_len,
     def prep_lips(raw):
         raw = _on(raw, device)
         B, T, H, W, C = raw.shape
-        out = lip_preprocess_cuda(raw.reshape(B * T, H, W, C), out_size)
+        with span("preprocess.lips"):
+            out = lip_preprocess_cuda(raw.reshape(B * T, H, W, C), out_size)
         return out.reshape(B, T, 1, out_size, out_size)
 
-    mixed, mask1, mask2, mix_len = mix_pair_batched_device(
-        _on(audio1, device), _on(audio2, device),
-        _on(audio1_len, device), _on(audio2_len, device))
-    return {
-        "lip1": prep_lips(lips1_raw),
-        "lip2": prep_lips(lips2_raw),
-        "audio": mixed,
-        "mask1": mask1,
-        "mask2": mask2,
-        "audio_lengths": mix_len,
-    }
+    with span("preprocess"):
+        waves = [_on(x, device) for x in (audio1, audio2, audio1_len, audio2_len)]
+        with span("preprocess.mix"):
+            mixed, mask1, mask2, mix_len = mix_pair_batched_device(*waves)
+        return {
+            "lip1": prep_lips(lips1_raw),
+            "lip2": prep_lips(lips2_raw),
+            "audio": mixed,
+            "mask1": mask1,
+            "mask2": mask2,
+            "audio_lengths": mix_len,
+        }
 
 
 _PASSTHROUGH_KEYS = (

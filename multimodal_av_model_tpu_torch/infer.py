@@ -41,6 +41,7 @@ from .ops.ctc import ctc_greedy_decode
 from .ops.prefix_beam_search import prefix_beam_search_decode
 from .ops.quantize import QuantizedModel
 from .text.ngram_lm import load_bigram_lm
+from .tracing import span
 
 
 def load_fusion_lm(path: str, device) -> torch.Tensor | None:
@@ -141,15 +142,20 @@ class Transcriber:
     @torch.no_grad()
     def transcribe(self, batch: dict, use_beam: bool = True):
         """Batch dict (collate layout; tensors or numpy arrays) -> list of
-        ``(speaker1_text, speaker2_text)``."""
-        out = self.forward(*[_tensor(batch[k], self.device) for k in _BATCH_KEYS])
-        B = out["log_probs1"].shape[0]
-        # The decode rows are independent, so both speakers run as one [2B] batch.
-        ids, lens = decode_ids(
-            self.config, torch.cat([out["log_probs1"], out["log_probs2"]]),
-            torch.cat([out["input_lengths1"], out["input_lengths2"]]), use_beam, self.lm)
-        texts = _texts(self.tokenizer, ids, lens)
-        return list(zip(texts[:B], texts[B:]))
+        ``(speaker1_text, speaker2_text)``.  Spans (``tracing``):
+        ``transcribe`` and its ``.forward``, ``.decode`` and ``.readback``."""
+        with span("transcribe"):
+            with span("transcribe.forward"):
+                out = self.forward(*[_tensor(batch[k], self.device) for k in _BATCH_KEYS])
+            B = out["log_probs1"].shape[0]
+            # The decode rows are independent, so both speakers run as one [2B] batch.
+            with span("transcribe.decode"):
+                ids, lens = decode_ids(
+                    self.config, torch.cat([out["log_probs1"], out["log_probs2"]]),
+                    torch.cat([out["input_lengths1"], out["input_lengths2"]]), use_beam, self.lm)
+            with span("transcribe.readback"):
+                texts = _texts(self.tokenizer, ids, lens)
+            return list(zip(texts[:B], texts[B:]))
 
 
 @dataclasses.dataclass

@@ -25,6 +25,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..data.mixing import MASK_PAD
+from ..tracing import span
 from .audio import AudioEncoder
 from .decoder import CTCDecoder
 from .fusion import CrossAttentionFusion
@@ -85,7 +86,8 @@ class MultiSpeakerAVModel(nn.Module):
         B, T_v = lip1.shape[0], lip1.shape[1]
         lips = torch.cat([nchw_clip_to_channels_last(lip1),
                           nchw_clip_to_channels_last(lip2)], 0)
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_visual_grad):
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_visual_grad), \
+                span("encoders.visual"):
             v = self.visual_encoder(lips, train)
 
         masks = torch.cat([mask1, mask2], 0)
@@ -96,20 +98,23 @@ class MultiSpeakerAVModel(nn.Module):
                               full if lip2_len is None else lip2_len], 0)
 
         gen = generator if train else None
-        if self.config.shared_audio_pass:
-            # One audio pass on the union mask serves both speakers.
-            last_1, middle_1, _ = self.audio_encoder(
-                audio, sample_mask=(mask1 != MASK_PAD) | (mask2 != MASK_PAD), generator=gen)
-            last = torch.cat([last_1, last_1], 0)
-            middle = torch.cat([middle_1, middle_1], 0)
-        else:
-            # The double pass (av_model.py:127-130): [2B] rows, each speaker's mask.
-            last, middle, _ = self.audio_encoder(
-                torch.cat([audio, audio], 0), sample_mask=masks != MASK_PAD, generator=gen)
+        with span("encoders.audio"):
+            if self.config.shared_audio_pass:
+                # One audio pass on the union mask serves both speakers.
+                last_1, middle_1, _ = self.audio_encoder(
+                    audio, sample_mask=(mask1 != MASK_PAD) | (mask2 != MASK_PAD), generator=gen)
+                last = torch.cat([last_1, last_1], 0)
+                middle = torch.cat([middle_1, middle_1], 0)
+            else:
+                # The double pass (av_model.py:127-130): [2B] rows, each speaker's mask.
+                last, middle, _ = self.audio_encoder(
+                    torch.cat([audio, audio], 0), sample_mask=masks != MASK_PAD, generator=gen)
         mask_ds = downsample_mask_to(masks, last.shape[1])
         contrast = self.contrastive_proj(middle.to(torch.float32))
-        fused, input_lengths = self.fusion(v, last, mask_ds, visual_lengths=lens)
-        log_probs = self.decoder(fused)
+        with span("fusion"):
+            fused, input_lengths = self.fusion(v, last, mask_ds, visual_lengths=lens)
+        with span("decoder"):
+            log_probs = self.decoder(fused)
         return {
             "log_probs1": log_probs[:B], "input_lengths1": input_lengths[:B],
             "contrast1": contrast[:B], "mask_ds1": mask_ds[:B],

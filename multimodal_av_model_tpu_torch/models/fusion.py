@@ -16,6 +16,7 @@ from torch import nn
 
 from ..config import FusionConfig
 from ..data.mixing import MASK_OTHER_SOLO, MASK_PAD
+from ..tracing import span
 from .layers import BiLSTM, Dense, MultiHeadAttention, TransformerTemporalBlock, length_mask
 
 
@@ -108,9 +109,10 @@ class CrossAttentionFusion(nn.Module):
             attn_mask = length_mask(visual_lengths, T_v)[:, None, None, :]
         a2v = self.cross_attn_audio(a, v, attn_mask)
         fused = self.fusion_proj(a2v)
-        if self.config.temporal_model == "bilstm":
-            fused_seq = self.temporal_bilstm(fused, visual_lengths)
-        else:
-            fused_seq = self.temporal_out(self.temporal_tf(fused, visual_lengths))
+        with span("fusion.temporal"):
+            if self.config.temporal_model == "bilstm":
+                fused_seq = self.temporal_bilstm(fused, visual_lengths)
+            else:
+                fused_seq = self.temporal_out(self.temporal_tf(fused, visual_lengths))
         input_lengths = (mask_i != 0).sum(dim=1).to(torch.int32)
         return fused_seq, input_lengths

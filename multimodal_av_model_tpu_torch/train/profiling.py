@@ -4,10 +4,13 @@ Mirrors ``multimodal_av_model_tpu/train/profiling.py:28-77``:
 
 * ``trace(log_dir)``: ``torch.profiler`` over the block, with CUDA activity
   when the device is the card, writing a ``*.pt.trace.json`` that
-  TensorBoard's profiler plugin and Perfetto load (JAX: ``jax.profiler``);
-* ``annotate(name)``: ``torch.profiler.record_function``, a named range in
-  the trace (JAX: ``jax.named_scope``).  The JAX package names no block of
-  its own with it, so neither does the port; callers label what they time;
+  TensorBoard's profiler plugin and Perfetto load (JAX: ``jax.profiler``).
+  It turns the port's recorder (``tracing``) on for the block, so the
+  program's spans are ranges of the trace;
+* ``annotate(name)``: ``tracing.span``, a named range in the trace (JAX:
+  ``jax.named_scope``).  The JAX package names no block of its own; the
+  port opens its spans at the layers of a request and of a training step
+  (``tracing``'s table), and callers may label more;
 * ``nan_guard()``: traps the first non-finite value: a forward hook on every
   module raises ``FloatingPointError`` naming the first module whose output
   is not finite, and anomaly mode raises at the first backward function that
@@ -29,12 +32,16 @@ from typing import Iterator, Mapping
 
 import torch
 
+from .. import tracing
+
 
 @contextlib.contextmanager
 def trace(log_dir: str, device: str | None = None) -> Iterator[torch.profiler.profile]:
-    """Profile everything inside the block into ``log_dir``; yields the
-    profiler (``key_averages()`` after the block).  ``device``: ``cuda``
-    records the card's kernels too (default: when there is a card)."""
+    """Profile everything inside the block into ``log_dir``, with the
+    recorder on (unless it already was, what it recorded in the block is
+    dropped at the end: the trace holds it); yields the profiler
+    (``key_averages()`` after the block).  ``device``: ``cuda`` records the
+    card's kernels too (default: when there is a card)."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     if device is None:
@@ -43,16 +50,25 @@ def trace(log_dir: str, device: str | None = None) -> Iterator[torch.profiler.pr
     if device == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir),
-                 record_shapes=False) as prof:
-        yield prof
-        if device == "cuda":
-            torch.cuda.synchronize()
+    owner = not tracing.enabled()
+    tracing.enable(device)
+    try:
+        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir),
+                     record_shapes=False) as prof:
+            yield prof
+            if device == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        if owner:
+            tracing.disable()
+            tracing.collect()
 
 
 def annotate(name: str):
-    """A named range in the profiler's trace: ``with annotate("fusion"): ...``."""
-    return torch.profiler.record_function(name)
+    """A named range in the profiler's trace: ``with annotate("fusion"): ...``
+    (``tracing.span``: a range while the recorder is on, as inside
+    ``trace``)."""
+    return tracing.span(name)
 
 
 def _first_bad(value) -> bool:

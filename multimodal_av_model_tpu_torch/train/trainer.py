@@ -65,6 +65,7 @@ from ..ops.ctc import ctc_greedy_decode, ctc_loss
 from ..ops.metrics import cer_counts, rate_from_counts, wer_counts
 from ..parallel.mesh import local_batch_rows
 from ..text.korean import jamo_counts
+from ..tracing import span
 from .checkpoints import CheckpointManager, writes_files
 from .logging_utils import CsvLogger, StepTimer, TensorBoardLogger
 from .preempt import GracefulShutdown
@@ -401,60 +402,62 @@ class MultiSpeakerTrainer:
         """``trainer.py:222-287``: the total loss, the metrics and the model
         outputs, on a placed batch."""
         frozen_visual = any(p.startswith("visual_encoder") for p in self.frozen_prefixes)
-        out = model(batch["lip1"], batch["lip2"], batch["audio"], batch["mask1"],
-                    batch["mask2"], batch["lip1_lengths"], batch["lip2_lengths"],
-                    train=train, stop_visual_grad=frozen_visual, generator=generator)
-        ccfg = self.config.model.contrastive
-        blank = self.config.model.decoder.blank_id
-        valid = batch.get("valid")
-        mask_ds1, mask_ds2 = out["mask_ds1"], out["mask_ds2"]
-        if valid is not None:
-            # Flush rows (valid 0) become pad for the contrastive loss and get
-            # no CTC weight: a flush batch gives its unpadded batch's loss.
-            row_ok = (valid > 0)[:, None]
-            mask_ds1 = torch.where(row_ok, mask_ds1, 3)
-            mask_ds2 = torch.where(row_ok, mask_ds2, 3)
-        group = self._data_group
+        with span("train.forward"):
+            out = model(batch["lip1"], batch["lip2"], batch["audio"], batch["mask1"],
+                        batch["mask2"], batch["lip1_lengths"], batch["lip2_lengths"],
+                        train=train, stop_visual_grad=frozen_visual, generator=generator)
+        with span("train.losses"):
+            ccfg = self.config.model.contrastive
+            blank = self.config.model.decoder.blank_id
+            valid = batch.get("valid")
+            mask_ds1, mask_ds2 = out["mask_ds1"], out["mask_ds2"]
+            if valid is not None:
+                # Flush rows (valid 0) become pad for the contrastive loss and get
+                # no CTC weight: a flush batch gives its unpadded batch's loss.
+                row_ok = (valid > 0)[:, None]
+                mask_ds1 = torch.where(row_ok, mask_ds1, 3)
+                mask_ds2 = torch.where(row_ok, mask_ds2, 3)
+            group = self._data_group
 
-        def contrast(feat, mask):
-            if group is not None:       # every row of the batch is a candidate
-                from ..parallel import gather_rows
+            def contrast(feat, mask):
+                if group is not None:       # every row of the batch is a candidate
+                    from ..parallel import gather_rows
 
-                feat, mask = gather_rows(feat, self.mesh), gather_rows(mask, self.mesh)
-            return contrastive_loss_with_mask(feat, mask, ccfg.temperature,
-                                              ccfg.weight_pos_align, ccfg.weight_neg_suppress)
+                    feat, mask = gather_rows(feat, self.mesh), gather_rows(mask, self.mesh)
+                return contrastive_loss_with_mask(feat, mask, ccfg.temperature,
+                                                  ccfg.weight_pos_align, ccfg.weight_neg_suppress)
 
-        con1 = contrast(out["contrast1"], mask_ds1)
-        con2 = contrast(out["contrast2"], mask_ds2)
+            con1 = contrast(out["contrast1"], mask_ds1)
+            con2 = contrast(out["contrast2"], mask_ds2)
 
-        def weighted_ctc(lp, labels, il, ll):
-            """-> (this rank's objective term, the global value)."""
-            per = ctc_loss(lp, labels, il, ll, blank, reduction="none")
-            per = per / ll.clamp(min=1).float()
-            if group is None:
-                v = per.mean() if valid is None else \
-                    (per * valid).sum() / valid.sum().clamp(min=1.0)
-                return v, v
-            w = torch.ones_like(per) if valid is None else valid
-            num = (per * w).sum()
-            sums = torch.stack([num.detach(), w.sum()])
-            torch.distributed.all_reduce(sums, group=group)
-            den = sums[1].clamp(min=1.0)
-            return self.data_size * num / den, sums[0] / den
+            def weighted_ctc(lp, labels, il, ll):
+                """-> (this rank's objective term, the global value)."""
+                per = ctc_loss(lp, labels, il, ll, blank, reduction="none")
+                per = per / ll.clamp(min=1).float()
+                if group is None:
+                    v = per.mean() if valid is None else \
+                        (per * valid).sum() / valid.sum().clamp(min=1.0)
+                    return v, v
+                w = torch.ones_like(per) if valid is None else valid
+                num = (per * w).sum()
+                sums = torch.stack([num.detach(), w.sum()])
+                torch.distributed.all_reduce(sums, group=group)
+                den = sums[1].clamp(min=1.0)
+                return self.data_size * num / den, sums[0] / den
 
-        if self.config.train.contrastive_only:
-            ctc1 = ctc2 = torch.zeros((), device=con1.device)
-            total = loss = (con1 + con2) / 2
-        else:
-            obj1, ctc1 = weighted_ctc(out["log_probs1"], batch["text1"], out["input_lengths1"],
-                                      batch["text1_lengths"])
-            obj2, ctc2 = weighted_ctc(out["log_probs2"], batch["text2"], out["input_lengths2"],
-                                      batch["text2_lengths"])
-            lam = self.config.train.lambda_contrastive
-            total = (obj1 + obj2) / 2 + lam * (con1 + con2) / 2
-            loss = (ctc1 + ctc2) / 2 + lam * (con1 + con2) / 2
-        metrics = {"loss": loss, "ctc1": ctc1, "ctc2": ctc2,
-                   "contrast1": con1, "contrast2": con2}
+            if self.config.train.contrastive_only:
+                ctc1 = ctc2 = torch.zeros((), device=con1.device)
+                total = loss = (con1 + con2) / 2
+            else:
+                obj1, ctc1 = weighted_ctc(out["log_probs1"], batch["text1"], out["input_lengths1"],
+                                          batch["text1_lengths"])
+                obj2, ctc2 = weighted_ctc(out["log_probs2"], batch["text2"], out["input_lengths2"],
+                                          batch["text2_lengths"])
+                lam = self.config.train.lambda_contrastive
+                total = (obj1 + obj2) / 2 + lam * (con1 + con2) / 2
+                loss = (ctc1 + ctc2) / 2 + lam * (con1 + con2) / 2
+            metrics = {"loss": loss, "ctc1": ctc1, "ctc2": ctc2,
+                       "contrast1": con1, "contrast2": con2}
         return total, metrics, out
 
     # -- steps ---------------------------------------------------------------
@@ -466,25 +469,30 @@ class MultiSpeakerTrainer:
         them is left to the caller.  The step is not free of host syncs:
         ``F.ctc_loss`` copies its two length tensors to the host once per
         speaker.  The gradients stay in the parameters' ``.grad`` until the
-        next step (clipped in place when ``grad_clip_norm`` is set)."""
-        model = state.model
-        model.zero_grad(set_to_none=True)
-        total, metrics, _ = self._losses(model, self._place(batch), state.generator, True)
-        total.backward()
-        if self._data_group is not None and not self.fsdp:
-            self._average_grads(model.parameters(), self._data_group)
-        if self._model_group is not None:
-            # The parameters the tensor plan leaves whole are computed on
-            # every rank of a ``model`` group alike; nondeterministic kernels
-            # (cuDNN's) would let the copies drift apart, so they share one
-            # gradient.
-            self._average_grads([p for p in model.parameters() if not _on_model_axis(p)],
-                                self._model_group)
-        metrics["grad_norm"] = total_norm(
-            [p.grad for p in model.parameters() if p.grad is not None])
-        state.optimizer.step()
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        next step (clipped in place when ``grad_clip_norm`` is set).  Spans
+        (``tracing``): ``train.step`` and its ``train.forward``,
+        ``train.losses``, ``train.backward`` and ``train.optimizer``."""
+        with span("train.step"):
+            model = state.model
+            model.zero_grad(set_to_none=True)
+            total, metrics, _ = self._losses(model, self._place(batch), state.generator, True)
+            with span("train.backward"):
+                total.backward()
+            if self._data_group is not None and not self.fsdp:
+                self._average_grads(model.parameters(), self._data_group)
+            if self._model_group is not None:
+                # The parameters the tensor plan leaves whole are computed on
+                # every rank of a ``model`` group alike; nondeterministic kernels
+                # (cuDNN's) would let the copies drift apart, so they share one
+                # gradient.
+                self._average_grads([p for p in model.parameters() if not _on_model_axis(p)],
+                                    self._model_group)
+            with span("train.optimizer"):
+                metrics["grad_norm"] = total_norm(
+                    [p.grad for p in model.parameters() if p.grad is not None])
+                state.optimizer.step()
+            state.step += 1
+            return state, {k: v.detach() for k, v in metrics.items()}
 
     @staticmethod
     def _average_grads(params, group) -> None:
