@@ -11,9 +11,9 @@ Phases, each printing a line; any failure exits non-zero:
 1. the card: ``nvidia-smi`` name and power limit, TF32 settings (both off);
 2. build: ``nvcc`` for every kernel source in ``multimodal_av_model_tpu_torch/csrc``,
    all started together;
-3. K1 (log-mel) and K2 (lip preprocess) at their serving shapes: each kernel
-   against its plain PyTorch version on the same inputs, with the stated
-   tolerance, then timed by CUDA events around a CUDA graph of back-to-back
+3. K1 (log-mel), K2 (lip preprocess) and K3 (prefix beam) at their serving
+   shapes: each kernel against its plain PyTorch version on the same inputs,
+   with the stated tolerance, then timed by CUDA events around a CUDA graph of back-to-back
    launches (the ``ms`` of the ``kernels`` JSON) and around launches issued
    one by one (the host's rate), beside its plain version, a library
    yardstick and its bound;
@@ -80,12 +80,15 @@ Phases, each printing a line; any failure exits non-zero:
     per-chunk latency, the real-time factor and peak memory;
 16. ``[serve]``: ``AudioService(max_batch=8, max_seconds=16)`` over the same
     model with 32 requests from threads: K1 at ``[8, 256000]``, every request
-    answered, mean batch, latency p50 and p90, peak memory;
+    answered, mean batch, latency p50 and p90, peak memory; K3 against the
+    plain loop on one full batch's ``[8, 801, 800]`` log-probs;
 17. ``[stream-av]``: the CLI ``--stream=lips1.avi,lips2.avi,mix.wav`` on a
     full-width flagship checkpoint and 12 s of media that the port writes:
     K1 at the window's ``[1, 160200]``, K1 1 and K2 0 per window, each
     speaker's streamed prefix-beam ids equal to one offline pass over the
-    emitted log-probs; per-window ms and the real-time factor.
+    emitted log-probs, and each of K3's steps on the carried state equal to
+    the plain loop's on the same state and log-probs; per-window ms and the
+    real-time factor.
 
 18. ``[export]`` (after phase 10): phase 5's ``Transcriber`` exported by
     ``export_transcriber`` (``torch.export`` of the forward with K1 as the
@@ -224,9 +227,9 @@ Phases, each printing a line; any failure exits non-zero:
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
 the timed training steps of phase 9, the CLI calls of phase 10 and the main
 paths of phases 13, 15-17, 18-20, 22-25, 27-29, 31, 32 and 34-37 (each
-path's own count is under ``launches_by_path``).  ``--only=`` with some of
-``family-ref``, ``family-audio``, ``family-visual``, ``families``,
-``legacy-ref``, ``legacy``, ``reference-import``, ``lip-extract``,
+path's own count is under ``launches_by_path``, K3's as K1's and K2's).
+``--only=`` with some of ``k3``, ``family-ref``, ``family-audio``,
+``family-visual``, ``families``, ``legacy-ref``, ``legacy``, ``reference-import``, ``lip-extract``,
 ``hostops``, ``runtime`` (which runs phase 5 first), ``dist``, ``dist-cli``,
 ``longform``, ``pp``, ``shared-pass`` and ``raw-media`` runs the card and
 build lines and those phases alone
@@ -464,6 +467,70 @@ def k2_phase(torch, rng):
         (resize.lip_preprocess_cuda, fresh_inputs, 100, "lip_kernel")
 
 
+def k3_phase(torch, rng):
+    """Prefix-beam kernel at the serving shape: the [2B] = 8 rows of a
+    bucket-128 request, f32 log-probs [8, 128, 800], lengths U[64, 128], beam
+    5, top-k 8."""
+    from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
+
+    B, T, V, W, K = 8, 128, 800, 5, 8
+    logits = 3.0 * rng.standard_normal((B, T, V))
+    lp_np = logits - logits.max(-1, keepdims=True)
+    lp_np -= np.log(np.exp(lp_np).sum(-1, keepdims=True))
+    lp = torch.from_numpy(lp_np.astype(np.float32)).cuda()
+    lens = torch.from_numpy(rng.integers(64, T + 1, B)).cuda()
+    args = (lp, lens, None, None, None, None, None, W, K, 3, -1, 0.0, 0.0)
+    got = pbs.prefix_beam_op(*args)
+    want = pbs._prefix_beam_plain(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, w) for i, (g, w) in enumerate(zip(got, want)) if i not in (2, 3, 6))
+    err = max((g - w).abs().max().item() for i, (g, w) in enumerate(zip(got, want))
+              if i in (2, 3, 6) and g.numel())
+    ok = same and err <= 1e-5 * max(1.0, want[6].abs().max().item())
+    log(f"[k3] prefix beam {tuple(lp.shape)} f32, lengths {lens.tolist()}: ids, lengths and "
+        f"prefixes {'equal to' if same else 'DIFFER from'} the plain loop's, max|score, pb, "
+        f"pnb - plain| = {err:.3g} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit("K3 disagrees with its plain version")
+
+    def kernel(*a):
+        return pbs.prefix_beam_op(*a)
+
+    ms = cuda_ms(kernel, [args], 20, graph=True)
+    eager_ms = cuda_ms(kernel, [args], 20)
+    plain_ms = cuda_ms(pbs._prefix_beam_plain, [args], 3)
+    nbytes = lp.numel() * lp.element_size() + lens.numel() * 8 + B * (T * 4 + 8)
+    b_ms, b_by = bound(0.0, nbytes)
+    plan = pbs.prefix_beam_plan(T, W, K, T)
+    log(f"[k3] kernel {ms:.4f} ms by graph replay, {eager_ms:.4f} ms per launch called one by "
+        f"one from Python; plain loop {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes / 1e6:.2f} MB read once), {b_ms / ms:.4f} of it: a serial chain of "
+        f"{int(lens.max())} frames, {ms / int(lens.max()) * 1e3:.2f} us a frame; launch {B} CTAs "
+        f"x 256 threads, {plan['smem_bytes']} B shared memory (prefix rows there: "
+        f"{plan['rows_in_smem']}), top-K staged {plan['tile']} frames at a time")
+    return {"name": "prefix_beam", "route": "cuda",
+            "source": "multimodal_av_model_tpu_torch/csrc/prefix_beam.cu",
+            "replaces": "none (the JAX decode is lax.scan code)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def k3_agrees(got, want) -> tuple[bool, float]:
+    """K3's outputs against the plain loop's, as the ``gpu`` tests hold them:
+    the integer ones (prefixes, lengths, ids) equal, the float ones (pb, pnb,
+    score) within 1e-5, relative above magnitude 1.  Returns whether they
+    agree and the largest |difference| of the floats."""
+    ok, err = True, 0.0
+    for g, w in zip(got, want):
+        if not g.dtype.is_floating_point:
+            ok = ok and g.dtype == w.dtype and bool((g == w).all()) and g.shape == w.shape
+        elif g.numel():
+            d = (g - w).abs()
+            err = max(err, d.max().item())
+            ok = ok and bool((d <= 1e-5 * w.abs().clamp(min=1.0)).all())
+    return ok, err
+
+
 def make_request(rng, B: int, spec, crop: int = 128):
     """B raw two-speaker samples at ``spec``'s bucket, made with numpy, then
     collated on the host (uint8 crops, per-speaker waveforms, lengths)."""
@@ -565,6 +632,7 @@ def serving_phase(torch, rng, tok):
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
     cfg = Config()                                  # the shipped flagship defaults
@@ -594,22 +662,26 @@ def serving_phase(torch, rng, tok):
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
+    prefix_beam.launches = 0
     lat, all_texts, per_request = [], [], []
     for raw in requests:                            # the main path
-        before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+        before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
+                  prefix_beam.launches)
         t0 = time.perf_counter()
         texts = serve(raw)
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
         all_texts.append(texts)
         per_request.append((log_mel_spectrogram_cuda.launches - before[0],
-                            lip_preprocess_cuda.launches - before[1]))
+                            lip_preprocess_cuda.launches - before[1],
+                            prefix_beam.launches - before[2]))
     launches = {"logmel": log_mel_spectrogram_cuda.launches,
-                "lip_preprocess": lip_preprocess_cuda.launches}
+                "lip_preprocess": lip_preprocess_cuda.launches,
+                "prefix_beam": prefix_beam.launches}
     peak = torch.cuda.max_memory_allocated()
 
     n_req = len(requests)
-    if any(k1 < 1 or k2 < 2 for k1, k2 in per_request):
+    if any(k1 < 1 or k2 < 2 or k3 != 1 for k1, k2, k3 in per_request):
         raise SystemExit(f"serving: kernels not on the main path, launches {per_request}")
     if len(captured) != n_req:
         raise SystemExit(f"serving: {len(captured)} forwards for {n_req} requests")
@@ -773,10 +845,11 @@ def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
     from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
-    launches = {"logmel": 0, "lip_preprocess": 0}
+    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
     profile_step = None
     for B, remat, n_steps in runs:
         cfg = Config()                              # the shipped flagship defaults
@@ -803,6 +876,7 @@ def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
         torch.cuda.reset_peak_memory_stats()
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
+        prefix_beam.launches = 0
         times, metrics = [], []
         for _ in range(n_steps):                    # the main path
             t0 = time.perf_counter()
@@ -810,9 +884,11 @@ def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        k3 = prefix_beam.launches
         peak = torch.cuda.max_memory_allocated()
         launches["logmel"] += k1
         launches["lip_preprocess"] += k2
+        launches["prefix_beam"] += prefix_beam.launches
         losses = [m["loss"].item() for m in metrics]
         gnorms = [m["grad_norm"].item() for m in metrics]
         with FlopCounterMode(display=False) as counter:
@@ -879,6 +955,7 @@ def fit_phase(torch, tok, smi: str):
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.ops import logmel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
@@ -943,22 +1020,24 @@ def fit_phase(torch, tok, smi: str):
             tee = _Tee(sys.stdout)
             log_mel_spectrogram_cuda.launches = 0
             lip_preprocess_cuda.launches = 0
+            prefix_beam.launches = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(tee):
                 cli.main(args)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+            k3 = prefix_beam.launches
             n = sum(calls.values())
             log(f"[fit] {tag}: {dt:.1f} s; peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {calls['train_step']} "
                 f"train steps, {calls['eval_step']} eval batches, {calls['transcribe']} infer "
                 f"batches; launches K1 {k1}, K2 {k2} ({k1 / max(n, 1):g} and "
-                f"{k2 / max(n, 1):g} per call)")
+                f"{k2 / max(n, 1):g} per call), K3 {k3}")
             if n == 0 or k1 != n or k2 != k2_per_call * n:
                 raise SystemExit(f"fit: {tag}: launches K1 {k1}, K2 {k2} over {n} calls "
                                  f"(expected 1 and {k2_per_call} per call)")
-            return "".join(tee.text), k1, k2
+            return "".join(tee.text), k1, k2, k3
 
         def epochs(text):
             rows = []
@@ -974,7 +1053,7 @@ def fit_phase(torch, tok, smi: str):
 
         for cls, name in wrapped:
             setattr(cls, name, counting(name))
-        launches = {"logmel": 0, "lip_preprocess": 0}
+        launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
         rows = []
         try:
             for tag, extra, k2_per_call in (
@@ -990,9 +1069,10 @@ def fit_phase(torch, tok, smi: str):
                     ("train, 1 epoch of 128 pairs",
                      [f"train.checkpoint_dir={os.path.join(root, 'long')}", "train.max_epochs=1",
                       "data.num_pairs_per_epoch=128"], 2)):
-                text, k1, k2 = run(tag, common + extra, k2_per_call)
+                text, k1, k2, k3 = run(tag, common + extra, k2_per_call)
                 launches["logmel"] += k1
                 launches["lip_preprocess"] += k2
+                launches["prefix_beam"] += k3
                 rows += [(tag,) + r for r in epochs(text)]
                 if tag == "resume to epoch 3" and "at epoch 3" not in text:
                     raise SystemExit("fit: the second call did not resume at epoch 3")
@@ -1025,7 +1105,7 @@ def fit_phase(torch, tok, smi: str):
             raise SystemExit(f"fit: eval_log.csv rows {eval_rows}, last.ckpt epoch {last}")
         log(f"[fit] 3 epochs from disk, eval_log.csv rows {len(eval_rows)}, last.ckpt at epoch "
             f"{last}; launches over the phase K1 {launches['logmel']}, K2 "
-            f"{launches['lip_preprocess']}; card {smi}")
+            f"{launches['lip_preprocess']}, K3 {launches['prefix_beam']}; card {smi}")
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1104,6 +1184,7 @@ def quant_phase(torch, served) -> dict:
 
     from multimodal_av_model_tpu_torch import infer
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
     fp_t, requests, plan = served[:3]
@@ -1143,34 +1224,40 @@ def quant_phase(torch, served) -> dict:
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
+    prefix_beam.launches = 0
     lat, per_request = [], []
     try:
         infer.decode_ids = recording("int8")
         for raw in requests:                        # the main path
-            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
+                      prefix_beam.launches)
             t0 = time.perf_counter()
             q_t.transcribe(_flagship_batch(torch, raw))
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
             per_request.append((log_mel_spectrogram_cuda.launches - before[0],
-                                lip_preprocess_cuda.launches - before[1]))
+                                lip_preprocess_cuda.launches - before[1],
+                                prefix_beam.launches - before[2]))
         launches = {"logmel": log_mel_spectrogram_cuda.launches,
-                    "lip_preprocess": lip_preprocess_cuda.launches}
+                    "lip_preprocess": lip_preprocess_cuda.launches,
+                    "prefix_beam": prefix_beam.launches}
         peak = torch.cuda.max_memory_allocated()
         infer.decode_ids = recording("fp")
         for raw in requests:                        # the fp texts, not counted
             fp_t.transcribe(_flagship_batch(torch, raw))
     finally:
         infer.decode_ids = original
-    if any(p != (1, 2) for p in per_request):
-        raise SystemExit(f"quant: launches per request {per_request} (expected K1 1, K2 2)")
+    if any(p != (1, 2, 1) for p in per_request):
+        raise SystemExit(f"quant: launches per request {per_request} (expected K1 1, K2 2, "
+                         f"K3 1)")
     pairs = list(zip(decoded["int8"], decoded["fp"]))
     same_seq = sum(a == b for a, b in pairs) / len(pairs)
     agree = sum(sum(x == y for x, y in zip(a, b)) for a, b in pairs) / max(
         sum(max(len(a), len(b)) for a, b in pairs), 1)
     log(f"[quant] {len(requests)} requests (buckets {plan}): "
         + ", ".join(f"{ms:.1f}" for ms in lat) + f" ms; peak device memory "
-        f"{peak / 2**30:.2f} GiB; launches {launches} (K1 1, K2 2 per request); against the fp "
+        f"{peak / 2**30:.2f} GiB; launches {launches} (K1 1, K2 2, K3 1 per request); against "
+        f"the fp "
         f"Transcriber on the same requests: {same_seq:.3f} of the {len(pairs)} id sequences "
         f"equal, {agree:.3f} of the id positions agree (reported, not gated)")
     del q_t
@@ -1261,6 +1348,7 @@ def stream_audio_phase(torch, rng, tok):
     chunks (8 s context, prefix beam), then 8 streams of 20 s through a
     ``StreamingPool``, at full width."""
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.streaming import (
         StreamingAudioTranscriber,
         StreamingPool,
@@ -1289,6 +1377,7 @@ def stream_audio_phase(torch, rng, tok):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
+    prefix_beam.launches = 0
     lat, text = [], ""
     for i in range(0, len(audio), block):            # the main path
         t0 = time.perf_counter()
@@ -1297,9 +1386,9 @@ def stream_audio_phase(torch, rng, tok):
     t0 = time.perf_counter()
     text += s.flush()
     flush_ms = (time.perf_counter() - t0) * 1e3
-    k1 = log_mel_spectrogram_cuda.launches
+    k1, k3 = log_mel_spectrogram_cuda.launches, prefix_beam.launches
     peak = torch.cuda.max_memory_allocated()
-    launches = {"stream_audio": {"logmel": k1, "lip_preprocess": 0}}
+    launches = {"stream_audio": {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3}}
     if k1 != len(lat) or bad:
         raise SystemExit(f"stream-audio: K1 {k1} launches for {len(lat)} windows, bad log-probs "
                          f"{bad}")
@@ -1308,7 +1397,8 @@ def stream_audio_phase(torch, rng, tok):
         f"{len(lat)} chunks; per-chunk latency (host clock around each feed) min "
         f"{min(lat):.1f}, median {np.median(lat):.1f}, max {max(lat):.1f} ms; flush "
         f"{flush_ms:.1f} ms; real-time factor {(sum(lat) + flush_ms) / 1e3 / 30:.4f}; peak "
-        f"device memory {peak / 2**30:.2f} GiB; K1 {k1} launches (1 per window); finite, "
+        f"device memory {peak / 2**30:.2f} GiB; K1 {k1} launches (1 per window), K3 {k3}; "
+        f"finite, "
         f"normalised log-probs ok; {len(text)} characters emitted")
     window = torch.from_numpy(audio[None, :s.window_samples]).cuda()
     spf = cfg.model.frontend.hop_length * cfg.model.audio.subsample_factor
@@ -1338,6 +1428,7 @@ def stream_audio_phase(torch, rng, tok):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
+    prefix_beam.launches = 0
     sids = [pool.open() for _ in audios]
     t0 = time.perf_counter()
     n_chars = 0
@@ -1348,11 +1439,11 @@ def stream_audio_phase(torch, rng, tok):
         n_chars += len(pool.flush(sid))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1 = log_mel_spectrogram_cuda.launches
+    k1, k3 = log_mel_spectrogram_cuda.launches, prefix_beam.launches
     peak = torch.cuda.max_memory_allocated()
     hook.remove()
     pool._step = step
-    launches["pool"] = {"logmel": k1, "lip_preprocess": 0}
+    launches["pool"] = {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3}
     tick_ms = [dt * 1e3 for _, dt in ticks]
     if k1 != len(ticks) or bad:
         raise SystemExit(f"pool: K1 {k1} launches for {len(ticks)} ticks, bad log-probs {bad}")
@@ -1361,7 +1452,8 @@ def stream_audio_phase(torch, rng, tok):
         f"{sum(a for a, _ in ticks) / len(ticks):.2f} streams per tick; tick min "
         f"{min(tick_ms):.1f}, median {np.median(tick_ms):.1f}, max {max(tick_ms):.1f} ms; "
         f"{wall:.2f} s for 160 s of audio: real-time factor {wall / 160:.4f}; peak device "
-        f"memory {peak / 2**30:.2f} GiB; K1 {k1} launches (1 per tick); {n_chars} characters")
+        f"memory {peak / 2**30:.2f} GiB; K1 {k1} launches (1 per tick), K3 {k3}; {n_chars} "
+        f"characters")
     return launches, (cfg, model)
 
 
@@ -1371,7 +1463,9 @@ def serve_phase(torch, rng, tok, audio_model) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     from multimodal_av_model_tpu_torch.infer import AudioTranscriber, decode_ids
+    from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.serve import AudioService
 
     cfg, model = audio_model
@@ -1392,11 +1486,12 @@ def serve_phase(torch, rng, tok, audio_model) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
+    prefix_beam.launches = 0
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=32) as ex:              # the main path
         results = list(ex.map(call, waves))
     wall = time.perf_counter() - t0
-    k1 = log_mel_spectrogram_cuda.launches
+    k1, k3 = log_mel_spectrogram_cuda.launches, prefix_beam.launches
     peak = torch.cuda.max_memory_allocated()
     svc.close()
     n_req = svc.batcher.stats.requests - base[0]
@@ -1411,15 +1506,28 @@ def serve_phase(torch, rng, tok, audio_model) -> dict:
     mask = torch.ones_like(batch, dtype=torch.bool)
     fwd_ms, dec_ms = _split_ms(torch, lambda: t.forward(batch, mask),
                                lambda out: decode_ids(cfg, *out))
+    with torch.no_grad():
+        lp, lengths = t.forward(batch, mask)
+    dcfg = cfg.decode
+    args = (lp, lengths, None, None, None, None, None, dcfg.beam_width, dcfg.prefix_top_k,
+            cfg.model.decoder.blank_id, -1, 0.0, 0.0)
+    agree, err = k3_agrees(pbs.prefix_beam_op(*args), pbs._prefix_beam_plain(*args))
+    log(f"[serve] K3 on that batch's log-probs {tuple(lp.shape)} {lp.dtype}, lengths "
+        f"{lengths.tolist()}: ids, lengths and prefixes {'equal to' if agree else 'DIFFER from'} "
+        f"the plain loop's, max|score, pb, pnb - plain| = {err:.3g} "
+        f"{'ok' if agree else 'FAILED'}")
+    if not agree:
+        raise SystemExit("serve: K3 disagrees with the plain loop on the service batch")
     log(f"[serve] AudioService(max_batch=8, max_seconds=16) over AudioTranscriber (12x512, "
         f"bf16, prefix beam 5): 32 requests of 2-16 s from 32 threads, all answered in "
         f"{wall:.2f} s; {n_batches} batches of [8, {svc.samples}], mean batch "
         f"{n_req / n_batches:.2f}; latency per request p50 {p50:.1f} ms, p90 {p90:.1f} ms "
         f"({sum(ms > p90 for ms in lat)} beyond it), max {lat[-1]:.1f}; peak device memory "
-        f"{peak / 2**30:.2f} GiB; K1 {k1} launches (1 per batch); one more full batch, not "
+        f"{peak / 2**30:.2f} GiB; K1 {k1} launches (1 per batch), K3 {k3}; one more full "
+        f"batch, not "
         f"counted: forward {fwd_ms:.1f} ms, prefix-beam decode of its {svc.samples // 320 + 1} "
         f"frames + readback {dec_ms:.1f} ms")
-    return {"logmel": k1, "lip_preprocess": 0}
+    return {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3}
 
 
 def stream_av_phase(torch, tok, smi: str) -> dict:
@@ -1438,7 +1546,9 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.audio_io import write_wav
     from multimodal_av_model_tpu_torch.data.avi import write_avi
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
+    from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam_search_decode
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import save_checkpoint
@@ -1471,10 +1581,19 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
         k1_at(torch, x, "stream-av")
         del x
 
-        emitted, tails, window_ms = {}, {}, []
+        emitted, tails, window_ms, steps = {}, {}, [], []
         advance, tail, decode_window = (streaming._PrefixBeamStream.advance,
                                         streaming._PrefixBeamStream.tail,
                                         streaming.StreamingAVTranscriber._decode_window)
+        stream_step = streaming.prefix_beam_stream_step
+
+        def rec_step(state, log_probs, length, **kw):
+            """K3 on the carried state (C = the stream's capacity); its inputs
+            and outputs kept for the plain loop after the call."""
+            out = stream_step(state, log_probs, length, **kw)
+            steps.append((tuple(x.clone() for x in state), log_probs.clone(), int(length), kw,
+                          tuple(x.clone() for x in out)))
+            return out
 
         def rec_advance(self, log_probs, start, end):
             out = advance(self, log_probs, start, end)
@@ -1501,10 +1620,12 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
+        prefix_beam.launches = 0
         tee = _Tee(sys.stdout)
         streaming._PrefixBeamStream.advance = rec_advance
         streaming._PrefixBeamStream.tail = rec_tail
         streaming.StreamingAVTranscriber._decode_window = timed_window
+        streaming.prefix_beam_stream_step = rec_step
         try:
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(tee):     # the main path
@@ -1515,12 +1636,31 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
             streaming._PrefixBeamStream.advance = advance
             streaming._PrefixBeamStream.tail = tail
             streaming.StreamingAVTranscriber._decode_window = decode_window
+            streaming.prefix_beam_stream_step = stream_step
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        k3 = prefix_beam.launches
         peak = torch.cuda.max_memory_allocated()
         n_win = len(window_ms)
-        if n_win == 0 or k1 != n_win or k2 != 0 or len(emitted) != 2:
-            raise SystemExit(f"stream-av: K1 {k1}, K2 {k2} launches for {n_win} windows, "
-                             f"{len(emitted)} beams")
+        if n_win == 0 or k1 != n_win or k2 != 0 or len(emitted) != 2 or k3 != len(steps):
+            raise SystemExit(f"stream-av: K1 {k1}, K2 {k2}, K3 {k3} launches for {n_win} "
+                             f"windows, {len(steps)} beam steps, {len(emitted)} beams")
+        # Each carried-state step of K3 against the plain loop on the same
+        # state and log-probs.
+        agree, err = True, 0.0
+        for state, lp, length, kw, got in steps:
+            want = pbs._prefix_beam_plain(
+                lp[None], torch.full((1,), length, device=lp.device), *(x[None] for x in state),
+                kw["lm"], state[0].shape[0], kw["top_k"], kw["blank_id"], -1, kw["lm_weight"],
+                kw["length_bonus"])[:4]
+            a, e = k3_agrees(got, tuple(x[0] for x in want))
+            agree, err = agree and a, max(err, e)
+        log(f"[stream-av] K3's {len(steps)} steps on the carried state (capacity "
+            f"{steps[0][0][0].shape[1]}, {steps[0][1].shape[0]} frames a step, "
+            f"{steps[0][1].dtype}): prefixes and lengths {'equal to' if agree else 'DIFFER from'} "
+            f"the plain loop's on the same state and log-probs, max|pb, pnb - plain| = {err:.3g} "
+            f"{'ok' if agree else 'FAILED'}")
+        if not agree:
+            raise SystemExit("stream-av: K3 disagrees with the plain loop on the carried state")
         dcfg, same = cfg.decode, []
         for key, (rows, ids) in emitted.items():
             lp = torch.cat(rows)
@@ -1537,14 +1677,15 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
             f"audio [1, {F * spf}]), per window "
             + ", ".join(f"{ms:.0f}" for ms in window_ms) + f" ms; real-time factor "
             f"{sum(window_ms) / 1e3 / (n_f * spf / 16000):.4f} (windows only); peak device "
-            f"memory {peak / 2**30:.2f} GiB; launches K1 {k1}, K2 {k2} (1 and 0 per window); "
+            f"memory {peak / 2**30:.2f} GiB; launches K1 {k1}, K2 {k2} (1 and 0 per window), "
+            f"K3 {k3} (1 per beam step); "
             f"{len(lines)} speaker lines; streamed prefix-beam ids "
             f"{'equal' if all(same) else 'DIFFER from'} one offline pass over the emitted "
             f"log-probs for both speakers ({[len(r[1]) + len(tails.get(k, [])) for k, r in emitted.items()]} tokens) "
             f"{'ok' if all(same) else 'FAILED'}; card {smi}")
         if not all(same):
             raise SystemExit("stream-av: streamed ids differ from the offline pass")
-        return {"logmel": k1, "lip_preprocess": k2}
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1578,6 +1719,7 @@ def export_phase(torch, served) -> dict:
         export_transcriber,
     )
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
     fp_t, requests, plan, serving_lat = served
@@ -1586,7 +1728,7 @@ def export_phase(torch, served) -> dict:
     q_t = Transcriber(fp_t.config, fp_t.tokenizer, copy.deepcopy(fp_t.model), device="cuda",
                       quantize=True)
     root = tempfile.mkdtemp(prefix="mmav_export_")
-    launches = {"logmel": 0, "lip_preprocess": 0}
+    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
     try:
         for name, t, use_beam in (("prefix beam 5, top-k 8", fp_t, True),
                                   ("int8, greedy", q_t, False)):
@@ -1604,22 +1746,27 @@ def export_phase(torch, served) -> dict:
             torch.cuda.synchronize()
             log_mel_spectrogram_cuda.launches = 0
             lip_preprocess_cuda.launches = 0
+            prefix_beam.launches = 0
             lat, batches, inside = [], [], []
             for i in chosen:                             # the main path
                 t0 = time.perf_counter()
                 batch = _flagship_batch(torch, requests[i])
-                before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+                before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
+                          prefix_beam.launches)
                 texts = artifact.transcribe(batch)
                 torch.cuda.synchronize()
                 lat.append((time.perf_counter() - t0) * 1e3)
                 inside.append((log_mel_spectrogram_cuda.launches - before[0],
-                               lip_preprocess_cuda.launches - before[1]))
+                               lip_preprocess_cuda.launches - before[1],
+                               prefix_beam.launches - before[2]))
                 batches.append(batch)
                 if len(texts) != 4:
                     raise SystemExit(f"export: {len(texts)} texts for a request of 4")
             k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+            k3 = prefix_beam.launches
             launches["logmel"] += k1
             launches["lip_preprocess"] += k2
+            launches["prefix_beam"] += k3
             same = []
             for batch in batches:
                 with torch.no_grad():
@@ -1628,7 +1775,8 @@ def export_phase(torch, served) -> dict:
                 want_ids, want_len = _transcriber_ids(torch, t, batch, use_beam)
                 same.append(torch.equal(torch.cat([ids1, ids2]), want_ids)
                             and torch.equal(torch.cat([len1, len2]), want_len))
-            ok = all(same) and all(p == (1, 0) for p in inside) and k2 == 2 * len(chosen)
+            ok = (all(same) and all(p == (1, 0, int(use_beam)) for p in inside)
+                  and k2 == 2 * len(chosen))
             log(f"[export] {name}: torch.export of forward + decode at bucket 128, B=4 in "
                 f"{report['seconds']:.1f} s, {report['nodes']} graph nodes; artifact "
                 + ", ".join(f"{f} {b / 1e6:.1f} MB" for f, b in sorted(files.items()))
@@ -1637,7 +1785,8 @@ def export_phase(torch, served) -> dict:
                 f"(preprocess_batch_device + ExportedTranscriber.transcribe): "
                 + ", ".join(f"{ms:.1f}" for ms in lat) + " ms against [serving]'s "
                 + ", ".join(f"{ms:.1f}" for ms in serving_ms) + f" ms; launches inside the "
-                f"artifact calls (K1, K2) {inside}, over the path K1 {k1}, K2 {k2}; ids "
+                f"artifact calls (K1, K2, K3) {inside}, over the path K1 {k1}, K2 {k2}, K3 "
+                f"{k3}; ids "
                 f"{'equal to' if all(same) else 'DIFFER from'} the Transcriber's "
                 f"({sum(same)} of {len(same)} requests) {'ok' if ok else 'FAILED'}")
             if not ok:
@@ -1660,6 +1809,7 @@ def temporal_tf_phase(torch, rng, tok) -> dict:
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
     reference_phase(torch, rng, "transformer", "temporal-tf")
@@ -1682,22 +1832,27 @@ def temporal_tf_phase(torch, rng, tok) -> dict:
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
+    prefix_beam.launches = 0
     lat, per_request = [], []
     for raw in requests:                             # the main path
-        before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+        before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
+                  prefix_beam.launches)
         t0 = time.perf_counter()
         texts = serve(raw)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
         per_request.append((log_mel_spectrogram_cuda.launches - before[0],
-                            lip_preprocess_cuda.launches - before[1]))
+                            lip_preprocess_cuda.launches - before[1],
+                            prefix_beam.launches - before[2]))
         if len(texts) != 4:
             raise SystemExit(f"temporal-tf: {len(texts)} texts for a request of 4")
     launches = {"logmel": log_mel_spectrogram_cuda.launches,
-                "lip_preprocess": lip_preprocess_cuda.launches}
+                "lip_preprocess": lip_preprocess_cuda.launches,
+                "prefix_beam": prefix_beam.launches}
     peak = torch.cuda.max_memory_allocated()
-    if any(p != (1, 2) for p in per_request):
-        raise SystemExit(f"temporal-tf: launches per request {per_request} (expected 1 and 2)")
+    if any(p != (1, 2, 1) for p in per_request):
+        raise SystemExit(f"temporal-tf: launches per request {per_request} (expected 1, 2 "
+                         f"and 1)")
     log(f"[temporal-tf] flagship with the transformer temporal model ({f.temporal_layers} layers, "
         f"{f.transformer_heads} heads, FFN {f.transformer_ffn_dim}), {n_params / 1e6:.1f}M params, "
         f"bf16: 3 bucket-128 requests of 4 "
@@ -1732,6 +1887,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.validate import validate_manifest
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
     from multimodal_av_model_tpu_torch.train.probe import (
@@ -1788,6 +1944,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
+    prefix_beam.launches = 0
     losses = []
     t0 = time.perf_counter()
     for b in train_batches[2:]:                     # the main path
@@ -1797,6 +1954,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+    k3 = prefix_beam.launches
     peak = torch.cuda.max_memory_allocated()
     if k1 != n_steps or k2 != 0 or not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"structured: K1 {k1}, K2 {k2} over {n_steps} steps, losses {losses}")
@@ -1820,7 +1978,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
         f"{k1 / n_steps:g}, K2 {k2 / n_steps:g}; nearest-centroid overlap-vs-solo probe on "
         f"{len(y)} frames of speaker 1 ({y.mean():.3f} overlap): accuracy {acc:.3f} (reported, "
         f"not gated); card {smi}")
-    return {"logmel": k1, "lip_preprocess": k2}
+    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
 
 
 def _timed_steps(torch, step, n_warm: int, n_steps: int):
@@ -1829,6 +1987,7 @@ def _timed_steps(torch, step, n_warm: int, n_steps: int):
     counts set to 0 just before and read just after -> ``(times, losses, K1,
     K2, peak bytes)``."""
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
     for _ in range(n_warm):
@@ -1837,6 +1996,7 @@ def _timed_steps(torch, step, n_warm: int, n_steps: int):
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
+    prefix_beam.launches = 0
     times, losses = [], []
     for _ in range(n_steps):
         t0 = time.perf_counter()
@@ -1861,6 +2021,7 @@ def family_ref_phase(torch, tok) -> None:
     CPU with the same draws."""
     from multimodal_av_model_tpu_torch.data.mixing import MASK_PAD
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.specaugment import apply_spec_augment, draw_spec_augment
     from multimodal_av_model_tpu_torch.ops.ssl import make_span_mask
     from multimodal_av_model_tpu_torch.train.single_modality import (
@@ -1941,6 +2102,7 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
 
     from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.train.single_modality import (
         make_audio_trainer,
         synthetic_audio_batches,
@@ -1962,6 +2124,7 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
         return trainer.train_step(state, batch)[1]
 
     times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
+    k3 = prefix_beam.launches
     with FlopCounterMode(display=False) as counter:
         step()
         torch.cuda.synchronize()
@@ -1981,6 +2144,7 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
     a = cfg.model.audio
     a.specaug_freq_masks = a.specaug_time_masks = 2
     times2, losses2, k1b, k2b, _ = _timed_steps(torch, step, 0, 3)
+    k3 += prefix_beam.launches
     a.specaug_freq_masks = a.specaug_time_masks = 0
     log(f"[family-audio] with SpecAugment (2 frequency stripes <= {a.specaug_freq_width} bins, "
         f"2 time stripes <= {a.specaug_time_frac} of the valid frames): 3 steps, "
@@ -1988,7 +2152,7 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
         f"K2 {k2b}")
     if k1b != 3 or k2b != 0 or not all(math.isfinite(x) for x in losses2):
         raise SystemExit(f"family-audio: SpecAugment steps K1 {k1b}, K2 {k2b}, losses {losses2}")
-    return {"logmel": k1 + k1b, "lip_preprocess": 0}
+    return {"logmel": k1 + k1b, "lip_preprocess": 0, "prefix_beam": k3}
 
 
 def family_visual_phase(torch, tok, smi: str) -> dict:
@@ -2000,6 +2164,7 @@ def family_visual_phase(torch, tok, smi: str) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
 
     from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.train.single_modality import (
         make_visual_trainer,
         synthetic_visual_batches,
@@ -2020,6 +2185,7 @@ def family_visual_phase(torch, tok, smi: str) -> dict:
         return trainer.train_step(state, batch)[1]
 
     times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
+    k3 = prefix_beam.launches
     with FlopCounterMode(display=False) as counter:
         step()
         torch.cuda.synchronize()
@@ -2037,7 +2203,7 @@ def family_visual_phase(torch, tok, smi: str) -> dict:
         raise SystemExit(f"family-visual: launches K1 {k1}, K2 {k2} (expected none)")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"family-visual: losses {losses}")
-    return {"logmel": k1, "lip_preprocess": k2}
+    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
 
 
 def _families_config(dirs: dict):
@@ -2062,6 +2228,7 @@ def ssl_phase(torch, tok, dirs: dict, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.mixing import MASK_PAD
     from multimodal_av_model_tpu_torch.data.pairs import RandomPairSampler
     from multimodal_av_model_tpu_torch.data.pipeline import FilePairSource, bucketed_batches
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.ssl import make_span_mask
     from multimodal_av_model_tpu_torch.train.ssl_pretrain import MaskedAudioPretrainer
 
@@ -2116,6 +2283,7 @@ def ssl_phase(torch, tok, dirs: dict, smi: str) -> dict:
         return loss
 
     times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
+    k3 = prefix_beam.launches
     batches.close()
     after = probe()
     log(f"[ssl] MaskedAudioPretrainer {n_params / 1e6:.1f}M params, f32, init {init_s:.1f} s; "
@@ -2130,7 +2298,7 @@ def ssl_phase(torch, tok, dirs: dict, smi: str) -> dict:
         raise SystemExit(f"ssl: launches K1 {k1}, K2 {k2} over {n_steps} steps")
     if not all(math.isfinite(x) for x in losses) or not after < before:
         raise SystemExit(f"ssl: InfoNCE {losses}, held batch {before} -> {after}")
-    return {"logmel": k1, "lip_preprocess": k2}
+    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
 
 
 def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
@@ -2147,6 +2315,7 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.manifest import build_data_list, train_val_test_split
     from multimodal_av_model_tpu_torch.models.audio import AudioEncoder
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
     cfg = _families_config(dirs)
@@ -2171,6 +2340,7 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
+        prefix_beam.launches = 0
         tee = _Tee(sys.stdout)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(tee):
@@ -2178,13 +2348,14 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         k1, k2, n = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches, forwards[0]
+        k3 = prefix_beam.launches
         log(f"[families-cli] {tag}: {dt:.1f} s; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {n} audio-encoder forwards; "
-            f"launches K1 {k1}, K2 {k2}")
+            f"launches K1 {k1}, K2 {k2}, K3 {k3}")
         if k1 != n or k2 != k2_per_forward * n or (n == 0) != ("--family=visual" in args):
             raise SystemExit(f"families-cli: {tag}: launches K1 {k1}, K2 {k2} over {n} "
                              f"forwards (expected 1 and {k2_per_forward} per forward)")
-        return "".join(tee.text), k1, k2
+        return "".join(tee.text), k1, k2, k3
 
     def epochs(tag, text):
         for line in text.splitlines():
@@ -2196,7 +2367,7 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
                 log(f"[families-cli] {tag}, {line}")
 
     AudioEncoder.forward = counted
-    launches = {"logmel": 0, "lip_preprocess": 0}
+    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
     wav = os.path.join(dirs["wav_dir"], sorted(os.listdir(dirs["wav_dir"]))[0])
     try:
         for tag, args, k2 in (
@@ -2219,9 +2390,10 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
                  [f"train.checkpoint_dir={ck['av']}", "train.max_epochs=1",
                   f"train.audio_init_ckpt={os.path.join(ck['ssl'], 'last.ckpt')}",
                   f"train.visual_init_ckpt={os.path.join(ck['visual'], 'last.ckpt')}"], 2)):
-            text, k1, k2n = run(tag, args, k2)
+            text, k1, k2n, k3 = run(tag, args, k2)
             launches["logmel"] += k1
             launches["lip_preprocess"] += k2n
+            launches["prefix_beam"] += k3
             epochs(tag, text)
             lines = text.splitlines()
             if tag.endswith("2 epochs") and "[epoch 2]" not in text:
@@ -2253,7 +2425,8 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
     finally:
         AudioEncoder.forward = original
     log(f"[families-cli] {len(train_set)} train and {len(val_set)} val utterances; launches "
-        f"over the phase K1 {launches['logmel']}, K2 {launches['lip_preprocess']}; card {smi}")
+        f"over the phase K1 {launches['logmel']}, K2 {launches['lip_preprocess']}, K3 "
+        f"{launches['prefix_beam']}; card {smi}")
     return launches
 
 
@@ -2343,6 +2516,7 @@ def legacy_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
     from multimodal_av_model_tpu_torch.ops import logmel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.text import KoreanSyllableVocab
     from multimodal_av_model_tpu_torch.train.legacy import (
@@ -2389,6 +2563,7 @@ def legacy_phase(torch, tok, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
+        prefix_beam.launches = 0
         t0 = time.perf_counter()
         samples = [load_legacy_sample(d, vocab, device="cuda") for d in sample_dirs]
         load_s = time.perf_counter() - t0
@@ -2438,6 +2613,7 @@ def legacy_phase(torch, tok, smi: str) -> dict:
         del trainer.train_step
         after = held_loss()
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        k3 = prefix_beam.launches
         peak = torch.cuda.max_memory_allocated()
         for line in lines:
             log(f"[legacy] fit: {line}")
@@ -2455,7 +2631,7 @@ def legacy_phase(torch, tok, smi: str) -> dict:
         if len(lines) != epochs or not all(ln.startswith(f"[Epoch {i + 1}] Loss: ")
                                            for i, ln in enumerate(lines)):
             raise SystemExit(f"legacy: fit printed {lines}")
-        return {"logmel": k1, "lip_preprocess": k2}
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2581,6 +2757,7 @@ def reference_import_phase(torch, rng, tok, smi: str):
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train.checkpoints import restore_checkpoint
 
@@ -2641,6 +2818,7 @@ def reference_import_phase(torch, rng, tok, smi: str):
         torch.cuda.reset_peak_memory_stats()
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
+        prefix_beam.launches = 0
         lat, per_request = [], []
         for raw in requests[1:]:                    # the main path
             before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
@@ -2653,6 +2831,7 @@ def reference_import_phase(torch, rng, tok, smi: str):
             if len(texts) != 4 or not all(isinstance(x, str) for p in texts for x in p):
                 raise SystemExit("reference-import: expected one text per speaker")
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        k3 = prefix_beam.launches
         log(f"[reference-import] Transcriber.from_checkpoint of the imported file "
             f"({cfg.model.dtype}) {load_s:.1f} s; 3 requests B=4 bucket 128: "
             f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms; launches per request "
@@ -2660,7 +2839,7 @@ def reference_import_phase(torch, rng, tok, smi: str):
             f"GiB; card {smi}")
         if per_request != [(1, 2)] * 3:
             raise SystemExit(f"reference-import: launches per request {per_request}")
-        return {"logmel": k1, "lip_preprocess": k2}, transcriber
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}, transcriber
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2713,6 +2892,7 @@ def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
     )
     from multimodal_av_model_tpu_torch.ops import resize
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
     root = tempfile.mkdtemp(prefix="mmav_lip_extract_")
@@ -2811,6 +2991,7 @@ def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
         torch.cuda.synchronize()
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
+        prefix_beam.launches = 0
         lat, per_request, texts = [], [], []
         for raw in requests:                         # the main path
             before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
@@ -2821,13 +3002,14 @@ def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
             per_request.append((log_mel_spectrogram_cuda.launches - before[0],
                                 lip_preprocess_cuda.launches - before[1]))
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        k3 = prefix_beam.launches
         log(f"[lip-extract] {len(requests)} requests from the extracted clips (B=1, buckets "
             f"{[r['lip1_raw'].shape[1] for r in requests]}): "
             f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms; launches per request {per_request}; "
             f"first texts {json.dumps(texts[0])[:80]}; card {smi}")
         if per_request != [(1, 2)] * len(requests) or len(texts) != len(requests):
             raise SystemExit(f"lip-extract: launches per request {per_request}")
-        return {"logmel": k1, "lip_preprocess": k2}
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2899,6 +3081,7 @@ def runtime_phase(torch, served) -> None:
     import shutil
     import tempfile
 
+    from multimodal_av_model_tpu_torch.ops import cuda_build
     from multimodal_av_model_tpu_torch.train.profiling import (
         annotate,
         device_memory_stats,
@@ -2967,7 +3150,9 @@ def runtime_phase(torch, served) -> None:
         built = sorted(os.path.relpath(p, cache) for p in glob.glob(f"{cache}/*/*.so"))
         log(f"[runtime] compile_cache_dir: a fresh process built {built} in {runs[0]['s']:.2f} s, "
             f"a second one found them in {runs[1]['s']:.3f} s")
-        if len(built) != 3 or not all(r["ok"] for r in runs) or runs[1]["s"] > 1.0:
+        # One library a kernel source and one of the host ops.
+        if (len(built) != len(cuda_build.SOURCES) + 1 or not all(r["ok"] for r in runs)
+                or runs[1]["s"] > 1.0):
             raise SystemExit(f"runtime: compile cache {built} {runs}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3007,6 +3192,7 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
     from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.parallel import full_tensor, make_mesh
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
@@ -3066,6 +3252,7 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
             if count:
                 log_mel_spectrogram_cuda.launches = 0
                 lip_preprocess_cuda.launches = 0
+                prefix_beam.launches = 0
             times, losses = [], []
             for _ in range(n_steps):                # the main path when counted
                 t0 = time.perf_counter()
@@ -3073,12 +3260,13 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
                 _, m = t.train_step(state, b)
                 losses.append(m["loss"].item())
                 times.append(time.perf_counter() - t0)
-            k = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+            k = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
+                 prefix_beam.launches)
             return times, losses, torch.cuda.max_memory_allocated(), k
 
         for tag, t, state, count in (("unmeshed", plain, p_state, False),
                                      ("meshed FSDP", meshed, m_state, True)):
-            times, losses, peak, (k1, k2) = steps(t, state, count)
+            times, losses, peak, (k1, k2, k3) = steps(t, state, count)
             log(f"[dist] {tag} B=8: {n_steps} steps, {np.median(times) * 1e3:.1f} ms median "
                 f"({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}), "
                 f"{8 * n_steps / sum(times):.2f} utt/s, peak device memory "
@@ -3089,7 +3277,7 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
                 raise SystemExit(f"dist: non-finite losses {losses}")
         if (k1, k2) != (n_steps, 2 * n_steps):
             raise SystemExit(f"dist: launches K1 {k1}, K2 {k2} over {n_steps} steps")
-        launches = {"logmel": k1, "lip_preprocess": k2}
+        launches = {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
 
         ckpt = os.path.join(root, "sharded")
         t0 = time.perf_counter()
@@ -3145,6 +3333,7 @@ def cli_child(argv: list[str]) -> int:
     sys.path.insert(0, REPO)
     from multimodal_av_model_tpu_torch import main as cli
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
@@ -3158,10 +3347,11 @@ def cli_child(argv: list[str]) -> int:
     MultiSpeakerTrainer.train_step = counted
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
+    prefix_beam.launches = 0
     cli.main(argv)
     print("[cli-child] " + json.dumps({
         "k1": log_mel_spectrogram_cuda.launches, "k2": lip_preprocess_cuda.launches,
-        "train_steps": n["train_step"],
+        "k3": prefix_beam.launches, "train_steps": n["train_step"],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
     return 0
 
@@ -3188,7 +3378,7 @@ def dist_cli_phase(torch, tok, smi: str) -> dict:
                   + [f"data.vocab_path={vocab}", "train.batch_size=8", "train.eval_batch_size=4",
                      "data.num_pairs_per_epoch=32", "data.eval_pairs=8",
                      "train.checkpoint_layout=sharded", "--device=cuda"])
-        launches = {"logmel": 0, "lip_preprocess": 0}
+        launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
         for tag, extra, want in (
                 ("mesh.fsdp=true, 1 epoch", ["mesh.fsdp=true", "train.max_epochs=1", "a"], None),
                 ("mesh.fsdp=true, resume to epoch 2", ["mesh.fsdp=true", "train.max_epochs=2",
@@ -3214,7 +3404,8 @@ def dist_cli_phase(torch, tok, smi: str) -> dict:
             calls = child["train_steps"] + n_eval
             log(f"[dist-cli] {tag}: {dt:.1f} s (torchrun, one process); {mesh_line[:90]}; peak "
                 f"device memory {child['peak_gib']:.2f} GiB; {child['train_steps']} train steps, "
-                f"{n_eval} eval batches; launches K1 {child['k1']}, K2 {child['k2']}; "
+                f"{n_eval} eval batches; launches K1 {child['k1']}, K2 {child['k2']}, K3 "
+                f"{child['k3']}; "
                 f"{epochs[-1][:100] if epochs else 'NO EPOCH'}")
             if want and want not in out:
                 raise SystemExit(f"dist-cli: {tag} did not print {want!r}")
@@ -3222,6 +3413,7 @@ def dist_cli_phase(torch, tok, smi: str) -> dict:
                 raise SystemExit(f"dist-cli: {tag}: epochs {len(epochs)}, launches {child}")
             launches["logmel"] += child["k1"]
             launches["lip_preprocess"] += child["k2"]
+            launches["prefix_beam"] += child["k3"]
         log(f"[dist-cli] card {smi}")
         return launches
     finally:
@@ -3242,6 +3434,7 @@ def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
 
     from multimodal_av_model_tpu_torch.config import Config
     from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.parallel import make_cp_audio_encoder, make_mesh
 
     cfg = Config().model
@@ -3262,14 +3455,14 @@ def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
             enc = make_cp_audio_encoder(cfg, mesh, "data", impl).cuda().eval()
             enc.load_state_dict(full.state_dict())
             encoders[impl] = enc
-        outs, k1, k2 = {}, 0, 0
+        outs, k1, k2, k3 = {}, 0, 0, 0
         for name, enc in encoders.items():
             with torch.no_grad():
                 outs[name] = enc(wave)
                 times, _, n1, n2, peak = _timed_steps(torch, lambda: enc(wave)[0].sum(), 0,
                                                       n_calls)
             if name != "full attention":            # the main path
-                k1, k2 = k1 + n1, k2 + n2
+                k1, k2, k3 = k1 + n1, k2 + n2, k3 + prefix_beam.launches
             ms, peak = float(np.median(times)) * 1e3, peak / 2**30
             last, middle, _ = outs[name]
             ref_last, ref_middle, _ = outs["full attention"]
@@ -3289,7 +3482,7 @@ def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
             f"card {smi}")
         if (k1, k2) != (calls, 0):
             raise SystemExit(f"longform: launches K1 {k1}, K2 {k2} over {calls} calls")
-        return {"logmel": k1, "lip_preprocess": k2}
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
     finally:
         dist.destroy_process_group()
 
@@ -3310,6 +3503,7 @@ def pp_phase(torch, rng, smi: str, n_steps: int = 5, microbatches: int = 4) -> d
     from multimodal_av_model_tpu_torch.config import Config
     from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
     from multimodal_av_model_tpu_torch.models.audio import ConformerBlock
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.parallel import (
         PIPE_AXIS,
         bubble_fraction,
@@ -3381,9 +3575,10 @@ def pp_phase(torch, rng, smi: str, n_steps: int = 5, microbatches: int = 4) -> d
                 return fn().detach().sum()
 
             times, _, k1, k2, peak = _timed_steps(torch, step, 1, n_steps)
+            k3 = prefix_beam.launches
             log(f"[pp] {tag}: forward + backward {float(np.median(times)) * 1e3:.1f} ms "
                 f"(median of {n_steps}), peak device memory {peak / 2**30:.2f} GiB")
-        launches = {"logmel": k1, "lip_preprocess": k2}
+        launches = {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
         log(f"[pp] bubble_fraction(1, {microbatches}) = {bubble_fraction(1, microbatches):g} "
             f"(4 stages: {bubble_fraction(4, microbatches):.4f}); launches over the pipelined "
             f"steps K1 {launches['logmel']}, K2 {launches['lip_preprocess']}; card {smi}")
@@ -3419,6 +3614,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.infer import Transcriber, decode_ids
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
     from multimodal_av_model_tpu_torch.train.trainer import place_batch
@@ -3476,7 +3672,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     del shared, double, outs
 
     # Full width: one bucket-128 request of 4 mixtures served with the double pass.
-    launches = {"logmel": 0, "lip_preprocess": 0}
+    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
     cfg = Config()
     cfg.model.shared_audio_pass = False
     dtype = torch_dtype(cfg.model.dtype)
@@ -3495,11 +3691,13 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
+    prefix_beam.launches = 0
     t0 = time.perf_counter()                                            # the main path
     texts = transcriber.transcribe(_flagship_batch(torch, raw))
     torch.cuda.synchronize()
     req_ms = (time.perf_counter() - t0) * 1e3
     k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+    k3 = prefix_beam.launches
     hook.remove()
     for s in ("1", "2"):
         lp = captured[0]["log_probs" + s].float()
@@ -3508,11 +3706,13 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
             raise SystemExit(f"{tag}: bad log-probs {tuple(lp.shape)}")
     log(f"[{tag}] full width, double pass: one bucket-128 request of 4 mixtures in "
         f"{req_ms:.1f} ms, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        f"GiB, launches K1 {k1} K2 {k2}; first texts {json.dumps(texts[0])[:80]}")
-    if (k1, k2) != (1, 2) or len(texts) != 4:
-        raise SystemExit(f"{tag}: request launches K1 {k1}, K2 {k2} (expected 1 and 2)")
+        f"GiB, launches K1 {k1} K2 {k2} K3 {k3}; first texts {json.dumps(texts[0])[:80]}")
+    if (k1, k2, k3) != (1, 2, 1) or len(texts) != 4:
+        raise SystemExit(f"{tag}: request launches K1 {k1}, K2 {k2}, K3 {k3} (expected 1, 2 "
+                         f"and 1)")
     launches["logmel"] += k1
     launches["lip_preprocess"] += k2
+    launches["prefix_beam"] += k3
     del transcriber, model, captured
 
     # Full width: the B = 8 step of each pass on bench.py's shapes.
@@ -3564,7 +3764,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     for name, shared_pass in (("shared", True), ("double", False)):
         step, state = make_step(shared_pass)
         rows[name] = {"step": step, "state": state, "times": [], "losses": [], "k1": 0,
-                      "k2": 0, "peak": 0, "calls": np.zeros(2, np.int64)}
+                      "k2": 0, "k3": 0, "peak": 0, "calls": np.zeros(2, np.int64)}
     for name in ("shared", "double", "double", "shared"):   # in turns; the main path
         r = rows[name]
         before = allocator_calls()
@@ -3573,6 +3773,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
         r["times"] += times
         r["losses"] += losses
         r["k1"], r["k2"], r["peak"] = r["k1"] + k1, r["k2"] + k2, max(r["peak"], peak)
+        r["k3"] += prefix_beam.launches
     for name, r in rows.items():
         with FlopCounterMode(display=False) as counter:
             r["step"]()
@@ -3598,6 +3799,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
             raise SystemExit(f"{tag}: non-finite losses {losses}")
     launches["logmel"] += rows["double"]["k1"]
     launches["lip_preprocess"] += rows["double"]["k2"]
+    launches["prefix_beam"] += rows["double"]["k3"]
     ratio = rows["double"]["enc"] / rows["shared"]["enc"]
     cost = np.median(rows["double"]["times"]) / np.median(rows["shared"]["times"])
     cost_alone = np.median(alone["double"]) / np.median(alone["shared"])
@@ -3636,6 +3838,7 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.synth_corpus import write_raw_media_corpus
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
@@ -3691,6 +3894,7 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
+        prefix_beam.launches = 0
         times, pulls, losses = [], [], []
         batches = device_preprocessed_batches(raws)     # the main path
         for _ in raws:
@@ -3702,6 +3906,7 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
             losses.append(m["loss"].item())
             times.append(time.perf_counter() - t0)
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
+        k3 = prefix_beam.launches
         log(f"[{tag}] 3 flagship steps at full width (B=8 speaker-distinct pairs, bucket 64): "
             f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms (the first with cuDNN's warm-up; "
             f"each from the pull of its raw batch, of which the pull, its host-to-device "
@@ -3714,15 +3919,15 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
                              f"2 per step)")
         if not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"{tag}: non-finite losses {losses}")
-        return {"logmel": k1, "lip_preprocess": k2}
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-PHASES = ("family-ref", "family-audio", "family-visual", "families", "legacy-ref", "legacy",
+PHASES = ("k3", "family-ref", "family-audio", "family-visual", "families", "legacy-ref", "legacy",
           "reference-import", "lip-extract", "hostops", "runtime", "dist", "dist-cli", "longform",
           "pp", "shared-pass", "raw-media")
-UPSTREAM = PHASES[4:8]
+UPSTREAM = PHASES[5:9]
 
 
 def upstream_phases(torch, rng, tok, smi: str, only=UPSTREAM) -> dict:
@@ -3790,7 +3995,8 @@ def main() -> int:
         for name in only:
             if name in UPSTREAM:
                 continue
-            {"family-ref": lambda: family_ref_phase(torch, tok),
+            {"k3": lambda: k3_phase(torch, rng),
+             "family-ref": lambda: family_ref_phase(torch, tok),
              "family-audio": lambda: family_audio_phase(torch, tok, smi),
              "family-visual": lambda: family_visual_phase(torch, tok, smi),
              "families": lambda: families_phase(torch, tok, smi),
@@ -3808,6 +4014,7 @@ def main() -> int:
         return 0
     hostops_phase(torch)
     (k1, k1_calls), (k2, k2_calls) = k1_phase(torch, rng), k2_phase(torch, rng)
+    k3 = k3_phase(torch, rng)
     reference_phase(torch, rng)
     serving_launches, profile_request, served = serving_phase(torch, rng, tok)
     beam_ref_phase(torch, served)
@@ -3834,8 +4041,8 @@ def main() -> int:
     pp_launches = pp_phase(torch, rng, smi)
     shared_pass_launches = shared_pass_phase(torch, rng, tok, smi)
     raw_media_launches = raw_media_phase(torch, tok, smi)
-    kernels = [k1, k2]
-    for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls)):
+    kernels = [k1, k2, k3]
+    for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls), ("k3", k3, None)):
         by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
                    "fit": fit_launches[k["name"]],
                    "stream_audio": stream_launches["stream_audio"][k["name"]],
@@ -3857,6 +4064,8 @@ def main() -> int:
                    "raw_media": raw_media_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
+        if calls is None:                           # K3: graph replay's time only
+            continue
         dev_ms, caught = profiled_ms(*calls)
         log(f"[{tag}] device time per launch by torch.profiler (CUPTI), mean of the {caught} "
             f"of {calls[2]} launches issued one by one that it caught: {dev_ms:.4f} ms, "

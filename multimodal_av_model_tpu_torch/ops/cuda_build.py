@@ -28,6 +28,7 @@ _build_root = os.path.dirname(BUILD_DIR)
 SOURCES = {
     "logmel": "logmel.cu",
     "lip": "lip_preprocess.cu",
+    "prefix_beam": "prefix_beam.cu",
 }
 
 NVCC_FLAGS = [

@@ -39,7 +39,8 @@ name; about 20 a unit, none inside a per-frame loop):
 ``preprocess.lips``      K2 on one speaker's crops, after their copy
 ``transcribe``           ``infer.py:Transcriber.transcribe``, a request
 ``transcribe.forward``   its model call
-``transcribe.decode``    its ``decode_ids`` (the prefix-beam loop)
+``transcribe.decode``    its ``decode_ids``: on the card one K3 launch,
+                         counted as ``prefix_beam_kernel``
 ``transcribe.readback``  its ``_texts``: ids to the host, the tokenizer
 ``train.step``           ``train/trainer.py:train_step``, zero_grad included
 ``train.forward``        the model call in ``_losses``

@@ -21,6 +21,7 @@ from multimodal_av_model_tpu.text import ngram_lm as j_lm
 from multimodal_av_model_tpu_torch.config import Config, DecodeConfig
 from multimodal_av_model_tpu_torch.infer import decode_ids
 from multimodal_av_model_tpu_torch.ops.beam_search import beam_search_decode
+from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
 from multimodal_av_model_tpu_torch.ops.prefix_beam_search import (
     prefix_beam_search_decode,
     prefix_beam_state_init,
@@ -209,3 +210,95 @@ def test_bigram_lm_is_a_copy_of_jax(tmp_path):
     np.save(path, lm[:5])
     with pytest.raises(ValueError, match="not a bigram LM table"):
         ngram_lm.load_bigram_lm(path)
+
+
+# --- mmav::prefix_beam: the operator every decode goes through ----------------------------
+
+
+def _op_args(kind, seed=3):
+    """Operator arguments: a fresh decode, a carried state of capacity 9, or a
+    fresh decode with a bigram LM; small CPU shapes."""
+    lp, lens = _log_probs(3, 12, 10, seed, scale=2.0)
+    lm = None
+    state = (None,) * 4
+    if kind == "state":
+        state = tuple(x[None].repeat(3, *([1] * x.ndim)) for x in prefix_beam_state_init(4, 9))
+    if kind == "lm":
+        lm = torch.from_numpy(np.log(np.random.default_rng(seed).dirichlet(
+            np.ones(10), 11)).astype(np.float32))
+    return (torch.from_numpy(lp), torch.from_numpy(lens), *state, lm, 4, 6, 3, -1, 0.3, 0.5)
+
+
+@pytest.mark.parametrize("kind", ["fresh", "state", "lm"])
+def test_prefix_beam_operator_passes_opcheck(kind):
+    """Schema (no aliasing, no mutation), fake tensors against the CPU kernel,
+    and AOT dispatch with dynamic shapes."""
+    torch.library.opcheck(pbs.prefix_beam_op, _op_args(kind))
+
+
+@pytest.mark.parametrize("kind", ["fresh", "state", "lm"])
+def test_prefix_beam_fake_gives_the_outputs_shapes_and_dtypes(kind):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args = _op_args(kind)
+    real = pbs.prefix_beam_op(*args)
+    with FakeTensorMode() as mode:
+        fake = pbs.prefix_beam_op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor) else a
+                                    for a in args))
+    B, T = args[0].shape[:2]
+    W, C = (4, T) if kind != "state" else (4, 9)
+    want = [((B, W, C), torch.int32), ((B, W), torch.int64), ((B, W), torch.float32),
+            ((B, W), torch.float32), ((B, C), torch.int32), ((B,), torch.int32),
+            ((B,), torch.float32)]
+    for r, f, (shape, dtype) in zip(real, fake, want):
+        assert tuple(r.shape) == tuple(f.shape) == shape
+        assert r.dtype == f.dtype == dtype
+
+
+def test_prefix_beam_operator_equals_the_plain_loop_on_the_cpu():
+    """On a CPU tensor the operator is the plain loop: the offline decode
+    against JAX's, and the state it returns against the stream step's."""
+    before = pbs.prefix_beam.launches
+    lp, lens = _log_probs(4, 20, 12, seed=7)
+    state, ids, n, score = pbs.prefix_beam(torch.from_numpy(lp), torch.from_numpy(lens))
+    j_ids, j_n, j_score = j_prefix(jnp.asarray(lp), jnp.asarray(lens), 5, 8, 3)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(j_ids))
+    np.testing.assert_array_equal(n.numpy(), np.asarray(j_n))
+    np.testing.assert_allclose(score.numpy(), np.asarray(j_score), rtol=1e-5, atol=1e-4)
+    assert state[0].shape == (4, 5, 20) and torch.equal(state[0][:, 0], ids)
+    one = prefix_beam_stream_step(prefix_beam_state_init(5, 20), torch.from_numpy(lp[1]),
+                                  int(lens[1]))
+    for a, b in zip(one, state):
+        assert torch.equal(a, b[1])
+    assert pbs.prefix_beam.launches == before              # the CPU never launches
+
+
+def test_prefix_beam_state_init_is_one_live_empty_prefix():
+    prefixes, lens, pb, pnb = prefix_beam_state_init(3, 4)
+    assert torch.equal(prefixes, torch.full((3, 4), -1, dtype=torch.int32))
+    assert torch.equal(lens, torch.zeros(3, dtype=torch.int64))
+    assert torch.equal(pb, torch.tensor([0.0, pbs._NEG_INF, pbs._NEG_INF]))
+    assert torch.equal(pnb, torch.full((3,), pbs._NEG_INF))
+
+
+@pytest.mark.parametrize("with_lm", [False, True])
+def test_export_holds_the_decode_as_one_operator_node(with_lm):
+    """A module that decodes exports as one ``mmav::prefix_beam`` node, not an
+    unrolled frame loop, and the exported program decodes as the module."""
+
+    class Decode(torch.nn.Module):
+        def forward(self, lp, lens, lm):
+            ids, n, score = prefix_beam_search_decode(lp, lens, 4, 6, 3, lm=lm,
+                                                      lm_weight=0.3 if with_lm else 0.0)
+            return ids, n, score
+
+    lp, lens = _log_probs(3, 16, 10, seed=8)
+    lm = (torch.from_numpy(np.log(np.random.default_rng(1).dirichlet(np.ones(10), 11))
+                           .astype(np.float32)) if with_lm else None)
+    args = (torch.from_numpy(lp), torch.from_numpy(lens), lm)
+    program = torch.export.export(Decode(), args)
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert targets.count("mmav.prefix_beam.default") == 1
+    assert len(targets) < 20
+    for got, want in zip(program.module()(*args), Decode()(*args)):
+        assert torch.equal(got, want)

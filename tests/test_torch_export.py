@@ -109,6 +109,9 @@ def _check_artifact(t, out_dir, jax_dir, batch, use_beam):
         assert json.load(f) == json.load(g)
     targets = {str(n.target) for n in served.program.graph.nodes if n.op == "call_function"}
     assert "mmav.log_mel.default" in targets                 # K1, one node
+    decodes = [n for n in served.program.graph.nodes
+               if str(n.target) == "mmav.prefix_beam.default"]
+    assert len(decodes) == (1 if use_beam else 0)            # the whole beam search, one node
     assert not any("lip_preprocess" in x for x in targets)   # lips come preprocessed
     return served
 

@@ -6,6 +6,9 @@ in the fixture, at run time).  On a machine with the card:
     python -m pytest tests/test_torch_kernels.py -m gpu -q
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,7 @@ from multimodal_av_model_tpu_torch.ops.logmel import (
     log_mel_spectrogram_cuda,
     logmel_plan,
 )
+from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
 from multimodal_av_model_tpu_torch.ops.resize import (
     lip_band_plan,
     lip_frames_preprocess,
@@ -127,3 +131,207 @@ def test_lip_kernel_rejects_what_it_does_not_take(cuda):
         lip_preprocess_cuda(torch.zeros(2, 8, 8, 3, device=cuda, dtype=torch.float16))
     with pytest.raises(ValueError):
         lip_preprocess_cuda(torch.zeros(2, 8, 8, 3, device=cuda).permute(0, 2, 1, 3))
+
+
+# --- K3: the prefix-beam kernel against the plain loop on the same CUDA inputs ----------
+
+_OUTS = ("prefixes", "lens", "pb", "pnb", "ids", "out_len", "score")
+
+
+def _log_softmax(x):
+    x = x - x.max(-1, keepdims=True)
+    return (x - np.log(np.exp(x).sum(-1, keepdims=True))).astype(np.float32)
+
+
+def _assert_same_decode(got, want):
+    """Prefixes, lengths and ids exactly; the log-masses within 1e-5, relative
+    above magnitude 1 (a float32 ulp at 256 is 3e-5: the two sides run the same
+    arithmetic, so more than a few ulp apart is a fault)."""
+    for name, g, w in zip(_OUTS, got, want):
+        if name in ("pb", "pnb", "score"):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+        else:
+            assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def _both(cuda, lp, lens, state=None, W=5, K=8, blank=3, pad=-1, lm=None, lw=0.0, lb=0.0,
+          dtype=torch.float32):
+    lp = torch.from_numpy(lp).to(cuda, dtype)
+    lens = torch.as_tensor(lens).to(cuda)
+    st = (None,) * 4 if state is None else tuple(x.to(cuda) for x in state)
+    lm = None if lm is None else torch.from_numpy(lm).to(cuda)
+    args = (lp, lens, *st, lm, W, K, blank, pad, lw, lb)
+    got = pbs.prefix_beam_op(*args)
+    want = pbs._prefix_beam_plain(*args)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _fresh_state(B, W, C):
+    return tuple(x[None].repeat(B, *([1] * x.ndim)) for x in pbs.prefix_beam_state_init(W, C))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefix_beam_kernel_at_the_cells_shape(cuda, dtype):
+    """[8, 128, 800], lengths U[64, 128], beam 5, top-k 8: a request's two
+    speakers as one batch, read in f32 (the cells) and in bf16."""
+    rng = np.random.default_rng(10)
+    lp = _log_softmax(3.0 * rng.standard_normal((8, 128, 800)))
+    lens = rng.integers(64, 129, 8)
+    got, want = _both(cuda, lp, lens, dtype=dtype)
+    _assert_same_decode(got, want)
+    assert (got[5].cpu().numpy() > 0).all()
+
+
+@pytest.mark.parametrize("case", ["lengths_0_and_T", "one_beam", "k_at_least_v", "ties",
+                                  "lm", "pad_id"])
+def test_prefix_beam_kernel_edge_cases(cuda, case):
+    rng = np.random.default_rng(11)
+    B, T, V = 4, 40, 30
+    lp = _log_softmax(2.0 * rng.standard_normal((B, T, V)))
+    lens = np.array([0, T, 17, 1])
+    kw = {}
+    if case == "one_beam":
+        kw = dict(W=1)
+    elif case == "k_at_least_v":
+        lp = _log_softmax(2.0 * rng.standard_normal((B, T, 6)))
+        kw = dict(K=9)
+    elif case == "ties":                    # a few distinct values: ties everywhere
+        lp = np.log(np.array([0.05, 0.15, 0.3, 0.5], np.float32))[rng.integers(0, 4, (B, T, V))]
+        lp = lp.astype(np.float32)
+    elif case == "lm":
+        lm = np.log(rng.dirichlet(np.ones(V), V + 1)).astype(np.float32)
+        kw = dict(lm=lm, lw=0.4, lb=0.7)
+    elif case == "pad_id":
+        kw = dict(pad=0, blank=0)
+    got, want = _both(cuda, lp, lens, **kw)
+    _assert_same_decode(got, want)
+    assert got[5][0].item() == 0 and got[1].shape == (B, kw.get("W", 5))
+
+
+def test_prefix_beam_kernel_fills_the_capacity(cuda):
+    """A stream state of 6 tokens fed 60 frames that keep emitting: rows fill
+    their buffer and stay full."""
+    rng = np.random.default_rng(12)
+    lp = _log_softmax(6.0 * rng.standard_normal((3, 60, 20)))
+    got, want = _both(cuda, lp, np.array([60, 45, 5]), state=_fresh_state(3, 5, 6))
+    _assert_same_decode(got, want)
+    assert got[1][:2].max().item() == 6
+
+
+def test_prefix_beam_kernel_long_stream(cuda):
+    """C = 512 with T = 1,600: the top-K tiles, the copies of long rows and a
+    full buffer."""
+    rng = np.random.default_rng(13)
+    lp = _log_softmax(5.0 * rng.standard_normal((2, 1600, 64)))
+    got, want = _both(cuda, lp, np.array([1600, 1333]), state=_fresh_state(2, 5, 512))
+    _assert_same_decode(got, want)
+    assert got[1].max().item() == 512
+
+
+def test_prefix_beam_kernel_prefixes_in_device_memory(cuda):
+    """8 beams of 4,000 tokens (256 KB of prefix buffers) do not fit in shared
+    memory: the rows live in device memory, the same code reads them there."""
+    assert not pbs.prefix_beam_plan(300, 8, 8, 4000)["rows_in_smem"]
+    rng = np.random.default_rng(16)
+    lp = _log_softmax(4.0 * rng.standard_normal((2, 300, 50)))
+    got, want = _both(cuda, lp, np.array([300, 211]), state=_fresh_state(2, 8, 4000), W=8)
+    _assert_same_decode(got, want)
+
+
+def test_prefix_beam_kernel_stream_in_chunks_equals_one_pass(cuda):
+    """Chunks through prefix_beam_stream_step on the card give the offline
+    decode's state, and the plain loop's."""
+    rng = np.random.default_rng(14)
+    T = 70
+    lp = torch.from_numpy(_log_softmax(2.5 * rng.standard_normal((T, 40)))).to(cuda)
+    state = pbs.prefix_beam_state_init(5, T, cuda)
+    plain = tuple(x.clone() for x in state)
+    pos = 0
+    for c in (9, 1, 30, 17, 13):
+        state = pbs.prefix_beam_stream_step(state, lp[pos:pos + c], c)
+        plain = pbs._prefix_beam_plain(lp[None, pos:pos + c], torch.tensor([c], device=cuda),
+                                       *(x[None] for x in plain), None, 5, 8, 3, -1, 0.0,
+                                       0.0)[:4]
+        plain = tuple(x[0] for x in plain)
+        pos += c
+    whole, ids, out_len, _ = pbs.prefix_beam(lp[None], torch.tensor([T], device=cuda))
+    torch.cuda.synchronize()
+    for a, b, p in zip(state, whole, plain):
+        assert torch.equal(a, b[0]) if a.dtype != torch.float32 else torch.allclose(a, b[0])
+        assert torch.equal(a, p) if a.dtype != torch.float32 else torch.allclose(a, p)
+    assert torch.equal(ids[0, :out_len[0]], state[0][0, :state[1][0]])
+
+
+# Two 12-token prefixes, tokens below 32 and none the blank, whose 64-bit
+# prefix hashes are equal under the kernel's multiply-add (h = h * kHashMul +
+# token + 1, mod 2**64).  The hash is linear in the tokens, so the pair was
+# found by lattice reduction over the differences of the tokens.
+_COLLIDING = ([4, 4, 6, 8, 14, 10, 4, 4, 4, 4, 19, 4],
+              [5, 12, 4, 4, 4, 4, 18, 6, 22, 17, 4, 21])
+
+
+def _kernel_hash(tokens):
+    src = (Path(pbs.__file__).parent.parent / "csrc" / "prefix_beam.cu").read_text()
+    mul = int(re.search(r"kHashMul = (0x[0-9A-Fa-f]+)ull", src).group(1), 16)
+    h = 0
+    for t in tokens:
+        h = (h * mul + t + 1) % 2**64
+    return h
+
+
+def test_prefix_beam_colliding_pair_collides_under_the_kernels_hash():
+    """Runs anywhere (no card needed): the pair below is what the collision
+    test on the card says it is."""
+    a, b = _COLLIDING
+    assert len(a) == len(b) and a != b and min(a + b) > 3 and max(a + b) < 32
+    assert _kernel_hash(a) == _kernel_hash(b)
+
+
+def test_prefix_beam_kernel_hash_collision(cuda):
+    """Beams 0 and 1 of a carried state are the colliding pair (in both
+    orders) and hold most of the mass, so through every frame the two
+    lineages keep beams with the same suffix: candidates that match by length
+    and hash but not by their rows.  The kernel's fallback search must keep
+    them apart, as the plain loop does."""
+    rng = np.random.default_rng(17)
+    B, W, C, T, V = 2, 5, 40, 10, 32
+    a, b = _COLLIDING
+    prefixes = np.full((B, W, C), -1, np.int32)
+    lens = np.zeros((B, W), np.int64)
+    for r, (first, second) in enumerate(((a, b), (b, a))):
+        for w, row in enumerate((first, second, [7, 9, 11], [20, 21])):
+            prefixes[r, w, :len(row)] = row
+            lens[r, w] = len(row)
+    pb = np.tile(np.array([-1.0, -1.05, -4.0, -4.5, -6.0], np.float32), (B, 1))
+    pnb = np.tile(np.array([-1.1, -1.0, -4.2, -5.0, -6.5], np.float32), (B, 1))
+    state = tuple(torch.from_numpy(x) for x in (prefixes, lens, pb, pnb))
+    lp = _log_softmax(rng.standard_normal((B, T, V)))
+    got, want = _both(cuda, lp, np.array([T, 6]), state=state)
+    _assert_same_decode(got, want)
+    for r in range(B):                      # the collision is still live at the end
+        rows = [tuple(x[:n]) for x, n in zip(got[0][r].tolist(), got[1][r].tolist())]
+        tails_a = {x[12:] for x in rows if x[:12] == tuple(a)}
+        tails_b = {x[12:] for x in rows if x[:12] == tuple(b)}
+        assert tails_a & tails_b
+
+
+def test_prefix_beam_kernel_is_one_launch_a_decode(cuda):
+    rng = np.random.default_rng(15)
+    lp = torch.from_numpy(_log_softmax(rng.standard_normal((8, 128, 800)))).to(cuda)
+    lens = torch.full((8,), 128, device=cuda)
+    for _ in range(2):
+        before = pbs.prefix_beam.launches
+        pbs.prefix_beam_search_decode(lp, lens)
+        assert pbs.prefix_beam.launches == before + 1
+
+
+def test_prefix_beam_kernel_rejects_what_it_does_not_take(cuda):
+    lp = torch.zeros(2, 5, 10, device=cuda)
+    lens = torch.full((2,), 5, device=cuda)
+    with pytest.raises(TypeError):
+        pbs.prefix_beam_search_decode(lp.double(), lens)
+    with pytest.raises(ValueError):
+        pbs.prefix_beam_search_decode(lp, lens.float())
+    with pytest.raises(ValueError):
+        pbs.prefix_beam_search_decode(lp, lens, blank_id=10)
