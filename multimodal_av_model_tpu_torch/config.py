@@ -128,6 +128,33 @@ class DecodeConfig:
 
 
 @dataclass
+class AVHubertConfig:
+    """AV-HuBERT's early-fusion encoder with a CTC head (``model.arch =
+    "avhubert"``; facebookresearch/av_hubert ``avhubert/hubert.py``
+    ``AVHubertModel``, ``hubert_asr.py``; arXiv:2201.02184).  Defaults are
+    AV-HuBERT Large.  The model also reads ``frontend`` (K1: AV-HuBERT's 26
+    filterbank bins take ``n_mels=26, center=False``), ``visual`` (the
+    ResNet-18 trunk; its ``output_dim`` is ``embed_dim``: the trunk's
+    ``Linear(512 -> 1024)`` is AV-HuBERT's video projection), ``decoder`` and
+    ``dtype``.  Four filterbank frames of ``hop_length`` samples make one
+    video frame, so ``data.audio_samples_per_video_frame`` should be ``4 *
+    hop_length`` (640: 25 fps)."""
+
+    embed_dim: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    ffn_dim: int = 4096
+    conv_pos: int = 128               # positional convolution's kernel (even: SamePad)
+    conv_pos_groups: int = 16
+    # Train-mode dropout (fairseq's sites): ``dropout`` on the layers' input and
+    # after each attention and FFN, ``attention_dropout`` on the attention
+    # weights, ``activation_dropout`` after the FFN's GELU.
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.0
+
+
+@dataclass
 class ModelConfig:
     frontend: AudioFrontendConfig = field(default_factory=AudioFrontendConfig)
     audio: AudioEncoderConfig = field(default_factory=AudioEncoderConfig)
@@ -141,6 +168,20 @@ class ModelConfig:
     # double pass, the encoder on [2B] rows, each with its own speaker's
     # mask (``config.py:164-171``).
     shared_audio_pass: bool = True
+    # Which two-speaker model the entry points build (models/av_model.py:
+    # build_av_model): "flagship" (MultiSpeakerAVModel) or "avhubert"
+    # (models/avhubert.py, configured by ``avhubert``).
+    arch: str = "flagship"
+    avhubert: AVHubertConfig = field(default_factory=AVHubertConfig)
+
+
+def require_flagship(model: "ModelConfig | None", what: str) -> None:
+    """Raise for ``what``, a path that only the flagship model has, when
+    ``model`` selects another ``arch``."""
+    if model is not None and model.arch != "flagship":
+        raise ValueError(f"{what} runs the flagship model only; model.arch={model.arch!r} "
+                         "trains (train_step, evaluate) and transcribes (Transcriber) on one "
+                         "device")
 
 
 @dataclass

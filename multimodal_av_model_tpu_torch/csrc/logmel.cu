@@ -51,7 +51,10 @@
 // r holds m-tile r's power over all bins and makes the mel projection in
 // f32 FMA over each triangle's support only (16 bins at 201 bins and 80
 // mels, in four independent partial sums: the dense [201, 80] product would
-// be 13x the work), with the log applied in the store.
+// be 13x the work), with the log applied in the store.  Fewer, wider
+// triangles (26 mels: 38 bins at n_fft 400) take a support of 32, 48 or 64
+// bins: the kernel is instantiated for each multiple of 16 (kMelChunks), so
+// the 16-bin instance is the code it always was.
 //
 // What holds it above the design bound (tools/kernel_phases.py on the H100,
 // which stamps the clock at the "PHASE:" markers below): the DFT loop takes
@@ -77,8 +80,10 @@ constexpr int kTileM = 16;      // frames per m-tile; 4 m-tiles = the 64 rows of
 constexpr int kGroups = 7;      // 8-column groups per warpgroup: wgmma N = 56
 constexpr int kThreads = 256;   // 2 warpgroups
 constexpr int kStageK = 5;      // k-steps (of 8) per pipeline stage
-constexpr int kMelW = 16;       // bins per mel filter support (zero-padded)
-constexpr int kMwLd = 20;       // its pitch in floats: 16-byte rows, no bank conflicts
+constexpr int kMelW = 16;       // bins per chunk of a mel filter's support (zero-padded)
+constexpr int kMaxMelChunks = 4;  // supports of 16, 32, 48 or 64 bins
+// Pitch in floats of a filter's weights: 16-byte rows, 4 floats of padding.
+__host__ __device__ constexpr int mel_ld(int chunks) { return chunks * kMelW + 4; }
 constexpr int kMelUnroll = 5;   // (frame, filter) pairs a thread takes at once
 // One k-step of the CTA's basis: 14 groups x 2 k-cores x 8 n x 4 k, f32 in
 // memory, split into {hi, lo} tiles in shared memory.
@@ -165,10 +170,10 @@ struct Plan {
 
 // The dynamic shared memory of a launch, in the order logmel_kernel carves
 // it up: the two slots of split basis tiles, the 4 staged spans, the power
-// rows, the filterbank weights and first bins.
-int smem_layout_bytes(int rows_tile, int hop, int n_mels) {
+// rows, the filterbank weights (supports of `mel_width` bins) and first bins.
+int smem_layout_bytes(int rows_tile, int hop, int n_mels, int mel_width) {
   return (int)sizeof(float) * (2 * kStageK * kStepFloats + kCluster * rows_tile * (hop + 4) +
-                               kTileM * kPmLd + n_mels * kMwLd + n_mels);
+                               kTileM * kPmLd + n_mels * mel_ld(mel_width / kMelW) + n_mels);
 }
 
 // Warp w of the CTA: warpgroup w / 4 (basis columns 56 (w / 4) .. + 55 of
@@ -177,13 +182,16 @@ int smem_layout_bytes(int rows_tile, int hop, int n_mels) {
 // tensor-core time, so the loops below carry their indices instead of
 // dividing, and the split work for the next stage runs while this stage's
 // wgmmas are in flight.
+template <int kMelChunks>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 logmel_kernel(const float* __restrict__ sig,      // [B, S]
               const float* __restrict__ basis,    // [4, ksteps, kStepB]
               const int* __restrict__ mel_lo,     // [n_mels] first bin of filter m
-              const float* __restrict__ mel_w,    // [n_mels, kMelW] its weights
+              const float* __restrict__ mel_w,    // [n_mels, kMelChunks * kMelW] its weights
               float* __restrict__ out,            // [B, T, n_mels]
               Plan p) {
+  constexpr int kSupport = kMelChunks * kMelW;    // bins of a filter's support
+  constexpr int kMwLd = mel_ld(kMelChunks);
   extern __shared__ __align__(128) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   cluster_arrive_relaxed();
@@ -280,8 +288,8 @@ logmel_kernel(const float* __restrict__ sig,      // [B, S]
     }
   }
   // PHASE: waveform rows issued
-  for (int i = threadIdx.x; i < p.n_mels * (kMelW / 4); i += kThreads) {
-    const int m = i / (kMelW / 4), c = i - m * (kMelW / 4);
+  for (int i = threadIdx.x; i < p.n_mels * (kSupport / 4); i += kThreads) {
+    const int m = i / (kSupport / 4), c = i - m * (kSupport / 4);
     cp_async_16(mw + m * kMwLd + 4 * c, mel_w + 4 * i);
   }
   for (int m = threadIdx.x; m < p.n_mels; m += kThreads) cp_async_4(mlo + m, mel_lo + m);
@@ -384,7 +392,7 @@ logmel_kernel(const float* __restrict__ sig,      // [B, S]
   cluster.sync();                 // all power rows have landed
   // PHASE: cluster barrier
 
-  // 5. Mel projection in f32 over each filter's support (kMelW contiguous
+  // 5. Mel projection in f32 over each filter's support (kSupport contiguous
   // bins from mel_lo, zero-weighted past the triangle), in four independent
   // partial sums; log in the store.  Thread i takes (frame, filter) pairs
   // i, i + 256, ... of the m-tile, kMelUnroll of them at a time.
@@ -405,7 +413,7 @@ logmel_kernel(const float* __restrict__ sig,      // [B, S]
         const float4* w = reinterpret_cast<const float4*>(mw + m * kMwLd);
         float v[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int k = 0; k < kMelW / 4; ++k) {
+        for (int k = 0; k < kSupport / 4; ++k) {
           const float4 wk = w[k];
           v[0] = fmaf(pr[4 * k], wk.x, v[0]);
           v[1] = fmaf(pr[4 * k + 1], wk.y, v[1]);
@@ -420,13 +428,27 @@ logmel_kernel(const float* __restrict__ sig,      // [B, S]
   // PHASE: mel projection + log
 }
 
+// The instance whose mel supports are kMelChunks x 16 bins, on `stream`.
+template <int kMelChunks>
+int launch(const void* sig, const void* basis, const void* mel_lo, const void* mel_w,
+           void* out, const Plan& p, int ctas, int smem_bytes, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      logmel_kernel<kMelChunks>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  logmel_kernel<kMelChunks><<<ctas, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)sig, (const float*)basis, (const int*)mel_lo, (const float*)mel_w,
+      (float*)out, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // The kernel's fixed geometry, for the wrapper to check ops/logmel.py's
 // plan against: CTAs per cluster, frames per m-tile, 8-column n-tiles per
-// CTA, k-steps per pipeline stage, bins per mel support, threads per CTA.
+// CTA, k-steps per pipeline stage, the bins a mel support is a multiple of,
+// threads per CTA.
 void mmav_logmel_geometry(int* g) {
   g[0] = kCluster;
   g[1] = kTileM;
@@ -437,26 +459,28 @@ void mmav_logmel_geometry(int* g) {
 }
 
 // Launches on `stream` with the plan of ops/logmel.py:logmel_plan: `ctas`
-// CTAs (a multiple of 4) of 256 threads and `smem_bytes` of dynamic shared
-// memory (opted in above 48 KB here).  Returns cudaErrorInvalidValue if the
-// plan's `ctas` or `smem_bytes` are not the kernel's, else the cudaError_t of
-// the attribute call or of the launch (0 = success).
+// CTAs (a multiple of 4) of 256 threads, `smem_bytes` of dynamic shared
+// memory (opted in above 48 KB here), and the instance whose mel supports
+// are `mel_width` bins (16, 32, 48 or 64).  Returns cudaErrorInvalidValue if
+// the plan's `ctas`, `mel_width` or `smem_bytes` are not the kernel's, else
+// the cudaError_t of the attribute call or of the launch (0 = success).
 int mmav_logmel_launch(const void* sig, const void* basis, const void* mel_lo,
                        const void* mel_w, void* out, int S, int T, int n_fft, int hop,
                        int pad, int tiles_per_row, int n_mtiles, int rows_tile, int n_mels,
-                       int ksteps, float log_eps, int apply_log, int ctas, int smem_bytes,
-                       void* stream) {
-  if (ctas % kCluster != 0 || smem_bytes != smem_layout_bytes(rows_tile, hop, n_mels))
+                       int ksteps, int mel_width, float log_eps, int apply_log, int ctas,
+                       int smem_bytes, void* stream) {
+  const int chunks = mel_width / kMelW;
+  if (ctas % kCluster != 0 || mel_width % kMelW != 0 || chunks < 1 || chunks > kMaxMelChunks ||
+      smem_bytes != smem_layout_bytes(rows_tile, hop, n_mels, mel_width))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
   const Plan p{S, T, n_fft, hop, pad, tiles_per_row, n_mtiles, rows_tile, n_mels,
                ksteps, log_eps, apply_log};
-  logmel_kernel<<<ctas, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)sig, (const float*)basis, (const int*)mel_lo, (const float*)mel_w,
-      (float*)out, p);
-  return (int)cudaGetLastError();
+  switch (chunks) {
+    case 1: return launch<1>(sig, basis, mel_lo, mel_w, out, p, ctas, smem_bytes, stream);
+    case 2: return launch<2>(sig, basis, mel_lo, mel_w, out, p, ctas, smem_bytes, stream);
+    case 3: return launch<3>(sig, basis, mel_lo, mel_w, out, p, ctas, smem_bytes, stream);
+    default: return launch<4>(sig, basis, mel_lo, mel_w, out, p, ctas, smem_bytes, stream);
+  }
 }
 
 const char* mmav_logmel_error_string(int code) {

@@ -34,8 +34,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from .config import Config, torch_dtype
-from .models.av_model import AudioOnlyCTC, MultiSpeakerAVModel
+from .config import Config, require_flagship, torch_dtype
+from .models.av_model import AudioOnlyCTC, MultiSpeakerAVModel, build_av_model
 from .ops.beam_search import beam_search_decode
 from .ops.ctc import ctc_greedy_decode
 from .ops.prefix_beam_search import prefix_beam_search_decode
@@ -111,10 +111,10 @@ _BATCH_KEYS = ("lip1", "lip2", "audio", "mask1", "mask2", "lip1_lengths", "lip2_
 
 @dataclasses.dataclass
 class Transcriber:
-    """The flagship two-speaker model served on ``device``.  ``forward`` runs
-    it: the module, or with ``quantize`` its int8 form
-    (``ops/quantize.QuantizedModel``; ``model`` then lives on the meta
-    device)."""
+    """The two-speaker model (``build_av_model``: the flagship or AV-HuBERT)
+    served on ``device``.  ``forward`` runs it: the module, or with
+    ``quantize`` its int8 form (``ops/quantize.QuantizedModel``, the flagship
+    only; ``model`` then lives on the meta device)."""
 
     config: Config
     tokenizer: Any
@@ -124,6 +124,8 @@ class Transcriber:
     quantize_min_size: int = 4096
 
     def __post_init__(self):
+        if self.quantize:
+            require_flagship(self.config.model, "int8 serving")
         self.forward, self.model = served(self.model, self.device, self.quantize,
                                            self.quantize_min_size)
         self.lm = load_fusion_lm(self.config.decode.lm_path, self.device)
@@ -135,7 +137,7 @@ class Transcriber:
         """A Transcriber on the model of a port checkpoint (``load_weights``;
         ``path`` may be a list, averaged).  The compute dtype is
         ``config.model.dtype`` unless given."""
-        model = MultiSpeakerAVModel(config.model, dtype or torch_dtype(config.model.dtype))
+        model = build_av_model(config.model, dtype or torch_dtype(config.model.dtype))
         return cls(config, tokenizer, load_weights(model, path), device, quantize,
                    quantize_min_size)
 
@@ -241,6 +243,7 @@ def export_transcriber(t: Transcriber, out_dir: str, example_batch: dict,
     program computes on ``t.device``, where it is traced (devices are part
     of the graph).  Returns ``{"seconds", "nodes", "bytes"}``: the export's
     time, the graph's node count and ``model.pt2``'s size."""
+    require_flagship(t.config.model, "the serving export")
     os.makedirs(out_dir, exist_ok=True)
     lm = load_fusion_lm(t.config.decode.lm_path, t.device)
     program = ServingProgram(t, use_beam).eval()

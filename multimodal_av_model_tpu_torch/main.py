@@ -17,6 +17,11 @@ Mirrors ``multimodal_av_model_tpu/main.py``: ``build_data``
   ``data.device_preprocess`` (the default) the raw crops and waveforms go to
   the device, where mixing and K2 run; ``--synthetic`` trains on seeded
   random pairs preprocessed on the host;
+* ``model.arch=avhubert`` (``models/avhubert.py``, sized by
+  ``model.avhubert.*``) takes the place of the flagship in training,
+  ``--eval`` and ``--infer`` on one device; the paths that serve the
+  flagship alone (``--stream``, ``--export``, the other families,
+  ``decode.quantize``, a ``torchrun`` mesh) refuse it;
 * training the flagship (``--family=av``, the default):
   ``train.freeze_visual_trunk`` freezes the visual encoder,
   ``train.visual_init_ckpt`` grafts the visual encoder of a port checkpoint
@@ -191,13 +196,13 @@ def run_eval(cfg, tokenizer, synthetic: bool, device="cuda") -> None:
     """``--eval``: eval-split loss, WER and CER of the checkpoint, greedy and
     by ``decode.algorithm``, as one JSON line."""
     from .config import torch_dtype
-    from .models import MultiSpeakerAVModel
+    from .models import build_av_model
     from .train import MultiSpeakerTrainer
     from .train.checkpoints import restore_checkpoint
 
     _, val_factory = build_data(cfg, tokenizer, synthetic, device, device_put=False)
     ckpt = _checkpoint(cfg)
-    trainer = MultiSpeakerTrainer(cfg, MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype)),
+    trainer = MultiSpeakerTrainer(cfg, build_av_model(cfg.model, torch_dtype(cfg.model.dtype)),
                                   tokenizer, device=device)
     state = trainer.init_state(cfg.data.seed)
     payload = restore_checkpoint(ckpt, template={"state": state, "epoch": 0})
@@ -485,6 +490,11 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("no CUDA device: the port runs on the card; pass --device=cpu "
                          "to run on the CPU")
     cfg = from_flat_overrides(overrides)
+    if cfg.model.arch != "flagship" and (stream is not None or family != "av" or export_dir
+                                         or cfg.decode.quantize):
+        raise SystemExit(f"model.arch={cfg.model.arch} trains, evaluates (--eval) and "
+                         "transcribes (--infer); --stream, --export, --family and "
+                         "decode.quantize serve the flagship")
     if cfg.compile_cache_dir:
         from .runtime.compile_cache import enable_compile_cache
 
@@ -551,7 +561,7 @@ def run_train(cfg, tokenizer, synthetic: bool, device="cuda", launched: bool = F
     import torch
 
     from .config import torch_dtype
-    from .models import MultiSpeakerAVModel
+    from .models import build_av_model
     from .train import MultiSpeakerTrainer
     from .train.checkpoints import CheckpointManager, restore_checkpoint
     from .train.ssl_pretrain import flagship_audio_params
@@ -573,7 +583,7 @@ def run_train(cfg, tokenizer, synthetic: bool, device="cuda", launched: bool = F
               f"{cfg.train.batch_size} (train) / {cfg.train.eval_batch_size} (eval)")
 
     ckpts = CheckpointManager(cfg.train.checkpoint_dir, layout=cfg.train.checkpoint_layout)
-    model = MultiSpeakerAVModel(cfg.model, torch_dtype(cfg.model.dtype))
+    model = build_av_model(cfg.model, torch_dtype(cfg.model.dtype))
     frozen = ("visual_encoder",) if cfg.train.freeze_visual_trunk else ()
     trainer = MultiSpeakerTrainer(cfg, model, tokenizer, frozen_prefixes=frozen, device=device,
                                   mesh=mesh, fsdp=mesh is not None and cfg.mesh.fsdp)

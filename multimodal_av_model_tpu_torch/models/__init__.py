@@ -3,9 +3,11 @@ from .av_model import (
     AudioOnlyCTC,
     MultiSpeakerAVModel,
     VisualOnlyCTC,
+    build_av_model,
     downsample_mask_to,
     nchw_clip_to_channels_last,
 )
+from .avhubert import AVHubertCTC
 from .decoder import CTCDecoder
 from .fusion import CrossAttentionFusion
 from .layers import BiGRU, GRULayer, init_weights
@@ -13,6 +15,7 @@ from .legacy import LipEncoder, MelAudioEncoder, MultimodalCTCKoreanModel, init_
 from .visual import VisualEncoder
 
 __all__ = [
+    "AVHubertCTC",
     "AudioEncoder",
     "BiGRU",
     "GRULayer",
@@ -25,6 +28,7 @@ __all__ = [
     "MultiSpeakerAVModel",
     "VisualEncoder",
     "VisualOnlyCTC",
+    "build_av_model",
     "downsample_mask_to",
     "init_legacy_weights",
     "init_weights",

@@ -15,7 +15,9 @@ transformer temporal model is built with dropout 0, as in JAX).
 ``AudioOnlyCTC`` mirrors ``av_model.py:148-161`` and ``VisualOnlyCTC``
 ``av_model.py:164-178``, each in eval and train mode; their parameter names
 are the flagship's (``audio_encoder``, ``visual_encoder``, ``decoder.head``),
-so their encoders graft into it.
+so their encoders graft into it.  ``build_av_model`` builds the two-speaker
+model that ``model.arch`` selects: this flagship, or AV-HuBERT
+(``models/avhubert.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..config import ModelConfig
+from ..config import ModelConfig, require_flagship
 from ..data.mixing import MASK_PAD
 from ..tracing import span
 from .audio import AudioEncoder
@@ -51,6 +53,7 @@ class MultiSpeakerAVModel(nn.Module):
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        require_flagship(config, "MultiSpeakerAVModel")
         self.config, self.dtype = config, dtype
         fused_out = 2 * config.fusion.fused_dim
         self.visual_encoder = VisualEncoder(config.visual, dtype)
@@ -123,6 +126,20 @@ class MultiSpeakerAVModel(nn.Module):
         }
 
 
+def build_av_model(config: ModelConfig, dtype: torch.dtype = torch.float32) -> nn.Module:
+    """The two-speaker CTC model that ``config.arch`` selects: "flagship"
+    (``MultiSpeakerAVModel``) or "avhubert" (``avhubert.AVHubertCTC``).  Both
+    take the collate layout and return ``log_probs{1,2}`` and
+    ``input_lengths{1,2}``; only the flagship has the contrastive taps."""
+    if config.arch == "flagship":
+        return MultiSpeakerAVModel(config, dtype)
+    if config.arch == "avhubert":
+        from .avhubert import AVHubertCTC
+
+        return AVHubertCTC(config, dtype)
+    raise ValueError(f"unknown model.arch {config.arch!r}; known: flagship, avhubert")
+
+
 class AudioOnlyCTC(nn.Module):
     """Log-mel (K1) -> Conformer -> CTC head (``av_model.py:148-161``): the
     audio-only model of the audio family, the streaming and the audio
@@ -131,6 +148,7 @@ class AudioOnlyCTC(nn.Module):
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        require_flagship(config, "the audio-only model")
         self.config, self.dtype = config, dtype
         self.audio_encoder = AudioEncoder(config.audio, config.frontend, dtype)
         self.decoder = CTCDecoder(config.decoder, config.audio.output_dim, dtype)
@@ -156,6 +174,7 @@ class VisualOnlyCTC(nn.Module):
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
+        require_flagship(config, "the visual-only model")
         self.config, self.dtype = config, dtype
         self.visual_encoder = VisualEncoder(config.visual, dtype)
         self.decoder = CTCDecoder(config.decoder, config.visual.output_dim, dtype)

@@ -105,7 +105,8 @@ CLUSTER = 4        # CTAs per cluster = 16-frame m-tiles per cluster
 TILE_M = 16        # frames per m-tile; a cluster's 4 m-tiles are the 64 rows of a wgmma
 NT_CTA = 14        # 8-column n-tiles per CTA: 2 warpgroups of wgmma N = 56
 STAGE_K = 5        # k-steps (of 8) per stage of the basis pipeline (2 slots)
-MEL_WIDTH = 16     # bins per mel filter support the kernel reads
+MEL_WIDTH = 16     # a mel filter's support, as the kernel reads it, is a multiple of this
+MEL_CHUNKS = 4     # ... of at most 4 (supports of 16, 32, 48 or 64 bins)
 THREADS = 256      # threads per CTA: 2 warpgroups
 # The same geometry is fixed in csrc/logmel.cu; _library checks the two agree.
 
@@ -140,11 +141,13 @@ def logmel_plan(B: int, S: int, n_fft: int = 400, hop_length: int = 160,
     ``rows_tile`` the hop rows an m-tile's waveform span takes, ``ksteps``
     the basis's count of 8-row k-steps, zero-padded to an even number of
     whole pipeline stages, ``mel_width`` the bins of a mel filter's support
-    as the kernel reads it, ``mel_fits`` whether that is the kernel's 16 and
-    every support lies inside the padded bins, and ``smem_bytes`` the
-    launch's dynamic shared memory: two slots of split basis tiles, the 4
-    staged spans, the ``[16, bins + 4]`` power rows and the filterbank (rows
-    of 20 floats).
+    as the kernel reads it (the widest triangle rounded up to a multiple of
+    16: 16 at 80 mels, 48 at 26 mels, n_fft 400), ``mel_fits`` whether the
+    kernel has an instance of that width (16 to 64 bins) and every support
+    lies inside the padded bins, and ``smem_bytes`` the launch's dynamic
+    shared memory: two slots of split basis tiles, the 4 staged spans, the
+    ``[16, bins + 4]`` power rows and the filterbank (rows of ``mel_width +
+    4`` floats).
     """
     pad = n_fft // 2 if center else 0
     T = num_frames(S, n_fft, hop_length, center)
@@ -159,10 +162,11 @@ def logmel_plan(B: int, S: int, n_fft: int = 400, hop_length: int = 160,
     mel_lo, mel_w = mel_support(n_freqs, n_mels, sample_rate, f_min, f_max)
     mel_width = mel_w.shape[1]
     floats = (2 * STAGE_K * 16 * nt_cta * 8 + CLUSTER * rows_tile * hp
-              + TILE_M * pm_ld + n_mels * (MEL_WIDTH + 4) + n_mels)
+              + TILE_M * pm_ld + n_mels * (mel_width + 4) + n_mels)
     return {"T": T, "pad": pad, "n_freqs": n_freqs, "nt_cta": nt_cta,
             "mel_width": mel_width,
-            "mel_fits": mel_width == MEL_WIDTH and bool((mel_lo + mel_width <= bins).all()),
+            "mel_fits": (mel_width <= MEL_CHUNKS * MEL_WIDTH
+                         and bool((mel_lo + mel_width <= bins).all())),
             "bins_cta": bins_cta, "bins": bins, "tiles_per_row": tiles_per_row,
             "n_mtiles": n_mtiles, "ctas": CLUSTER * _cdiv(n_mtiles, CLUSTER),
             "threads": THREADS, "rows_tile": rows_tile, "supported": nt_cta == NT_CTA,
@@ -216,7 +220,8 @@ def mel_support(n_freqs: int, n_mels: int, sample_rate: int, f_min: float = 0.0,
     """The filterbank as the kernel reads it: filter m's first bin ``lo[m]``
     (int32) and its weights ``w[m, :]`` over the next ``width`` bins (f32,
     zero past its support), ``width`` being the widest triangle rounded up to
-    a multiple of ``MEL_WIDTH``, the 16 bins the kernel reads."""
+    a multiple of ``MEL_WIDTH`` (16): the kernel reads supports of 16 to 64
+    bins."""
     fb = mel_filterbank(n_freqs, n_mels, sample_rate, f_min, f_max)
     nz = [np.flatnonzero(fb[:, m]) for m in range(n_mels)]
     lo = np.array([z[0] if len(z) else 0 for z in nz], np.int32)
@@ -252,7 +257,7 @@ def _library():
         raise RuntimeError(f"log-mel kernel: csrc/logmel.cu has geometry {tuple(geometry)}, "
                            f"logmel_plan assumes {expected}")
     launch = lib.mmav_logmel_launch
-    launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+    launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     launch.restype = ctypes.c_int
     return lib, launch
@@ -286,8 +291,8 @@ def _log_mel_launch(signal: torch.Tensor, sample_rate: int, n_fft: int, hop_leng
         raise ValueError(f"log-mel kernel: n_fft={n_fft}, n_mels={n_mels} give "
                          f"{plan['nt_cta']} n-tiles per CTA (the kernel takes {NT_CTA}), need "
                          f"{plan['smem_bytes']} bytes of shared memory (at most {SMEM_LIMIT}), "
-                         f"and mel supports of {MEL_WIDTH} bins inside the padded bins: "
-                         f"{plan['mel_fits']}")
+                         f"and mel supports of {plan['mel_width']} bins (at most "
+                         f"{MEL_CHUNKS * MEL_WIDTH}) inside the padded bins: {plan['mel_fits']}")
 
     lib, launch = _library()
     basis, mel_lo, mel_w = _kernel_tables(n_fft, n_mels, sample_rate, f_min, f_max,
@@ -297,8 +302,8 @@ def _log_mel_launch(signal: torch.Tensor, sample_rate: int, n_fft: int, hop_leng
     code = launch(signal.data_ptr(), basis.data_ptr(), mel_lo.data_ptr(), mel_w.data_ptr(),
                   out.data_ptr(), S, plan["T"], n_fft, hop_length, plan["pad"],
                   plan["tiles_per_row"], plan["n_mtiles"], plan["rows_tile"], n_mels,
-                  plan["ksteps"], log_eps, int(apply_log), plan["ctas"], plan["smem_bytes"],
-                  stream)
+                  plan["ksteps"], plan["mel_width"], log_eps, int(apply_log), plan["ctas"],
+                  plan["smem_bytes"], stream)
     cuda_build.check_launch(lib, "mmav_logmel", code)
     log_mel_spectrogram_cuda.launches += 1
     return out

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from .mesh import DATA_AXIS
+from .mesh import DATA_AXIS, refuse_avhubert
 from .tp import tp_param_specs
 
 
@@ -49,6 +49,7 @@ def fsdp_param_specs(model: nn.Module, data_parallel: int, model_parallel: int =
 def apply_fsdp(model: nn.Module, mesh) -> nn.Module:
     """``fully_shard`` each unit of ``model`` over the mesh's ``data`` axis,
     in place."""
+    refuse_avhubert(model, "FSDP")
     from torch.distributed.fsdp import fully_shard
 
     for unit in fsdp_units(model):

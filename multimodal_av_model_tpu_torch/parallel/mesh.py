@@ -142,6 +142,15 @@ def shard_batch(mesh, batch: dict, device) -> dict:
     return place_batch(batch, device)
 
 
+def refuse_avhubert(model: torch.nn.Module, what: str) -> None:
+    """Raise for ``what``, a layout that splits the flagship's modules, on a
+    model built with another ``model.arch``."""
+    from ..config import ModelConfig, require_flagship
+
+    cfg = getattr(model, "config", None)
+    require_flagship(cfg if isinstance(cfg, ModelConfig) else None, what)
+
+
 def bind_data_axis(model: torch.nn.Module, mesh) -> None:
     """Make ``model`` compute what one device would on the whole batch when
     its rows are split over the ``data`` axis: BatchNorms all-reduce their

@@ -122,6 +122,11 @@ def pipeline_blocks(blocks, x: torch.Tensor, frame_valid: torch.Tensor,
     every rank, equal (up to rounding) to the L blocks applied in turn.
     Every rank of ``mesh`` must call it; see the module docstring for the
     gradient."""
+    from ..models.audio import ConformerBlock
+
+    if not all(isinstance(b, ConformerBlock) for b in blocks):
+        raise ValueError("pipeline parallelism runs the flagship's Conformer blocks only; "
+                         "model.arch='avhubert' has none")
     S, s = axis_size(mesh, PIPE_AXIS), axis_rank(mesh, PIPE_AXIS)
     M = num_microbatches
     B, T, d = x.shape

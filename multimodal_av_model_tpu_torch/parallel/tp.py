@@ -26,7 +26,7 @@ from __future__ import annotations
 
 from torch import nn
 
-from .mesh import MODEL_AXIS, axis_rank, axis_size
+from .mesh import MODEL_AXIS, axis_rank, axis_size, refuse_avhubert
 
 COLWISE, ROWWISE, GATHERED = "colwise", "rowwise", "colwise_gathered"
 
@@ -72,6 +72,7 @@ def tp_param_specs(model: nn.Module, model_parallel: int) -> dict:
 def apply_tensor_parallel(model: nn.Module, mesh) -> nn.Module:
     """Split ``model``'s wide layers over the mesh's ``model`` axis in
     place (nothing to do at size 1)."""
+    refuse_avhubert(model, "tensor parallelism")
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.parallel import (
         ColwiseParallel,

@@ -47,10 +47,13 @@ name; about 20 a unit, none inside a per-frame loop):
 ``train.losses``         the rest of ``_losses``: contrastive and CTC terms
 ``train.backward``       ``total.backward()``
 ``train.optimizer``      the gradient norm and ``GroupAdam.step``
+``train.allreduce``      ``_average_grads``: the gradient all-reduce of a
+                         meshed step without FSDP
 ``encoders.visual``,     ``models/av_model.py:MultiSpeakerAVModel.forward``
-``encoders.audio``,
+``encoders.audio``,      and ``models/avhubert.py:AVHubertCTC.forward``
 ``fusion``, ``decoder``
 ``fusion.temporal``      the BiLSTM or transformer call in ``models/fusion.py``
+``encoders.layers``      AV-HuBERT's transformer layers (``AVHubertCTC``)
 =======================  ===================================================
 """
 

@@ -1,4 +1,4 @@
-"""Training runtime of the flagship two-speaker model.
+"""Training runtime of the two-speaker models (``models.build_av_model``).
 
 Mirrors ``multimodal_av_model_tpu/train/trainer.py:44-578``, the training
 step up to the whole run (``fit``: epochs, eval, rolling checkpoints, CSV
@@ -17,7 +17,11 @@ logs, early stop, preemption):
   and gradient accumulation as ``optax.MultiSteps`` (a running mean over k
   micro-batches, the schedule advancing once per update);
 * bf16 compute with f32 parameters needs no loss scaling (bf16 has f32's
-  exponent range).
+  exponent range);
+* a model without contrastive taps (``model.arch = "avhubert"``, an
+  early-fusion encoder that has no audio encoder to tap) trains on the CTC
+  terms alone: ``contrast1`` and ``contrast2`` read 0, and
+  ``contrastive_only`` or a mesh raise.
 
 The trainer runs on the card unless built with ``device="cpu"``.  Its state
 lives in a ``TrainState``; ``train_step(state, batch)`` updates it in place
@@ -56,7 +60,7 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, require_flagship
 from ..infer import decode_ids, load_fusion_lm
 from ..models.av_model import MultiSpeakerAVModel
 from ..models.layers import init_weights
@@ -353,6 +357,12 @@ class MultiSpeakerTrainer:
     def __post_init__(self):
         from ..parallel import DATA_AXIS, MODEL_AXIS, axis_size
 
+        if self.mesh is not None:
+            require_flagship(self.config.model, "the meshed training step (data, tensor and "
+                                                "FSDP parallelism)")
+        if self.config.train.contrastive_only:
+            require_flagship(self.config.model, "train.contrastive_only (the contrastive "
+                                                "taps of the audio encoder)")
         self.device = torch.device(self.device)
         self.model = self.model.to(self.device)
         self.lm = load_fusion_lm(self.config.decode.lm_path, self.device)
@@ -410,8 +420,8 @@ class MultiSpeakerTrainer:
             ccfg = self.config.model.contrastive
             blank = self.config.model.decoder.blank_id
             valid = batch.get("valid")
-            mask_ds1, mask_ds2 = out["mask_ds1"], out["mask_ds2"]
-            if valid is not None:
+            mask_ds1, mask_ds2 = out.get("mask_ds1"), out.get("mask_ds2")
+            if valid is not None and mask_ds1 is not None:
                 # Flush rows (valid 0) become pad for the contrastive loss and get
                 # no CTC weight: a flush batch gives its unpadded batch's loss.
                 row_ok = (valid > 0)[:, None]
@@ -427,8 +437,11 @@ class MultiSpeakerTrainer:
                 return contrastive_loss_with_mask(feat, mask, ccfg.temperature,
                                                   ccfg.weight_pos_align, ccfg.weight_neg_suppress)
 
-            con1 = contrast(out["contrast1"], mask_ds1)
-            con2 = contrast(out["contrast2"], mask_ds2)
+            if "contrast1" in out:
+                con1 = contrast(out["contrast1"], mask_ds1)
+                con2 = contrast(out["contrast2"], mask_ds2)
+            else:                           # no taps: the CTC terms alone
+                con1 = con2 = torch.zeros((), device=out["log_probs1"].device)
 
             def weighted_ctc(lp, labels, il, ll):
                 """-> (this rank's objective term, the global value)."""
@@ -471,7 +484,8 @@ class MultiSpeakerTrainer:
         speaker.  The gradients stay in the parameters' ``.grad`` until the
         next step (clipped in place when ``grad_clip_norm`` is set).  Spans
         (``tracing``): ``train.step`` and its ``train.forward``,
-        ``train.losses``, ``train.backward`` and ``train.optimizer``."""
+        ``train.losses``, ``train.backward``, ``train.allreduce`` (over a
+        mesh without FSDP) and ``train.optimizer``."""
         with span("train.step"):
             model = state.model
             model.zero_grad(set_to_none=True)
@@ -497,16 +511,19 @@ class MultiSpeakerTrainer:
     @staticmethod
     def _average_grads(params, group) -> None:
         """Average the gradients of ``params`` over ``group`` as one flat
-        all-reduce (over ``data``: the reduction FSDP does when it shards)."""
+        all-reduce (over ``data``: the reduction FSDP does when it shards).
+        Span (``tracing``): ``train.allreduce``, the flattening, the
+        all-reduce and the copy back."""
         from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
         grads = [_local(p.grad) for p in params if p.grad is not None]
         if not grads:
             return
-        flat = _flatten_dense_tensors(grads)
-        torch.distributed.all_reduce(flat, group=group)
-        flat /= torch.distributed.get_world_size(group)
-        torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
+        with span("train.allreduce"):
+            flat = _flatten_dense_tensors(grads)
+            torch.distributed.all_reduce(flat, group=group)
+            flat /= torch.distributed.get_world_size(group)
+            torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict):
@@ -515,7 +532,7 @@ class MultiSpeakerTrainer:
         blank = self.config.model.decoder.blank_id
         res = {k: out[k] for k in ("log_probs1", "input_lengths1", "log_probs2",
                                    "input_lengths2", "contrast1", "mask_ds1",
-                                   "contrast2", "mask_ds2")}
+                                   "contrast2", "mask_ds2") if k in out}
         for s in ("1", "2"):
             res["greedy" + s], res[f"greedy{s}_len"] = ctc_greedy_decode(
                 out["log_probs" + s], out["input_lengths" + s], blank)

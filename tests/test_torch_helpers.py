@@ -197,9 +197,13 @@ def test_to_dict_is_jax_s_less_the_dropped_fields():
                                   "model.shared_audio_pass=false"])
     got, want = _leaves(tcfg.to_dict(cfg)), _leaves(jcfg.to_dict(j))
     assert set(want) - set(got) == DROPPED
-    assert set(got) <= set(want)
+    # The port's own fields: the model selector and the AV-HuBERT block.
+    added = {k for k in got if k == "model.arch" or k.startswith("model.avhubert.")}
+    assert added and got["model.arch"] == "flagship"
+    assert set(got) - added <= set(want)
     for k, v in got.items():
-        assert v == want[k], k
+        if k not in added:
+            assert v == want[k], k
     assert tcfg.to_dict(tcfg.Config())["train"]["batch_size"] == 8
 
 

@@ -174,6 +174,33 @@ def test_kernel_tables_match_the_plain_dft_and_filterbank():
     assert plan["mel_fits"] and (lo + plan["mel_width"] <= plan["bins"]).all()
 
 
+@pytest.mark.parametrize("n_fft,n_mels,width", [(400, 80, 16), (400, 40, 32), (400, 26, 48),
+                                                (512, 26, 48)])
+def test_mel_supports_wider_than_16_bins(n_fft, n_mels, width):
+    """Fewer filters are wider: AV-HuBERT's 26 bins make triangles of up to 38
+    bins at n_fft 400 (48 at 512).  The supports widen to a multiple of 16
+    (the kernel's instances of 16 to 64 bins), rebuild the filterbank, lie
+    inside the padded bins, and the shared memory grows by the filterbank's
+    rows alone; at n_fft 400 the 3xTF32 emulation with those supports meets
+    the plain version's bar."""
+    n_freqs = n_fft // 2 + 1
+    lo, w = mel_support(n_freqs, n_mels, 16000)
+    assert w.shape == (n_mels, width)
+    np.testing.assert_array_equal(_mel_dense(n_freqs, n_mels),
+                                  logmel.mel_filterbank(n_freqs, n_mels, 16000))
+    plan = logmel_plan(16, 256 * 640, n_fft, 160, n_mels, center=False)
+    assert plan["mel_width"] == width and plan["mel_fits"]
+    assert (lo + width <= plan["bins"]).all()
+    base = logmel_plan(16, 256 * 640, n_fft, 160, 80, center=False)
+    assert plan["smem_bytes"] - base["smem_bytes"] == 4 * (n_mels * (width + 5)
+                                                           - 80 * (base["mel_width"] + 5))
+    if n_fft == 400:
+        x = _tone_and_noise(2, 12345)
+        got = emulate_logmel_kernel(x, passes=3, n_mels=n_mels)
+        ref = logmel.log_mel_spectrogram(torch.from_numpy(x), n_mels=n_mels).numpy()
+        np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-3)
+
+
 # -- K1: the tile and cluster plan -------------------------------------------
 
 @pytest.mark.parametrize("B,S,center", [(4, 128 * 534, True), (2, 12345, True),

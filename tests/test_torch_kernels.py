@@ -78,6 +78,77 @@ def test_logmel_kernel_rejects_what_it_does_not_take(cuda):
         log_mel_spectrogram_cuda(torch.zeros(4000, 2, device=cuda).t())
 
 
+@pytest.mark.parametrize("shape", [(4, 153600), (16, 153600)])
+def test_logmel_kernel_at_26_bins(cuda, shape):
+    """AV-HuBERT's filterbank: 26 bins, no centring, mel supports of 48 bins
+    (the kernel's 3-chunk instance), at the 80-bin tests' bars.  K1 runs once
+    a mixture: ``[16, 153600]`` is 16 mixtures of 240 video frames at 25 fps."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((0.3 * rng.standard_normal(shape)).astype(np.float32)).to(cuda)
+    kw = dict(n_mels=26, center=False)
+    assert logmel_plan(*shape, n_mels=26, center=False)["mel_width"] == 48
+    before = log_mel_spectrogram_cuda.launches
+    got = log_mel_spectrogram_cuda(x, **kw)
+    torch.cuda.synchronize()
+    assert log_mel_spectrogram_cuda.launches == before + 1
+    ref = log_mel_spectrogram(x, **kw)
+    assert got.shape == ref.shape == (shape[0], 1 + (shape[1] - 400) // 160, 26)
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(log_mel_spectrogram_cuda(x, apply_log=False, **kw),
+                               log_mel_spectrogram(x, apply_log=False, **kw),
+                               rtol=2e-3, atol=1e-2)
+
+
+def test_avhubert_forward_on_the_card_matches_reference(cuda):
+    """AV-HuBERT at a mid width (4 layers of 256, the 4-stage trunk at a
+    quarter of its channels, conv_pos 16 in 4 groups) in float32 on the card,
+    with K1 and K2 on its path, against ``avbench/reference/avhubert.py``
+    with TF32 off, on 88x88 lips.  Bar 5e-3 on the log-probabilities: K1's
+    features meet the plain filterbank to its 2e-3 bar, and the difference
+    passes through the normalisation and 4 layers."""
+    from avbench import traffic, weights
+    from avbench.reference import preprocess as ref_pre
+    from avbench.reference.avhubert import AVHubertNet
+    from multimodal_av_model_tpu_torch.config import Config, to_dict
+    from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
+    from multimodal_av_model_tpu_torch.models import build_av_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config()
+    m = cfg.model
+    m.arch, m.dtype = "avhubert", "float32"
+    m.frontend.n_mels, m.frontend.center = 26, False
+    a = m.avhubert
+    a.embed_dim, a.num_layers, a.num_heads, a.ffn_dim, a.conv_pos, a.conv_pos_groups = \
+        256, 4, 4, 1024, 16, 4
+    a.dropout = a.attention_dropout = a.activation_dropout = 0.0
+    m.visual.frontend_channels, m.visual.resnet_channels = 16, (16, 32, 64, 128)
+    m.visual.output_dim = 256
+    model = build_av_model(m)
+    P = weights.seeded_state_dict(dict(model.state_dict()), 3, "cuda")
+    model = model.to(cuda).eval()
+    model.load_state_dict(P)
+    mix = {"batch": 2, "bucket": 64, "frames": [40, 64], "audio2_fraction": [0.6, 1.0],
+           "crop": 128, "lip_size": 88, "audio_samples_per_frame": 640, "label_len": 5,
+           "label_bucket": 8, "first_token": 4, "vocab": 800, "pool": 1}
+    raw = traffic.raw_batches(mix, 2**31 + 17)[0]
+    (batch,) = device_preprocessed_batches([raw], out_size=88, device="cuda")
+    keys = ("lip1", "lip2", "audio", "mask1", "mask2", "lip1_lengths", "lip2_lengths")
+    with torch.no_grad():
+        out = model(*[torch.as_tensor(batch[k]).to(cuda) for k in keys])
+        d = to_dict(cfg)["model"]
+        inp = ref_pre.model_inputs(raw, cuda, 88)
+        ref = AVHubertNet(P, d).forward(inp, ref_pre.log_mel(inp["audio"], d["frontend"]))
+    worst = 0.0
+    for s, rows in (("1", slice(0, 2)), ("2", slice(2, 4))):
+        for r in range(2):
+            n = int(out["input_lengths" + s][r])
+            worst = max(worst, float((out["log_probs" + s][r, :n]
+                                      - ref["log_probs"][rows][r, :n]).abs().max()))
+    print(f"AV-HuBERT mid width on the card vs reference: max |d log-prob| {worst:.3g}")
+    assert worst <= 5e-3
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("shape,out", [((512, 128, 128, 3), 96), ((7, 50, 70, 1), 96),
                                        ((5, 128, 128, 3), 40), ((3, 37, 53, 3), 96),

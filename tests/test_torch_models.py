@@ -41,9 +41,13 @@ RTOL = ATOL = 2e-4
 
 
 def port_config(jax_cfg) -> tcfg.Config:
-    """The port's Config with every field it shares copied from a JAX Config."""
+    """The port's Config with every field it shares copied from a JAX Config
+    (the port's own fields, ``model.arch`` and ``model.avhubert``, keep their
+    defaults)."""
     def copy(dst, src):
         for f in dataclasses.fields(dst):
+            if not hasattr(src, f.name):
+                continue
             v = getattr(src, f.name)
             if dataclasses.is_dataclass(v):
                 copy(getattr(dst, f.name), v)

@@ -135,6 +135,50 @@ def test_step_spans_form_the_tree_under_one_unit(tiny, recorder):
                for s in phases)
 
 
+def test_avhubert_step_spans_form_the_tree_under_one_unit(recorder):
+    """AV-HuBERT keeps the shared names of the shared roles and adds
+    ``encoders.layers`` around its transformer layers."""
+    from test_torch_avhubert import LIP, MIX, tiny_config
+
+    from avbench import traffic
+    from multimodal_av_model_tpu_torch.models import build_av_model
+
+    cfg = tiny_config()
+    model = init_weights(build_av_model(cfg.model), torch.Generator().manual_seed(0))
+    trainer = MultiSpeakerTrainer(cfg, model, None, device="cpu")
+    state = trainer.init_state(0)
+    raw = traffic.raw_batches(MIX, 3)[0]
+    with tracing.unit(1):
+        (batch,) = device_preprocessed_batches([raw], out_size=LIP, device="cpu")
+        _, metrics = trainer.train_step(state, batch)
+    spans = tracing.collect()
+    assert torch.isfinite(metrics["loss"]) and {s["unit"] for s in spans} == {1}
+    parents, _ = _tree(spans)
+    model_spans = {"encoders.visual", "encoders.audio", "fusion", "encoders.layers", "decoder"}
+    assert parents == {**PREPROCESS, "train.step": None, "train.forward": "train.step",
+                       "train.losses": "train.step", "train.backward": "train.step",
+                       "train.optimizer": "train.step",
+                       **{k: "train.forward" for k in model_spans}}
+
+
+def test_allreduce_span_wraps_the_gradient_average(recorder, monkeypatch):
+    """``train.allreduce`` (``_average_grads``, a meshed step without FSDP):
+    the flattening, the all-reduce and the copy back, once a call; here over
+    a stand-in group of 2 whose all-reduce leaves the sum as it is."""
+    calls = []
+    monkeypatch.setattr(torch.distributed, "all_reduce",
+                        lambda t, group=None: calls.append(t.numel()))
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    params = [torch.nn.Parameter(torch.ones(3)), torch.nn.Parameter(torch.ones(2, 2))]
+    for p in params:
+        p.grad = torch.full_like(p, 4.0)
+    with tracing.unit(2):
+        MultiSpeakerTrainer._average_grads(params, group=None)
+    spans = tracing.collect()
+    assert [s["name"] for s in spans] == ["train.allreduce"] and calls == [7]
+    assert all((p.grad == 2.0).all() for p in params)
+
+
 def test_counters_go_to_the_innermost_span_of_their_thread(recorder):
     tracing.count("host_syncs")                       # outside every span: dropped
     seen = {}
