@@ -11,8 +11,11 @@ Phases, each printing a line; any failure exits non-zero:
 1. the card: ``nvidia-smi`` name and power limit, TF32 settings (both off);
 2. build: ``nvcc`` for every kernel source in ``multimodal_av_model_tpu_torch/csrc``,
    all started together;
-3. K1 (log-mel), K2 (lip preprocess) and K3 (prefix beam) at their serving
-   shapes: each kernel against its plain PyTorch version on the same inputs,
+3. K1 (log-mel), K2 (lip preprocess), K3 (prefix beam) and K4 (the BiLSTM
+   recurrence, forward and backward, at a request's and a ``train_b8`` step's
+   rows) at their main paths' shapes: each kernel against its plain PyTorch
+   version on the same inputs (K4: no further from the f64 loop than the bf16
+   plain loop),
    with the stated tolerance, then timed by CUDA events around a CUDA graph of back-to-back
    launches (the ``ms`` of the ``kernels`` JSON) and around launches issued
    one by one (the host's rate), beside its plain version, a library
@@ -227,8 +230,9 @@ Phases, each printing a line; any failure exits non-zero:
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
 the timed training steps of phase 9, the CLI calls of phase 10 and the main
 paths of phases 13, 15-17, 18-20, 22-25, 27-29, 31, 32 and 34-37 (each
-path's own count is under ``launches_by_path``, K3's as K1's and K2's).
-``--only=`` with some of ``k3``, ``family-ref``, ``family-audio``,
+path's own count is under ``launches_by_path``, K3's and K4's as K1's and
+K2's).
+``--only=`` with some of ``k3``, ``k4``, ``family-ref``, ``family-audio``,
 ``family-visual``, ``families``, ``legacy-ref``, ``legacy``, ``reference-import``, ``lip-extract``,
 ``hostops``, ``runtime`` (which runs phase 5 first), ``dist``, ``dist-cli``,
 ``longform``, ``pp``, ``shared-pass`` and ``raw-media`` runs the card and
@@ -240,6 +244,7 @@ build lines and those phases alone
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -515,6 +520,160 @@ def k3_phase(torch, rng):
             "bound_by": b_by, "library_ms": None}
 
 
+def k4_phase(torch, rng):
+    """LSTM recurrence kernel at the cells' shapes: ``[128, 2, R, 2048]`` bf16
+    gates for R = 8 (a request's rows) and 16 (a ``train_b8`` step's), H 512,
+    lengths U[64, 128]: the forward's output and the backward's gate
+    gradient against the f64 plain loop beside the bf16 plain loop's errors,
+    then each timed by graph replay beside the plain loop (forward, and
+    forward with autograd's backward) and beside the library's LSTM layer
+    (``nn.LSTM``, bf16 and f16) at equal lengths, input projection included,
+    against the same projection and K4."""
+    import torch.nn.functional as F
+
+    from multimodal_av_model_tpu_torch.ops import lstm_scan as ls
+
+    T, H = 128, 512
+    rows = []
+    for R in (8, 16):
+        g = torch.Generator().manual_seed(R)
+        z = torch.randn(R, T, 2, 4 * H, generator=g).cuda().bfloat16()
+        w = ((torch.rand(2, 4 * H, H, generator=g) * 2 - 1) / H ** 0.5).cuda().bfloat16()
+        b = (0.1 * torch.randn(2, 4 * H, generator=g)).cuda().bfloat16()
+        dy = torch.randn(R, T, 2, H, generator=g).cuda().bfloat16()
+        lens = torch.from_numpy(rng.integers(64, T + 1, R)).cuda()
+
+        def plain(dtype, zz):
+            return ls._forward_plain(zz, lens, w.to(dtype), b.to(dtype), False)[0]
+
+        y, saved = ls.lstm_scan_op(z, lens, w, b, True)
+        dz = ls.lstm_scan_backward_op(dy, lens, w, saved)
+        errs = {}
+        for dtype in (torch.float64, torch.bfloat16):
+            zz = z.to(dtype).requires_grad_()
+            yy = plain(dtype, zz)
+            (gz,) = torch.autograd.grad(yy, zz, dy.to(dtype))
+            errs[dtype] = (yy.detach().double(), gz.double())
+        (y64, dz64), (yp, dzp) = errs[torch.float64], errs[torch.bfloat16]
+        e_y, e_dz = (y.double() - y64).abs().max().item(), (dz.double() - dz64).abs().max().item()
+        p_y, p_dz = (yp - y64).abs().max().item(), (dzp - dz64).abs().max().item()
+        ok = e_y <= 1.1 * p_y and e_dz <= 1.1 * p_dz
+        log(f"[k4] [{T}, 2, {R}, {4 * H}] bf16, lengths {lens.tolist()}: max|y - f64| kernel "
+            f"{e_y:.3g}, bf16 plain {p_y:.3g}; max|dz - f64| kernel {e_dz:.3g}, bf16 plain "
+            f"{p_dz:.3g} {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise SystemExit("K4 is further from the f64 loop than the bf16 plain loop")
+
+        def fwd():
+            return ls.lstm_scan_op(z, lens, w, b, False)
+
+        def fwd_save():
+            return ls.lstm_scan_op(z, lens, w, b, True)
+
+        def bwd():
+            return ls.lstm_scan_backward_op(dy, lens, w, saved)
+
+        def plain_fb():
+            zz = z.detach().requires_grad_()
+            return torch.autograd.grad(plain(torch.bfloat16, zz), zz, dy)
+
+        ms = {"forward": cuda_ms(fwd, [()], 20, graph=True),
+              "forward_save": cuda_ms(fwd_save, [()], 20, graph=True),
+              "backward": cuda_ms(bwd, [()], 20, graph=True),
+              "forward_eager": cuda_ms(fwd, [()], 20),
+              "plain_forward": cuda_ms(lambda: plain(torch.bfloat16, z), [()], 3),
+              "plain_forward_backward": cuda_ms(plain_fb, [()], 3)}
+        # The library's bidirectional LSTM layer on the same rows, all T
+        # frames valid, its input projection inside; beside it the layer's
+        # own projection and K4 on the same work.
+        x = torch.randn(R, T, H, generator=g).cuda()
+        w_ih = (torch.randn(2 * 4 * H, H, generator=g) / H ** 0.5).cuda().bfloat16()
+        full = torch.full((R,), T, dtype=torch.int64, device="cuda")
+
+        def k4_layer(xb=x.bfloat16()):
+            return ls.lstm_scan_op(F.linear(xb, w_ih).view(R, T, 2, 4 * H), full, w, b, False)
+
+        ms["k4_layer_equal_lengths"] = cuda_ms(k4_layer, [()], 20, graph=True)
+        lib_route = {}
+        for tag, dtype in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+            lstm = torch.nn.LSTM(H, H, bidirectional=True, batch_first=True).cuda().to(dtype)
+            lstm.flatten_parameters()
+            xd = x.to(dtype)
+            with torch.no_grad():
+                ms[f"library_{tag}"] = cuda_ms(lambda: lstm(xd), [()], 20, graph=True)
+            takes = "takes" if torch.backends.cudnn.is_acceptable(xd) else "does not take"
+            lib_route[tag] = f"cuDNN {takes} {dtype}"
+            del lstm
+        # Least time a frame: a CTA reads its W_hh slice (4U x H bf16, 128 KiB)
+        # from shared memory at 128 B a clock at 1.98 GHz, or computes its
+        # 2 R 4U H operations at a 132nd of 989 TFLOP/s; the frames are a
+        # serial chain.
+        plan = ls.lstm_scan_plan("forward", R, H, 2)
+        U, steps = plan["U"], int(lens.max())
+        frame_us = max(4 * U * H * 2 / (128 * 1.98e9),
+                       2 * R * 4 * U * H / (PEAK_BF16_FLOPS / 132)) * 1e6
+        bound_ms = steps * frame_us / 1e3
+        log(f"[k4] R = {R}: forward {ms['forward']:.4f} ms ({ms['forward'] / steps * 1e3:.2f} us a "
+            f"frame), saving {ms['forward_save']:.4f}, backward {ms['backward']:.4f} ms by graph "
+            f"replay; forward called from Python {ms['forward_eager']:.4f} ms; plain loop "
+            f"forward {ms['plain_forward']:.4f} ms, forward and backward "
+            f"{ms['plain_forward_backward']:.4f} ms; bound {bound_ms:.4f} ms ({steps} frames x "
+            f"{frame_us:.3f} us); clusters of {plan['cs']} CTAs x 256 threads, {plan['rows']} "
+            f"rows, {plan['smem_bytes']} B shared memory forward, "
+            f"{ls.lstm_scan_plan('backward', R, H, 2)['smem_bytes']} B backward")
+        log(f"[k4] R = {R}, all {T} frames valid, input projection included: nn.LSTM({H}, {H}, "
+            f"bidirectional) bf16 {ms['library_bf16']:.4f} ms ({lib_route['bf16']}), f16 "
+            f"{ms['library_f16']:.4f} ms ({lib_route['f16']}); the layer's projection and K4 "
+            f"{ms['k4_layer_equal_lengths']:.4f} ms; all by graph replay")
+        rows.append({"R": R, "err_y": e_y, "err_dz": e_dz, "plain_err_y": p_y,
+                     "plain_err_dz": p_dz, "bound_ms": bound_ms, **ms})
+    return {"name": "lstm_scan", "route": "cuda",
+            "source": "multimodal_av_model_tpu_torch/csrc/bilstm.cu",
+            "replaces": "none (the JAX BiLSTM is lax.scan code)", "shapes": rows,
+            "ms": rows[0]["forward"], "plain_ms": rows[0]["plain_forward"],
+            "bound_ms": rows[0]["bound_ms"], "bound_by": "serial chain",
+            "library_ms": rows[0]["library_bf16"]}
+
+
+@contextlib.contextmanager
+def k4_recording():
+    """The inputs ``(z, lengths, w_hh, bias)`` of each ``mmav::lstm_scan``
+    call made inside the block (each BiLSTM layer's own), in order."""
+    from multimodal_av_model_tpu_torch.ops import lstm_scan as ls
+
+    calls, real = [], ls.lstm_scan_op
+
+    def recording(z, lengths, w_hh, bias, save):
+        calls.append((z, lengths, w_hh, bias))
+        return real(z, lengths, w_hh, bias, save)
+
+    ls.lstm_scan_op = recording
+    try:
+        yield calls
+    finally:
+        ls.lstm_scan_op = real
+
+
+def k4_agrees(torch, call, tag: str) -> None:
+    """K4 against the plain loop on one call of a main path
+    (``k4_recording``): its output no further from the loop in f64 than the
+    loop in the call's dtype is, with 10 % slack (the ``gpu`` tests' rule)."""
+    from multimodal_av_model_tpu_torch.ops import lstm_scan as ls
+
+    z, lengths, w, b = call
+    with torch.no_grad():
+        got = ls.lstm_scan_op(z, lengths, w, b, False)[0].double()
+        want = ls._forward_plain(z.double(), lengths, w.double(), b.double(), False)[0]
+        plain = ls._forward_plain(z, lengths, w, b, False)[0].double()
+    err, p_err = (got - want).abs().max().item(), (plain - want).abs().max().item()
+    ok = err <= 1.1 * p_err
+    log(f"[{tag}] K4 on a BiLSTM layer's own gates {tuple(z.shape)} {z.dtype}, lengths "
+        f"{lengths.tolist()}: max|y - f64 loop| kernel {err:.3g}, plain loop in {z.dtype} "
+        f"{p_err:.3g} {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise SystemExit(f"{tag}: K4 is further from the f64 loop than the plain loop")
+
+
 def k3_agrees(got, want) -> tuple[bool, float]:
     """K3's outputs against the plain loop's, as the ``gpu`` tests hold them:
     the integer ones (prefixes, lengths, ids) equal, the float ones (pb, pnb,
@@ -632,6 +791,7 @@ def serving_phase(torch, rng, tok):
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
@@ -663,26 +823,30 @@ def serving_phase(torch, rng, tok):
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     lat, all_texts, per_request = [], [], []
-    for raw in requests:                            # the main path
-        before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                  prefix_beam.launches)
-        t0 = time.perf_counter()
-        texts = serve(raw)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-        all_texts.append(texts)
-        per_request.append((log_mel_spectrogram_cuda.launches - before[0],
-                            lip_preprocess_cuda.launches - before[1],
-                            prefix_beam.launches - before[2]))
+    with k4_recording() as k4_calls:
+        for raw in requests:                        # the main path
+            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
+                      prefix_beam.launches, lstm_scan.launches)
+            t0 = time.perf_counter()
+            texts = serve(raw)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            all_texts.append(texts)
+            per_request.append((log_mel_spectrogram_cuda.launches - before[0],
+                                lip_preprocess_cuda.launches - before[1],
+                                prefix_beam.launches - before[2], lstm_scan.launches - before[3]))
     launches = {"logmel": log_mel_spectrogram_cuda.launches,
                 "lip_preprocess": lip_preprocess_cuda.launches,
-                "prefix_beam": prefix_beam.launches}
+                "prefix_beam": prefix_beam.launches, "lstm_scan": lstm_scan.launches}
     peak = torch.cuda.max_memory_allocated()
 
     n_req = len(requests)
-    if any(k1 < 1 or k2 < 2 or k3 != 1 for k1, k2, k3 in per_request):
-        raise SystemExit(f"serving: kernels not on the main path, launches {per_request}")
+    if any(k1 < 1 or k2 < 2 or k3 != 1 or k4 != 2 for k1, k2, k3, k4 in per_request):
+        raise SystemExit(f"serving: kernels not on the main path, launches {per_request} "
+                         f"(expected K3 1 and K4 2 a request)")
+    k4_agrees(torch, k4_calls[0], "serving")
     if len(captured) != n_req:
         raise SystemExit(f"serving: {len(captured)} forwards for {n_req} requests")
     for raw, texts, out in zip(requests, all_texts, captured):
@@ -845,11 +1009,12 @@ def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
     from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
-    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
+    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0, "lstm_scan": 0}
     profile_step = None
     for B, remat, n_steps in runs:
         cfg = Config()                              # the shipped flagship defaults
@@ -877,6 +1042,7 @@ def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
         prefix_beam.launches = 0
+        lstm_scan.launches = 0
         times, metrics = [], []
         for _ in range(n_steps):                    # the main path
             t0 = time.perf_counter()
@@ -884,11 +1050,12 @@ def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3 = prefix_beam.launches
+        k3, k4 = prefix_beam.launches, lstm_scan.launches
         peak = torch.cuda.max_memory_allocated()
         launches["logmel"] += k1
         launches["lip_preprocess"] += k2
-        launches["prefix_beam"] += prefix_beam.launches
+        launches["prefix_beam"] += k3
+        launches["lstm_scan"] += k4
         losses = [m["loss"].item() for m in metrics]
         gnorms = [m["grad_norm"].item() for m in metrics]
         with FlopCounterMode(display=False) as counter:
@@ -904,13 +1071,15 @@ def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
             f"{mean * 1e3:.1f} ms per step mean, {med * 1e3:.1f} median "
             f"({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}); peak device memory "
             f"{peak / 2**30:.2f} GiB; launches per step K1 {k1 / n_steps:g}, K2 "
-            f"{k2 / n_steps:g}; loss {losses[0]:.4f} -> {losses[-1]:.4f}, grad_norm "
+            f"{k2 / n_steps:g}, K4 {k4 / n_steps:g}; loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+            f"grad_norm "
             f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f}; {flops / 1e12:.3f} TFLOP per step "
             f"(FlopCounterMode), mfu {flops / mean / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s "
             f"dense bf16 at the mean step")
-        if k1 != n_steps or k2 != 2 * n_steps:
-            raise SystemExit(f"{tag}: launches K1 {k1}, K2 {k2} over {n_steps} steps "
-                             f"(expected 1 and 2 per step)")
+        k4_step = 4 if temporal_model == "bilstm" else 0
+        if k1 != n_steps or k2 != 2 * n_steps or k3 != 0 or k4 != k4_step * n_steps:
+            raise SystemExit(f"{tag}: launches K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} over "
+                             f"{n_steps} steps (expected 1, 2, 0 and {k4_step} per step)")
         if not all(math.isfinite(x) for x in losses + gnorms):
             raise SystemExit(f"{tag}: non-finite losses {losses} or grad norms {gnorms}")
         if B == 8 and not losses[-1] < losses[0]:
@@ -955,6 +1124,7 @@ def fit_phase(torch, tok, smi: str):
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.ops import logmel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
@@ -1021,23 +1191,26 @@ def fit_phase(torch, tok, smi: str):
             log_mel_spectrogram_cuda.launches = 0
             lip_preprocess_cuda.launches = 0
             prefix_beam.launches = 0
+            lstm_scan.launches = 0
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(tee):
                 cli.main(args)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-            k3 = prefix_beam.launches
+            k3, k4 = prefix_beam.launches, lstm_scan.launches
             n = sum(calls.values())
+            k4_want = 4 * calls["train_step"] + 2 * (calls["eval_step"] + calls["transcribe"])
             log(f"[fit] {tag}: {dt:.1f} s; peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {calls['train_step']} "
                 f"train steps, {calls['eval_step']} eval batches, {calls['transcribe']} infer "
                 f"batches; launches K1 {k1}, K2 {k2} ({k1 / max(n, 1):g} and "
-                f"{k2 / max(n, 1):g} per call), K3 {k3}")
-            if n == 0 or k1 != n or k2 != k2_per_call * n:
-                raise SystemExit(f"fit: {tag}: launches K1 {k1}, K2 {k2} over {n} calls "
-                                 f"(expected 1 and {k2_per_call} per call)")
-            return "".join(tee.text), k1, k2, k3
+                f"{k2 / max(n, 1):g} per call), K3 {k3}, K4 {k4}")
+            if n == 0 or k1 != n or k2 != k2_per_call * n or k4 != k4_want:
+                raise SystemExit(f"fit: {tag}: launches K1 {k1}, K2 {k2}, K4 {k4} over {n} "
+                                 f"calls (expected 1 and {k2_per_call} per call; K4 4 a train "
+                                 f"step, 2 an eval or infer batch: {k4_want})")
+            return "".join(tee.text), k1, k2, k3, k4
 
         def epochs(text):
             rows = []
@@ -1053,7 +1226,7 @@ def fit_phase(torch, tok, smi: str):
 
         for cls, name in wrapped:
             setattr(cls, name, counting(name))
-        launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
+        launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0, "lstm_scan": 0}
         rows = []
         try:
             for tag, extra, k2_per_call in (
@@ -1069,10 +1242,11 @@ def fit_phase(torch, tok, smi: str):
                     ("train, 1 epoch of 128 pairs",
                      [f"train.checkpoint_dir={os.path.join(root, 'long')}", "train.max_epochs=1",
                       "data.num_pairs_per_epoch=128"], 2)):
-                text, k1, k2, k3 = run(tag, common + extra, k2_per_call)
+                text, k1, k2, k3, k4 = run(tag, common + extra, k2_per_call)
                 launches["logmel"] += k1
                 launches["lip_preprocess"] += k2
                 launches["prefix_beam"] += k3
+                launches["lstm_scan"] += k4
                 rows += [(tag,) + r for r in epochs(text)]
                 if tag == "resume to epoch 3" and "at epoch 3" not in text:
                     raise SystemExit("fit: the second call did not resume at epoch 3")
@@ -1105,7 +1279,8 @@ def fit_phase(torch, tok, smi: str):
             raise SystemExit(f"fit: eval_log.csv rows {eval_rows}, last.ckpt epoch {last}")
         log(f"[fit] 3 epochs from disk, eval_log.csv rows {len(eval_rows)}, last.ckpt at epoch "
             f"{last}; launches over the phase K1 {launches['logmel']}, K2 "
-            f"{launches['lip_preprocess']}, K3 {launches['prefix_beam']}; card {smi}")
+            f"{launches['lip_preprocess']}, K3 {launches['prefix_beam']}, K4 "
+            f"{launches['lstm_scan']}; card {smi}")
         return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1184,6 +1359,7 @@ def quant_phase(torch, served) -> dict:
 
     from multimodal_av_model_tpu_torch import infer
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
@@ -1225,38 +1401,40 @@ def quant_phase(torch, served) -> dict:
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     lat, per_request = [], []
     try:
         infer.decode_ids = recording("int8")
         for raw in requests:                        # the main path
             before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                      prefix_beam.launches)
+                      prefix_beam.launches, lstm_scan.launches)
             t0 = time.perf_counter()
             q_t.transcribe(_flagship_batch(torch, raw))
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
             per_request.append((log_mel_spectrogram_cuda.launches - before[0],
                                 lip_preprocess_cuda.launches - before[1],
-                                prefix_beam.launches - before[2]))
+                                prefix_beam.launches - before[2], lstm_scan.launches - before[3]))
         launches = {"logmel": log_mel_spectrogram_cuda.launches,
                     "lip_preprocess": lip_preprocess_cuda.launches,
-                    "prefix_beam": prefix_beam.launches}
+                    "prefix_beam": prefix_beam.launches, "lstm_scan": lstm_scan.launches}
         peak = torch.cuda.max_memory_allocated()
         infer.decode_ids = recording("fp")
         for raw in requests:                        # the fp texts, not counted
             fp_t.transcribe(_flagship_batch(torch, raw))
     finally:
         infer.decode_ids = original
-    if any(p != (1, 2, 1) for p in per_request):
+    if any(p != (1, 2, 1, 2) for p in per_request):
         raise SystemExit(f"quant: launches per request {per_request} (expected K1 1, K2 2, "
-                         f"K3 1)")
+                         f"K3 1, K4 2)")
     pairs = list(zip(decoded["int8"], decoded["fp"]))
     same_seq = sum(a == b for a, b in pairs) / len(pairs)
     agree = sum(sum(x == y for x, y in zip(a, b)) for a, b in pairs) / max(
         sum(max(len(a), len(b)) for a, b in pairs), 1)
     log(f"[quant] {len(requests)} requests (buckets {plan}): "
         + ", ".join(f"{ms:.1f}" for ms in lat) + f" ms; peak device memory "
-        f"{peak / 2**30:.2f} GiB; launches {launches} (K1 1, K2 2, K3 1 per request); against "
+        f"{peak / 2**30:.2f} GiB; launches {launches} (K1 1, K2 2, K3 1, K4 2 per request); "
+        f"against "
         f"the fp "
         f"Transcriber on the same requests: {same_seq:.3f} of the {len(pairs)} id sequences "
         f"equal, {agree:.3f} of the id positions agree (reported, not gated)")
@@ -1348,6 +1526,7 @@ def stream_audio_phase(torch, rng, tok):
     chunks (8 s context, prefix beam), then 8 streams of 20 s through a
     ``StreamingPool``, at full width."""
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.streaming import (
         StreamingAudioTranscriber,
@@ -1378,6 +1557,7 @@ def stream_audio_phase(torch, rng, tok):
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     lat, text = [], ""
     for i in range(0, len(audio), block):            # the main path
         t0 = time.perf_counter()
@@ -1386,12 +1566,13 @@ def stream_audio_phase(torch, rng, tok):
     t0 = time.perf_counter()
     text += s.flush()
     flush_ms = (time.perf_counter() - t0) * 1e3
-    k1, k3 = log_mel_spectrogram_cuda.launches, prefix_beam.launches
+    k1, k3, k4 = log_mel_spectrogram_cuda.launches, prefix_beam.launches, lstm_scan.launches
     peak = torch.cuda.max_memory_allocated()
-    launches = {"stream_audio": {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3}}
-    if k1 != len(lat) or bad:
-        raise SystemExit(f"stream-audio: K1 {k1} launches for {len(lat)} windows, bad log-probs "
-                         f"{bad}")
+    launches = {"stream_audio": {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3,
+                                 "lstm_scan": k4}}
+    if k1 != len(lat) or k4 or bad:
+        raise SystemExit(f"stream-audio: K1 {k1}, K4 {k4} launches for {len(lat)} windows, bad "
+                         f"log-probs {bad}")
     log(f"[stream-audio] AudioOnlyCTC {n_params / 1e6:.1f}M params (bf16 compute), window "
         f"[1, {s.window_samples}] (2 s chunk + 8 s context), prefix beam 5: 30 s in "
         f"{len(lat)} chunks; per-chunk latency (host clock around each feed) min "
@@ -1429,6 +1610,7 @@ def stream_audio_phase(torch, rng, tok):
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     sids = [pool.open() for _ in audios]
     t0 = time.perf_counter()
     n_chars = 0
@@ -1439,14 +1621,15 @@ def stream_audio_phase(torch, rng, tok):
         n_chars += len(pool.flush(sid))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k3 = log_mel_spectrogram_cuda.launches, prefix_beam.launches
+    k1, k3, k4 = log_mel_spectrogram_cuda.launches, prefix_beam.launches, lstm_scan.launches
     peak = torch.cuda.max_memory_allocated()
     hook.remove()
     pool._step = step
-    launches["pool"] = {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3}
+    launches["pool"] = {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3, "lstm_scan": k4}
     tick_ms = [dt * 1e3 for _, dt in ticks]
-    if k1 != len(ticks) or bad:
-        raise SystemExit(f"pool: K1 {k1} launches for {len(ticks)} ticks, bad log-probs {bad}")
+    if k1 != len(ticks) or k4 or bad:
+        raise SystemExit(f"pool: K1 {k1}, K4 {k4} launches for {len(ticks)} ticks, bad "
+                         f"log-probs {bad}")
     log(f"[stream-audio] pool of 8 streams x 20 s, fed in 2 s blocks stream by stream (as "
         f"the CLI feeds): {len(ticks)} ticks of [8, {pool.window_samples}], "
         f"{sum(a for a, _ in ticks) / len(ticks):.2f} streams per tick; tick min "
@@ -1465,6 +1648,7 @@ def serve_phase(torch, rng, tok, audio_model) -> dict:
     from multimodal_av_model_tpu_torch.infer import AudioTranscriber, decode_ids
     from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.serve import AudioService
 
@@ -1487,11 +1671,12 @@ def serve_phase(torch, rng, tok, audio_model) -> dict:
     torch.cuda.reset_peak_memory_stats()
     log_mel_spectrogram_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=32) as ex:              # the main path
         results = list(ex.map(call, waves))
     wall = time.perf_counter() - t0
-    k1, k3 = log_mel_spectrogram_cuda.launches, prefix_beam.launches
+    k1, k3, k4 = log_mel_spectrogram_cuda.launches, prefix_beam.launches, lstm_scan.launches
     peak = torch.cuda.max_memory_allocated()
     svc.close()
     n_req = svc.batcher.stats.requests - base[0]
@@ -1499,9 +1684,9 @@ def serve_phase(torch, rng, tok, audio_model) -> dict:
     lat = sorted(ms for _, ms in results)
     p50, p90 = float(np.percentile(lat, 50)), float(np.percentile(lat, 90))
     if len(results) != 32 or n_req != 32 or not all(isinstance(x, str) for x, _ in results) \
-            or k1 != n_batches:
-        raise SystemExit(f"serve: {len(results)} answers, {n_req} requests counted, K1 {k1} "
-                         f"launches for {n_batches} batches")
+            or k1 != n_batches or k4:
+        raise SystemExit(f"serve: {len(results)} answers, {n_req} requests counted, K1 {k1}, "
+                         f"K4 {k4} launches for {n_batches} batches")
     batch = torch.from_numpy(np.stack([_waveform(rng, svc.samples) for _ in range(8)])).cuda()
     mask = torch.ones_like(batch, dtype=torch.bool)
     fwd_ms, dec_ms = _split_ms(torch, lambda: t.forward(batch, mask),
@@ -1527,7 +1712,7 @@ def serve_phase(torch, rng, tok, audio_model) -> dict:
         f"batch, not "
         f"counted: forward {fwd_ms:.1f} ms, prefix-beam decode of its {svc.samples // 320 + 1} "
         f"frames + readback {dec_ms:.1f} ms")
-    return {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3}
+    return {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3, "lstm_scan": k4}
 
 
 def stream_av_phase(torch, tok, smi: str) -> dict:
@@ -1548,6 +1733,7 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam_search_decode
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
@@ -1621,6 +1807,7 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
         prefix_beam.launches = 0
+        lstm_scan.launches = 0
         tee = _Tee(sys.stdout)
         streaming._PrefixBeamStream.advance = rec_advance
         streaming._PrefixBeamStream.tail = rec_tail
@@ -1628,7 +1815,7 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
         streaming.prefix_beam_stream_step = rec_step
         try:
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(tee):     # the main path
+            with contextlib.redirect_stdout(tee), k4_recording() as k4_calls:  # the main path
                 cli.main(args)
             torch.cuda.synchronize()
             call_s = time.perf_counter() - t0
@@ -1638,12 +1825,14 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
             streaming.StreamingAVTranscriber._decode_window = decode_window
             streaming.prefix_beam_stream_step = stream_step
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3 = prefix_beam.launches
+        k3, k4 = prefix_beam.launches, lstm_scan.launches
         peak = torch.cuda.max_memory_allocated()
         n_win = len(window_ms)
-        if n_win == 0 or k1 != n_win or k2 != 0 or len(emitted) != 2 or k3 != len(steps):
-            raise SystemExit(f"stream-av: K1 {k1}, K2 {k2}, K3 {k3} launches for {n_win} "
-                             f"windows, {len(steps)} beam steps, {len(emitted)} beams")
+        if (n_win == 0 or k1 != n_win or k2 != 0 or len(emitted) != 2 or k3 != len(steps)
+                or k4 != 2 * n_win):
+            raise SystemExit(f"stream-av: K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} launches for "
+                             f"{n_win} windows, {len(steps)} beam steps, {len(emitted)} beams")
+        k4_agrees(torch, k4_calls[0], "stream-av")
         # Each carried-state step of K3 against the plain loop on the same
         # state and log-probs.
         agree, err = True, 0.0
@@ -1678,14 +1867,14 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
             + ", ".join(f"{ms:.0f}" for ms in window_ms) + f" ms; real-time factor "
             f"{sum(window_ms) / 1e3 / (n_f * spf / 16000):.4f} (windows only); peak device "
             f"memory {peak / 2**30:.2f} GiB; launches K1 {k1}, K2 {k2} (1 and 0 per window), "
-            f"K3 {k3} (1 per beam step); "
+            f"K3 {k3} (1 per beam step), K4 {k4} (2 per window); "
             f"{len(lines)} speaker lines; streamed prefix-beam ids "
             f"{'equal' if all(same) else 'DIFFER from'} one offline pass over the emitted "
             f"log-probs for both speakers ({[len(r[1]) + len(tails.get(k, [])) for k, r in emitted.items()]} tokens) "
             f"{'ok' if all(same) else 'FAILED'}; card {smi}")
         if not all(same):
             raise SystemExit("stream-av: streamed ids differ from the offline pass")
-        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1719,6 +1908,7 @@ def export_phase(torch, served) -> dict:
         export_transcriber,
     )
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
@@ -1728,7 +1918,7 @@ def export_phase(torch, served) -> dict:
     q_t = Transcriber(fp_t.config, fp_t.tokenizer, copy.deepcopy(fp_t.model), device="cuda",
                       quantize=True)
     root = tempfile.mkdtemp(prefix="mmav_export_")
-    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
+    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0, "lstm_scan": 0}
     try:
         for name, t, use_beam in (("prefix beam 5, top-k 8", fp_t, True),
                                   ("int8, greedy", q_t, False)):
@@ -1747,26 +1937,28 @@ def export_phase(torch, served) -> dict:
             log_mel_spectrogram_cuda.launches = 0
             lip_preprocess_cuda.launches = 0
             prefix_beam.launches = 0
+            lstm_scan.launches = 0
             lat, batches, inside = [], [], []
             for i in chosen:                             # the main path
                 t0 = time.perf_counter()
                 batch = _flagship_batch(torch, requests[i])
                 before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                          prefix_beam.launches)
+                          prefix_beam.launches, lstm_scan.launches)
                 texts = artifact.transcribe(batch)
                 torch.cuda.synchronize()
                 lat.append((time.perf_counter() - t0) * 1e3)
                 inside.append((log_mel_spectrogram_cuda.launches - before[0],
                                lip_preprocess_cuda.launches - before[1],
-                               prefix_beam.launches - before[2]))
+                               prefix_beam.launches - before[2], lstm_scan.launches - before[3]))
                 batches.append(batch)
                 if len(texts) != 4:
                     raise SystemExit(f"export: {len(texts)} texts for a request of 4")
             k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-            k3 = prefix_beam.launches
+            k3, k4 = prefix_beam.launches, lstm_scan.launches
             launches["logmel"] += k1
             launches["lip_preprocess"] += k2
             launches["prefix_beam"] += k3
+            launches["lstm_scan"] += k4
             same = []
             for batch in batches:
                 with torch.no_grad():
@@ -1775,7 +1967,7 @@ def export_phase(torch, served) -> dict:
                 want_ids, want_len = _transcriber_ids(torch, t, batch, use_beam)
                 same.append(torch.equal(torch.cat([ids1, ids2]), want_ids)
                             and torch.equal(torch.cat([len1, len2]), want_len))
-            ok = (all(same) and all(p == (1, 0, int(use_beam)) for p in inside)
+            ok = (all(same) and all(p == (1, 0, int(use_beam), 2) for p in inside)
                   and k2 == 2 * len(chosen))
             log(f"[export] {name}: torch.export of forward + decode at bucket 128, B=4 in "
                 f"{report['seconds']:.1f} s, {report['nodes']} graph nodes; artifact "
@@ -1785,8 +1977,8 @@ def export_phase(torch, served) -> dict:
                 f"(preprocess_batch_device + ExportedTranscriber.transcribe): "
                 + ", ".join(f"{ms:.1f}" for ms in lat) + " ms against [serving]'s "
                 + ", ".join(f"{ms:.1f}" for ms in serving_ms) + f" ms; launches inside the "
-                f"artifact calls (K1, K2, K3) {inside}, over the path K1 {k1}, K2 {k2}, K3 "
-                f"{k3}; ids "
+                f"artifact calls (K1, K2, K3, K4) {inside}, over the path K1 {k1}, K2 {k2}, K3 "
+                f"{k3}, K4 {k4}; ids "
                 f"{'equal to' if all(same) else 'DIFFER from'} the Transcriber's "
                 f"({sum(same)} of {len(same)} requests) {'ok' if ok else 'FAILED'}")
             if not ok:
@@ -1809,6 +2001,7 @@ def temporal_tf_phase(torch, rng, tok) -> dict:
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
@@ -1833,26 +2026,27 @@ def temporal_tf_phase(torch, rng, tok) -> dict:
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     lat, per_request = [], []
     for raw in requests:                             # the main path
         before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                  prefix_beam.launches)
+                  prefix_beam.launches, lstm_scan.launches)
         t0 = time.perf_counter()
         texts = serve(raw)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
         per_request.append((log_mel_spectrogram_cuda.launches - before[0],
                             lip_preprocess_cuda.launches - before[1],
-                            prefix_beam.launches - before[2]))
+                            prefix_beam.launches - before[2], lstm_scan.launches - before[3]))
         if len(texts) != 4:
             raise SystemExit(f"temporal-tf: {len(texts)} texts for a request of 4")
     launches = {"logmel": log_mel_spectrogram_cuda.launches,
                 "lip_preprocess": lip_preprocess_cuda.launches,
-                "prefix_beam": prefix_beam.launches}
+                "prefix_beam": prefix_beam.launches, "lstm_scan": lstm_scan.launches}
     peak = torch.cuda.max_memory_allocated()
-    if any(p != (1, 2, 1) for p in per_request):
-        raise SystemExit(f"temporal-tf: launches per request {per_request} (expected 1, 2 "
-                         f"and 1)")
+    if any(p != (1, 2, 1, 0) for p in per_request):
+        raise SystemExit(f"temporal-tf: launches per request {per_request} (expected 1, 2, "
+                         f"1 and 0)")
     log(f"[temporal-tf] flagship with the transformer temporal model ({f.temporal_layers} layers, "
         f"{f.transformer_heads} heads, FFN {f.transformer_ffn_dim}), {n_params / 1e6:.1f}M params, "
         f"bf16: 3 bucket-128 requests of 4 "
@@ -1887,6 +2081,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.validate import validate_manifest
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
@@ -1945,6 +2140,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     losses = []
     t0 = time.perf_counter()
     for b in train_batches[2:]:                     # the main path
@@ -1954,10 +2150,11 @@ def structured_phase(torch, tok, smi: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-    k3 = prefix_beam.launches
+    k3, k4 = prefix_beam.launches, lstm_scan.launches
     peak = torch.cuda.max_memory_allocated()
-    if k1 != n_steps or k2 != 0 or not all(math.isfinite(x) for x in losses):
-        raise SystemExit(f"structured: K1 {k1}, K2 {k2} over {n_steps} steps, losses {losses}")
+    if k1 != n_steps or k2 != 0 or k4 != 0 or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"structured: K1 {k1}, K2 {k2}, K4 {k4} over {n_steps} steps, losses "
+                         f"{losses}")
 
     outs = []
     with torch.no_grad():
@@ -1978,7 +2175,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
         f"{k1 / n_steps:g}, K2 {k2 / n_steps:g}; nearest-centroid overlap-vs-solo probe on "
         f"{len(y)} frames of speaker 1 ({y.mean():.3f} overlap): accuracy {acc:.3f} (reported, "
         f"not gated); card {smi}")
-    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
 
 
 def _timed_steps(torch, step, n_warm: int, n_steps: int):
@@ -1987,6 +2184,7 @@ def _timed_steps(torch, step, n_warm: int, n_steps: int):
     counts set to 0 just before and read just after -> ``(times, losses, K1,
     K2, peak bytes)``."""
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
@@ -1997,6 +2195,7 @@ def _timed_steps(torch, step, n_warm: int, n_steps: int):
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     times, losses = [], []
     for _ in range(n_steps):
         t0 = time.perf_counter()
@@ -2021,6 +2220,7 @@ def family_ref_phase(torch, tok) -> None:
     CPU with the same draws."""
     from multimodal_av_model_tpu_torch.data.mixing import MASK_PAD
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.specaugment import apply_spec_augment, draw_spec_augment
     from multimodal_av_model_tpu_torch.ops.ssl import make_span_mask
@@ -2102,6 +2302,7 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
 
     from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.train.single_modality import (
         make_audio_trainer,
@@ -2124,7 +2325,7 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
         return trainer.train_step(state, batch)[1]
 
     times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
-    k3 = prefix_beam.launches
+    k3, k4 = prefix_beam.launches, lstm_scan.launches
     with FlopCounterMode(display=False) as counter:
         step()
         torch.cuda.synchronize()
@@ -2137,14 +2338,15 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {flops / 1e12:.3f} TFLOP per step "
         f"(FlopCounterMode), mfu {flops / mean / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s dense bf16 "
         f"({flops / mean / PEAK_F32_FLOPS:.4f} of 67 TFLOP/s f32) at the mean step; card {smi}")
-    if k1 != n_steps or k2 != 0:
-        raise SystemExit(f"family-audio: launches K1 {k1}, K2 {k2} over {n_steps} steps")
+    if k1 != n_steps or k2 != 0 or k4 != 0:
+        raise SystemExit(f"family-audio: launches K1 {k1}, K2 {k2}, K4 {k4} over {n_steps} "
+                         f"steps")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"family-audio: losses {losses}")
     a = cfg.model.audio
     a.specaug_freq_masks = a.specaug_time_masks = 2
     times2, losses2, k1b, k2b, _ = _timed_steps(torch, step, 0, 3)
-    k3 += prefix_beam.launches
+    k3, k4 = k3 + prefix_beam.launches, k4 + lstm_scan.launches
     a.specaug_freq_masks = a.specaug_time_masks = 0
     log(f"[family-audio] with SpecAugment (2 frequency stripes <= {a.specaug_freq_width} bins, "
         f"2 time stripes <= {a.specaug_time_frac} of the valid frames): 3 steps, "
@@ -2152,7 +2354,7 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
         f"K2 {k2b}")
     if k1b != 3 or k2b != 0 or not all(math.isfinite(x) for x in losses2):
         raise SystemExit(f"family-audio: SpecAugment steps K1 {k1b}, K2 {k2b}, losses {losses2}")
-    return {"logmel": k1 + k1b, "lip_preprocess": 0, "prefix_beam": k3}
+    return {"logmel": k1 + k1b, "lip_preprocess": 0, "prefix_beam": k3, "lstm_scan": k4}
 
 
 def family_visual_phase(torch, tok, smi: str) -> dict:
@@ -2164,6 +2366,7 @@ def family_visual_phase(torch, tok, smi: str) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
 
     from multimodal_av_model_tpu_torch.config import Config
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.train.single_modality import (
         make_visual_trainer,
@@ -2185,7 +2388,7 @@ def family_visual_phase(torch, tok, smi: str) -> dict:
         return trainer.train_step(state, batch)[1]
 
     times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
-    k3 = prefix_beam.launches
+    k3, k4 = prefix_beam.launches, lstm_scan.launches
     with FlopCounterMode(display=False) as counter:
         step()
         torch.cuda.synchronize()
@@ -2199,11 +2402,11 @@ def family_visual_phase(torch, tok, smi: str) -> dict:
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {flops / 1e12:.3f} TFLOP per step, mfu "
         f"{flops / mean / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s dense bf16 "
         f"({flops / mean / PEAK_F32_FLOPS:.4f} of 67 TFLOP/s f32); card {smi}")
-    if k1 != 0 or k2 != 0:
-        raise SystemExit(f"family-visual: launches K1 {k1}, K2 {k2} (expected none)")
+    if k1 != 0 or k2 != 0 or k4 != 0:
+        raise SystemExit(f"family-visual: launches K1 {k1}, K2 {k2}, K4 {k4} (expected none)")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"family-visual: losses {losses}")
-    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
 
 
 def _families_config(dirs: dict):
@@ -2228,6 +2431,7 @@ def ssl_phase(torch, tok, dirs: dict, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.mixing import MASK_PAD
     from multimodal_av_model_tpu_torch.data.pairs import RandomPairSampler
     from multimodal_av_model_tpu_torch.data.pipeline import FilePairSource, bucketed_batches
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.ssl import make_span_mask
     from multimodal_av_model_tpu_torch.train.ssl_pretrain import MaskedAudioPretrainer
@@ -2283,7 +2487,7 @@ def ssl_phase(torch, tok, dirs: dict, smi: str) -> dict:
         return loss
 
     times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
-    k3 = prefix_beam.launches
+    k3, k4 = prefix_beam.launches, lstm_scan.launches
     batches.close()
     after = probe()
     log(f"[ssl] MaskedAudioPretrainer {n_params / 1e6:.1f}M params, f32, init {init_s:.1f} s; "
@@ -2294,11 +2498,11 @@ def ssl_phase(torch, tok, dirs: dict, smi: str) -> dict:
         f"InfoNCE of the steps {', '.join(f'{x:.4f}' for x in losses)}; of one held batch "
         f"without dropout {before:.4f} before the {n_steps + 2} steps, {after:.4f} after; "
         f"card {smi}")
-    if k1 != n_steps or k2 != 2 * n_steps:
-        raise SystemExit(f"ssl: launches K1 {k1}, K2 {k2} over {n_steps} steps")
+    if k1 != n_steps or k2 != 2 * n_steps or k4 != 0:
+        raise SystemExit(f"ssl: launches K1 {k1}, K2 {k2}, K4 {k4} over {n_steps} steps")
     if not all(math.isfinite(x) for x in losses) or not after < before:
         raise SystemExit(f"ssl: InfoNCE {losses}, held batch {before} -> {after}")
-    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
 
 
 def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
@@ -2308,15 +2512,18 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
     family for 1 epoch, then one flagship epoch with both encoders grafted.
     Each call's seconds, peak memory and launches: K1 once per audio-encoder
     forward, K2 twice per forward on the flagship's and SSL's batches,
-    neither in the visual family."""
+    neither in the visual family; K4 only in the flagship's, twice per
+    forward and twice per training step's backward."""
     import contextlib
 
     from multimodal_av_model_tpu_torch import main as cli
     from multimodal_av_model_tpu_torch.data.manifest import build_data_list, train_val_test_split
     from multimodal_av_model_tpu_torch.models.audio import AudioEncoder
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
     cfg = _families_config(dirs)
     entries, _ = build_data_list(dirs["json_folder"], dirs["npy_dir"], dirs["text_dir"],
@@ -2327,20 +2534,25 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
                  "train.eval_batch_size=4", "data.num_pairs_per_epoch=32", "data.eval_pairs=8",
                  "--device=cuda"])
     ck = {name: os.path.join(root, name) for name in ("audio", "visual", "ssl", "av")}
-    forwards = [0]
-    original = AudioEncoder.forward
+    forwards, steps = [0], [0]
+    original, original_step = AudioEncoder.forward, MultiSpeakerTrainer.train_step
 
     def counted(self, *args, **kwargs):
         forwards[0] += 1
         return original(self, *args, **kwargs)
 
+    def counted_step(self, *args, **kwargs):
+        steps[0] += 1
+        return original_step(self, *args, **kwargs)
+
     def run(tag, args, k2_per_forward):
-        forwards[0] = 0
+        forwards[0] = steps[0] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
         prefix_beam.launches = 0
+        lstm_scan.launches = 0
         tee = _Tee(sys.stdout)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(tee):
@@ -2348,14 +2560,17 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         k1, k2, n = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches, forwards[0]
-        k3 = prefix_beam.launches
+        k3, k4 = prefix_beam.launches, lstm_scan.launches
+        k4_want = 2 * (n + steps[0]) if "grafted" in tag else 0
         log(f"[families-cli] {tag}: {dt:.1f} s; peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {n} audio-encoder forwards; "
-            f"launches K1 {k1}, K2 {k2}, K3 {k3}")
-        if k1 != n or k2 != k2_per_forward * n or (n == 0) != ("--family=visual" in args):
-            raise SystemExit(f"families-cli: {tag}: launches K1 {k1}, K2 {k2} over {n} "
-                             f"forwards (expected 1 and {k2_per_forward} per forward)")
-        return "".join(tee.text), k1, k2, k3
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {n} audio-encoder forwards, "
+            f"{steps[0]} flagship training steps; launches K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4}")
+        if (k1 != n or k2 != k2_per_forward * n or (n == 0) != ("--family=visual" in args)
+                or k4 != k4_want):
+            raise SystemExit(f"families-cli: {tag}: launches K1 {k1}, K2 {k2}, K4 {k4} over {n} "
+                             f"forwards (expected 1, {k2_per_forward} and, with "
+                             f"{steps[0]} steps, {k4_want})")
+        return "".join(tee.text), k1, k2, k3, k4
 
     def epochs(tag, text):
         for line in text.splitlines():
@@ -2366,8 +2581,8 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
                     raise SystemExit(f"families-cli: {tag}: {line}")
                 log(f"[families-cli] {tag}, {line}")
 
-    AudioEncoder.forward = counted
-    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
+    AudioEncoder.forward, MultiSpeakerTrainer.train_step = counted, counted_step
+    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0, "lstm_scan": 0}
     wav = os.path.join(dirs["wav_dir"], sorted(os.listdir(dirs["wav_dir"]))[0])
     try:
         for tag, args, k2 in (
@@ -2390,10 +2605,11 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
                  [f"train.checkpoint_dir={ck['av']}", "train.max_epochs=1",
                   f"train.audio_init_ckpt={os.path.join(ck['ssl'], 'last.ckpt')}",
                   f"train.visual_init_ckpt={os.path.join(ck['visual'], 'last.ckpt')}"], 2)):
-            text, k1, k2n, k3 = run(tag, args, k2)
+            text, k1, k2n, k3, k4 = run(tag, args, k2)
             launches["logmel"] += k1
             launches["lip_preprocess"] += k2n
             launches["prefix_beam"] += k3
+            launches["lstm_scan"] += k4
             epochs(tag, text)
             lines = text.splitlines()
             if tag.endswith("2 epochs") and "[epoch 2]" not in text:
@@ -2423,10 +2639,10 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
                         raise SystemExit(f"families-cli: no {part} graft line")
                 log("[families-cli] " + "; ".join(ln for ln in lines if ln.startswith("grafted")))
     finally:
-        AudioEncoder.forward = original
+        AudioEncoder.forward, MultiSpeakerTrainer.train_step = original, original_step
     log(f"[families-cli] {len(train_set)} train and {len(val_set)} val utterances; launches "
         f"over the phase K1 {launches['logmel']}, K2 {launches['lip_preprocess']}, K3 "
-        f"{launches['prefix_beam']}; card {smi}")
+        f"{launches['prefix_beam']}, K4 {launches['lstm_scan']}; card {smi}")
     return launches
 
 
@@ -2516,6 +2732,7 @@ def legacy_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
     from multimodal_av_model_tpu_torch.ops import logmel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.text import KoreanSyllableVocab
@@ -2564,6 +2781,7 @@ def legacy_phase(torch, tok, smi: str) -> dict:
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
         prefix_beam.launches = 0
+        lstm_scan.launches = 0
         t0 = time.perf_counter()
         samples = [load_legacy_sample(d, vocab, device="cuda") for d in sample_dirs]
         load_s = time.perf_counter() - t0
@@ -2613,7 +2831,7 @@ def legacy_phase(torch, tok, smi: str) -> dict:
         del trainer.train_step
         after = held_loss()
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3 = prefix_beam.launches
+        k3, k4 = prefix_beam.launches, lstm_scan.launches
         peak = torch.cuda.max_memory_allocated()
         for line in lines:
             log(f"[legacy] fit: {line}")
@@ -2624,14 +2842,14 @@ def legacy_phase(torch, tok, smi: str) -> dict:
             f"{_ms(times)} (the first step included); peak device memory "
             f"{peak / 2**30:.2f} GiB; held batch loss {before:.4f} -> {after:.4f}; launches over "
             f"the path K1 {k1} (the {k1_load} loads), K2 {k2}; card {smi}")
-        if k1 != k1_load or k2 != 0 or n != epochs * len(batches):
-            raise SystemExit(f"legacy: launches K1 {k1}, K2 {k2}, {n} steps")
+        if k1 != k1_load or k2 != 0 or k4 != 0 or n != epochs * len(batches):
+            raise SystemExit(f"legacy: launches K1 {k1}, K2 {k2}, K4 {k4}, {n} steps")
         if not all(math.isfinite(x) for x in losses) or not after < before:
             raise SystemExit(f"legacy: losses {losses}, held batch {before} -> {after}")
         if len(lines) != epochs or not all(ln.startswith(f"[Epoch {i + 1}] Loss: ")
                                            for i, ln in enumerate(lines)):
             raise SystemExit(f"legacy: fit printed {lines}")
-        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2757,6 +2975,7 @@ def reference_import_phase(torch, rng, tok, smi: str):
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train.checkpoints import restore_checkpoint
@@ -2819,6 +3038,7 @@ def reference_import_phase(torch, rng, tok, smi: str):
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
         prefix_beam.launches = 0
+        lstm_scan.launches = 0
         lat, per_request = [], []
         for raw in requests[1:]:                    # the main path
             before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
@@ -2831,15 +3051,16 @@ def reference_import_phase(torch, rng, tok, smi: str):
             if len(texts) != 4 or not all(isinstance(x, str) for p in texts for x in p):
                 raise SystemExit("reference-import: expected one text per speaker")
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3 = prefix_beam.launches
+        k3, k4 = prefix_beam.launches, lstm_scan.launches
         log(f"[reference-import] Transcriber.from_checkpoint of the imported file "
             f"({cfg.model.dtype}) {load_s:.1f} s; 3 requests B=4 bucket 128: "
             f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms; launches per request "
             f"{per_request}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
             f"GiB; card {smi}")
-        if per_request != [(1, 2)] * 3:
-            raise SystemExit(f"reference-import: launches per request {per_request}")
-        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}, transcriber
+        if per_request != [(1, 2)] * 3 or k4 != 2 * 3:
+            raise SystemExit(f"reference-import: launches per request {per_request}, K4 {k4} "
+                             f"(expected 2 a request)")
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}, transcriber
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2892,6 +3113,7 @@ def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
     )
     from multimodal_av_model_tpu_torch.ops import resize
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
 
@@ -2992,6 +3214,7 @@ def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
         prefix_beam.launches = 0
+        lstm_scan.launches = 0
         lat, per_request, texts = [], [], []
         for raw in requests:                         # the main path
             before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
@@ -3002,14 +3225,16 @@ def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
             per_request.append((log_mel_spectrogram_cuda.launches - before[0],
                                 lip_preprocess_cuda.launches - before[1]))
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3 = prefix_beam.launches
+        k3, k4 = prefix_beam.launches, lstm_scan.launches
         log(f"[lip-extract] {len(requests)} requests from the extracted clips (B=1, buckets "
             f"{[r['lip1_raw'].shape[1] for r in requests]}): "
             f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms; launches per request {per_request}; "
             f"first texts {json.dumps(texts[0])[:80]}; card {smi}")
-        if per_request != [(1, 2)] * len(requests) or len(texts) != len(requests):
-            raise SystemExit(f"lip-extract: launches per request {per_request}")
-        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+        if (per_request != [(1, 2)] * len(requests) or len(texts) != len(requests)
+                or k4 != 2 * len(requests)):
+            raise SystemExit(f"lip-extract: launches per request {per_request}, K4 {k4} "
+                             f"(expected 2 a request)")
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3192,6 +3417,7 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
     from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.parallel import full_tensor, make_mesh
@@ -3253,6 +3479,7 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
                 log_mel_spectrogram_cuda.launches = 0
                 lip_preprocess_cuda.launches = 0
                 prefix_beam.launches = 0
+                lstm_scan.launches = 0
             times, losses = [], []
             for _ in range(n_steps):                # the main path when counted
                 t0 = time.perf_counter()
@@ -3261,23 +3488,23 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
                 losses.append(m["loss"].item())
                 times.append(time.perf_counter() - t0)
             k = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                 prefix_beam.launches)
+                 prefix_beam.launches, lstm_scan.launches)
             return times, losses, torch.cuda.max_memory_allocated(), k
 
         for tag, t, state, count in (("unmeshed", plain, p_state, False),
                                      ("meshed FSDP", meshed, m_state, True)):
-            times, losses, peak, (k1, k2, k3) = steps(t, state, count)
+            times, losses, peak, (k1, k2, k3, k4) = steps(t, state, count)
             log(f"[dist] {tag} B=8: {n_steps} steps, {np.median(times) * 1e3:.1f} ms median "
                 f"({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}), "
                 f"{8 * n_steps / sum(times):.2f} utt/s, peak device memory "
                 f"{peak / 2**30:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}"
-                + (f"; launches per step K1 {k1 / n_steps:g}, K2 {k2 / n_steps:g}"
-                   if count else ""))
+                + (f"; launches per step K1 {k1 / n_steps:g}, K2 {k2 / n_steps:g}, K4 "
+                   f"{k4 / n_steps:g}" if count else ""))
             if not all(math.isfinite(x) for x in losses):
                 raise SystemExit(f"dist: non-finite losses {losses}")
-        if (k1, k2) != (n_steps, 2 * n_steps):
-            raise SystemExit(f"dist: launches K1 {k1}, K2 {k2} over {n_steps} steps")
-        launches = {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+        if (k1, k2, k4) != (n_steps, 2 * n_steps, 4 * n_steps):
+            raise SystemExit(f"dist: launches K1 {k1}, K2 {k2}, K4 {k4} over {n_steps} steps")
+        launches = {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
 
         ckpt = os.path.join(root, "sharded")
         t0 = time.perf_counter()
@@ -3333,6 +3560,7 @@ def cli_child(argv: list[str]) -> int:
     sys.path.insert(0, REPO)
     from multimodal_av_model_tpu_torch import main as cli
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
@@ -3348,10 +3576,11 @@ def cli_child(argv: list[str]) -> int:
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     cli.main(argv)
     print("[cli-child] " + json.dumps({
         "k1": log_mel_spectrogram_cuda.launches, "k2": lip_preprocess_cuda.launches,
-        "k3": prefix_beam.launches, "train_steps": n["train_step"],
+        "k3": prefix_beam.launches, "k4": lstm_scan.launches, "train_steps": n["train_step"],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
     return 0
 
@@ -3378,7 +3607,7 @@ def dist_cli_phase(torch, tok, smi: str) -> dict:
                   + [f"data.vocab_path={vocab}", "train.batch_size=8", "train.eval_batch_size=4",
                      "data.num_pairs_per_epoch=32", "data.eval_pairs=8",
                      "train.checkpoint_layout=sharded", "--device=cuda"])
-        launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
+        launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0, "lstm_scan": 0}
         for tag, extra, want in (
                 ("mesh.fsdp=true, 1 epoch", ["mesh.fsdp=true", "train.max_epochs=1", "a"], None),
                 ("mesh.fsdp=true, resume to epoch 2", ["mesh.fsdp=true", "train.max_epochs=2",
@@ -3405,15 +3634,18 @@ def dist_cli_phase(torch, tok, smi: str) -> dict:
             log(f"[dist-cli] {tag}: {dt:.1f} s (torchrun, one process); {mesh_line[:90]}; peak "
                 f"device memory {child['peak_gib']:.2f} GiB; {child['train_steps']} train steps, "
                 f"{n_eval} eval batches; launches K1 {child['k1']}, K2 {child['k2']}, K3 "
-                f"{child['k3']}; "
+                f"{child['k3']}, K4 {child['k4']}; "
                 f"{epochs[-1][:100] if epochs else 'NO EPOCH'}")
             if want and want not in out:
                 raise SystemExit(f"dist-cli: {tag} did not print {want!r}")
-            if not epochs or not mesh_line or child["k1"] != calls or child["k2"] != 2 * calls:
-                raise SystemExit(f"dist-cli: {tag}: epochs {len(epochs)}, launches {child}")
+            if (not epochs or not mesh_line or child["k1"] != calls or child["k2"] != 2 * calls
+                    or child["k4"] != 4 * child["train_steps"] + 2 * n_eval):
+                raise SystemExit(f"dist-cli: {tag}: epochs {len(epochs)}, launches {child} "
+                                 f"(K4 4 a train step, 2 an eval batch)")
             launches["logmel"] += child["k1"]
             launches["lip_preprocess"] += child["k2"]
             launches["prefix_beam"] += child["k3"]
+            launches["lstm_scan"] += child["k4"]
         log(f"[dist-cli] card {smi}")
         return launches
     finally:
@@ -3434,6 +3666,7 @@ def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
 
     from multimodal_av_model_tpu_torch.config import Config
     from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.parallel import make_cp_audio_encoder, make_mesh
 
@@ -3455,7 +3688,7 @@ def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
             enc = make_cp_audio_encoder(cfg, mesh, "data", impl).cuda().eval()
             enc.load_state_dict(full.state_dict())
             encoders[impl] = enc
-        outs, k1, k2, k3 = {}, 0, 0, 0
+        outs, k1, k2, k3, k4 = {}, 0, 0, 0, 0
         for name, enc in encoders.items():
             with torch.no_grad():
                 outs[name] = enc(wave)
@@ -3463,6 +3696,7 @@ def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
                                                       n_calls)
             if name != "full attention":            # the main path
                 k1, k2, k3 = k1 + n1, k2 + n2, k3 + prefix_beam.launches
+                k4 += lstm_scan.launches
             ms, peak = float(np.median(times)) * 1e3, peak / 2**30
             last, middle, _ = outs[name]
             ref_last, ref_middle, _ = outs["full attention"]
@@ -3480,9 +3714,9 @@ def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
         calls = 2 * n_calls
         log(f"[longform] launches over the {calls} timed CP encoder calls: K1 {k1}, K2 {k2}; "
             f"card {smi}")
-        if (k1, k2) != (calls, 0):
-            raise SystemExit(f"longform: launches K1 {k1}, K2 {k2} over {calls} calls")
-        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+        if (k1, k2, k4) != (calls, 0, 0):
+            raise SystemExit(f"longform: launches K1 {k1}, K2 {k2}, K4 {k4} over {calls} calls")
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
     finally:
         dist.destroy_process_group()
 
@@ -3503,6 +3737,7 @@ def pp_phase(torch, rng, smi: str, n_steps: int = 5, microbatches: int = 4) -> d
     from multimodal_av_model_tpu_torch.config import Config
     from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
     from multimodal_av_model_tpu_torch.models.audio import ConformerBlock
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.parallel import (
         PIPE_AXIS,
@@ -3575,10 +3810,10 @@ def pp_phase(torch, rng, smi: str, n_steps: int = 5, microbatches: int = 4) -> d
                 return fn().detach().sum()
 
             times, _, k1, k2, peak = _timed_steps(torch, step, 1, n_steps)
-            k3 = prefix_beam.launches
+            k3, k4 = prefix_beam.launches, lstm_scan.launches
             log(f"[pp] {tag}: forward + backward {float(np.median(times)) * 1e3:.1f} ms "
                 f"(median of {n_steps}), peak device memory {peak / 2**30:.2f} GiB")
-        launches = {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+        launches = {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
         log(f"[pp] bubble_fraction(1, {microbatches}) = {bubble_fraction(1, microbatches):g} "
             f"(4 stages: {bubble_fraction(4, microbatches):.4f}); launches over the pipelined "
             f"steps K1 {launches['logmel']}, K2 {launches['lip_preprocess']}; card {smi}")
@@ -3614,6 +3849,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.infer import Transcriber, decode_ids
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
@@ -3672,7 +3908,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     del shared, double, outs
 
     # Full width: one bucket-128 request of 4 mixtures served with the double pass.
-    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0}
+    launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0, "lstm_scan": 0}
     cfg = Config()
     cfg.model.shared_audio_pass = False
     dtype = torch_dtype(cfg.model.dtype)
@@ -3692,12 +3928,13 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     log_mel_spectrogram_cuda.launches = 0
     lip_preprocess_cuda.launches = 0
     prefix_beam.launches = 0
+    lstm_scan.launches = 0
     t0 = time.perf_counter()                                            # the main path
     texts = transcriber.transcribe(_flagship_batch(torch, raw))
     torch.cuda.synchronize()
     req_ms = (time.perf_counter() - t0) * 1e3
     k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-    k3 = prefix_beam.launches
+    k3, k4 = prefix_beam.launches, lstm_scan.launches
     hook.remove()
     for s in ("1", "2"):
         lp = captured[0]["log_probs" + s].float()
@@ -3706,13 +3943,15 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
             raise SystemExit(f"{tag}: bad log-probs {tuple(lp.shape)}")
     log(f"[{tag}] full width, double pass: one bucket-128 request of 4 mixtures in "
         f"{req_ms:.1f} ms, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-        f"GiB, launches K1 {k1} K2 {k2} K3 {k3}; first texts {json.dumps(texts[0])[:80]}")
-    if (k1, k2, k3) != (1, 2, 1) or len(texts) != 4:
-        raise SystemExit(f"{tag}: request launches K1 {k1}, K2 {k2}, K3 {k3} (expected 1, 2 "
-                         f"and 1)")
+        f"GiB, launches K1 {k1} K2 {k2} K3 {k3} K4 {k4}; first texts "
+        f"{json.dumps(texts[0])[:80]}")
+    if (k1, k2, k3, k4) != (1, 2, 1, 2) or len(texts) != 4:
+        raise SystemExit(f"{tag}: request launches K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} "
+                         f"(expected 1, 2, 1 and 2)")
     launches["logmel"] += k1
     launches["lip_preprocess"] += k2
     launches["prefix_beam"] += k3
+    launches["lstm_scan"] += k4
     del transcriber, model, captured
 
     # Full width: the B = 8 step of each pass on bench.py's shapes.
@@ -3764,7 +4003,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     for name, shared_pass in (("shared", True), ("double", False)):
         step, state = make_step(shared_pass)
         rows[name] = {"step": step, "state": state, "times": [], "losses": [], "k1": 0,
-                      "k2": 0, "k3": 0, "peak": 0, "calls": np.zeros(2, np.int64)}
+                      "k2": 0, "k3": 0, "k4": 0, "peak": 0, "calls": np.zeros(2, np.int64)}
     for name in ("shared", "double", "double", "shared"):   # in turns; the main path
         r = rows[name]
         before = allocator_calls()
@@ -3774,6 +4013,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
         r["losses"] += losses
         r["k1"], r["k2"], r["peak"] = r["k1"] + k1, r["k2"] + k2, max(r["peak"], peak)
         r["k3"] += prefix_beam.launches
+        r["k4"] += lstm_scan.launches
     for name, r in rows.items():
         with FlopCounterMode(display=False) as counter:
             r["step"]()
@@ -3790,16 +4030,17 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
             f"cudaMalloc / cudaFree over them {r['calls'][0]} / {r['calls'][1]}; peak device "
             f"memory {r['peak'] / 2**30:.2f} GiB; {r['flops'] / 1e12:.3f} TFLOP a step, the "
             f"audio encoder's forward {r['enc'] / 1e12:.4f} TFLOP (FlopCounterMode); launches "
-            f"per step K1 {r['k1'] / n:g}, K2 {r['k2'] / n:g}; loss {losses[0]:.4f} -> "
-            f"{losses[-1]:.4f}")
-        if (r["k1"], r["k2"]) != (n, 2 * n):
-            raise SystemExit(f"{tag}: {name} pass launches K1 {r['k1']}, K2 {r['k2']} over "
-                             f"{n} steps (expected 1 and 2 per step)")
+            f"per step K1 {r['k1'] / n:g}, K2 {r['k2'] / n:g}, K4 {r['k4'] / n:g}; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+        if (r["k1"], r["k2"], r["k4"]) != (n, 2 * n, 4 * n):
+            raise SystemExit(f"{tag}: {name} pass launches K1 {r['k1']}, K2 {r['k2']}, K4 "
+                             f"{r['k4']} over {n} steps (expected 1, 2 and 4 per step)")
         if not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"{tag}: non-finite losses {losses}")
     launches["logmel"] += rows["double"]["k1"]
     launches["lip_preprocess"] += rows["double"]["k2"]
     launches["prefix_beam"] += rows["double"]["k3"]
+    launches["lstm_scan"] += rows["double"]["k4"]
     ratio = rows["double"]["enc"] / rows["shared"]["enc"]
     cost = np.median(rows["double"]["times"]) / np.median(rows["shared"]["times"])
     cost_alone = np.median(alone["double"]) / np.median(alone["shared"])
@@ -3838,6 +4079,7 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.synth_corpus import write_raw_media_corpus
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
@@ -3895,6 +4137,7 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
         log_mel_spectrogram_cuda.launches = 0
         lip_preprocess_cuda.launches = 0
         prefix_beam.launches = 0
+        lstm_scan.launches = 0
         times, pulls, losses = [], [], []
         batches = device_preprocessed_batches(raws)     # the main path
         for _ in raws:
@@ -3906,27 +4149,28 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
             losses.append(m["loss"].item())
             times.append(time.perf_counter() - t0)
         k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3 = prefix_beam.launches
+        k3, k4 = prefix_beam.launches, lstm_scan.launches
         log(f"[{tag}] 3 flagship steps at full width (B=8 speaker-distinct pairs, bucket 64): "
             f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms (the first with cuDNN's warm-up; "
             f"each from the pull of its raw batch, of which the pull, its host-to-device "
             f"copies, mixing and K2, took {', '.join(f'{x * 1e3:.1f}' for x in pulls)} ms); "
             f"peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; losses "
-            f"{', '.join(f'{x:.4f}' for x in losses)}; launches K1 {k1} K2 {k2}; card {smi}")
-        if (k1, k2) != (3, 6):
-            raise SystemExit(f"{tag}: launches K1 {k1}, K2 {k2} over 3 steps (expected 1 and "
-                             f"2 per step)")
+            f"{', '.join(f'{x:.4f}' for x in losses)}; launches K1 {k1} K2 {k2} K4 {k4}; card "
+            f"{smi}")
+        if (k1, k2, k4) != (3, 6, 12):
+            raise SystemExit(f"{tag}: launches K1 {k1}, K2 {k2}, K4 {k4} over 3 steps (expected "
+                             f"1, 2 and 4 per step)")
         if not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"{tag}: non-finite losses {losses}")
-        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3}
+        return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
 PHASES = ("k3", "family-ref", "family-audio", "family-visual", "families", "legacy-ref", "legacy",
           "reference-import", "lip-extract", "hostops", "runtime", "dist", "dist-cli", "longform",
-          "pp", "shared-pass", "raw-media")
+          "pp", "shared-pass", "raw-media", "k4")
 UPSTREAM = PHASES[5:9]
 
 
@@ -3996,6 +4240,7 @@ def main() -> int:
             if name in UPSTREAM:
                 continue
             {"k3": lambda: k3_phase(torch, rng),
+             "k4": lambda: k4_phase(torch, rng),
              "family-ref": lambda: family_ref_phase(torch, tok),
              "family-audio": lambda: family_audio_phase(torch, tok, smi),
              "family-visual": lambda: family_visual_phase(torch, tok, smi),
@@ -4014,7 +4259,7 @@ def main() -> int:
         return 0
     hostops_phase(torch)
     (k1, k1_calls), (k2, k2_calls) = k1_phase(torch, rng), k2_phase(torch, rng)
-    k3 = k3_phase(torch, rng)
+    k3, k4 = k3_phase(torch, rng), k4_phase(torch, rng)
     reference_phase(torch, rng)
     serving_launches, profile_request, served = serving_phase(torch, rng, tok)
     beam_ref_phase(torch, served)
@@ -4041,8 +4286,9 @@ def main() -> int:
     pp_launches = pp_phase(torch, rng, smi)
     shared_pass_launches = shared_pass_phase(torch, rng, tok, smi)
     raw_media_launches = raw_media_phase(torch, tok, smi)
-    kernels = [k1, k2, k3]
-    for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls), ("k3", k3, None)):
+    kernels = [k1, k2, k3, k4]
+    for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls), ("k3", k3, None),
+                          ("k4", k4, None)):
         by_path = {"serving": serving_launches[k["name"]], "train": train_launches[k["name"]],
                    "fit": fit_launches[k["name"]],
                    "stream_audio": stream_launches["stream_audio"][k["name"]],
@@ -4064,7 +4310,7 @@ def main() -> int:
                    "raw_media": raw_media_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
-        if calls is None:                           # K3: graph replay's time only
+        if calls is None:                           # K3, K4: graph replay's time only
             continue
         dev_ms, caught = profiled_ms(*calls)
         log(f"[{tag}] device time per launch by torch.profiler (CUPTI), mean of the {caught} "

@@ -237,9 +237,9 @@ def export_transcriber(t: Transcriber, out_dir: str, example_batch: dict,
     * ``meta.json``: JAX's keys (``keys``, ``shapes``, ``use_beam``,
       ``algorithm``, ``has_lm``, ``quantized``).
 
-    ``example_batch`` fixes every shape: the bucket's frames set the length
-    of the BiLSTM loop, which the trace unrolls; the decode is one
-    ``mmav::prefix_beam`` node.  The
+    ``example_batch`` fixes every shape; each BiLSTM layer's recurrence is
+    one ``mmav::lstm_scan`` node and the decode one ``mmav::prefix_beam``
+    node.  The
     program computes on ``t.device``, where it is traced (devices are part
     of the graph).  Returns ``{"seconds", "nodes", "bytes"}``: the export's
     time, the graph's node count and ``model.pt2``'s size."""

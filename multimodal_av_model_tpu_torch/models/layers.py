@@ -20,6 +20,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from ..ops.lstm_scan import lstm_scan
+
 
 def _param(*shape) -> nn.Parameter:
     # Filled by init_weights (seeded) or by load_state_dict (from_jax_variables).
@@ -441,12 +443,14 @@ class LSTMLayer(nn.Module):
 class FusedBiLSTMLayer(nn.Module):
     """One bidirectional LSTM layer (``layers.py:182-239``).
 
-    Both directions advance in the same loop step, as one batched matmul of
-    ``[2, B, H] x [2, H, 4H]``; the input projections for all frames run before
-    the loop.  Gate order i, f, g, o with one bias on the recurrent side
-    (flax ``OptimizedLSTMCell``).  Past each length the carry freezes and the
-    output is zero.  Parameters stack the directions: index 0 forward, 1
-    backward.
+    The input projections of both directions for all frames are one matrix
+    product; the recurrence of both directions is one ``mmav::lstm_scan``
+    (``ops/lstm_scan.py``: on the card one launch of K4 with the frame loop
+    inside, on the CPU the plain loop ``_lstm_scan``).  Gate order i, f, g, o
+    with one bias on the recurrent side (flax ``OptimizedLSTMCell``).  Past
+    each length the carry freezes and the output is zero; the backward
+    direction starts at each row's last valid frame.  Parameters stack the
+    directions: index 0 forward, 1 backward.
     """
 
     def __init__(self, in_dim: int, hidden: int, dtype: torch.dtype = torch.float32):
@@ -457,19 +461,13 @@ class FusedBiLSTMLayer(nn.Module):
         self.b_hh = _param(2, 4 * hidden)
         self.dtype = dtype
 
-    def forward(self, x, valid):
-        """``x [B, T, D]``, ``valid [B, T]`` bool -> ``[B, T, 2H]``."""
+    def forward(self, x, lengths):
+        """``x [B, T, D]``, ``lengths [B]`` -> ``[B, T, 2H]``."""
         dt = self.dtype
-        x = x.to(dt)
-        w_ih = self.w_ih.to(dt)
-        zf = F.linear(x, w_ih[0]).transpose(0, 1)                  # [T, B, 4H]
-        zb = F.linear(x, w_ih[1]).transpose(0, 1).flip(0)
-        v = valid.transpose(0, 1)                                  # [T, B]
-        keep = torch.stack([v, v.flip(0)], dim=1)[..., None]       # [T, 2, B, 1]
-        y = _lstm_scan(torch.stack([zf, zb], dim=1), keep, self.w_hh.to(dt).transpose(1, 2),
-                       self.b_hh.to(dt)[:, None, :])               # [T, 2, B, H]
-        y = torch.cat([y[:, 0], y[:, 1].flip(0)], dim=-1)          # [T, B, 2H]
-        return y.transpose(0, 1)
+        B, T, _ = x.shape
+        z = F.linear(x.to(dt), self.w_ih.to(dt).flatten(0, 1)).view(B, T, 2, 4 * self.hidden)
+        y = lstm_scan(z, lengths, self.w_hh.to(dt), self.b_hh.to(dt))      # [B, T, 2, H]
+        return y.view(B, T, 2 * self.hidden)
 
 
 class BiLSTM(nn.Module):
@@ -485,11 +483,9 @@ class BiLSTM(nn.Module):
     def forward(self, x, lengths=None):
         B, T, _ = x.shape
         if lengths is None:
-            valid = torch.ones(B, T, dtype=torch.bool, device=x.device)
-        else:
-            valid = length_mask(lengths, T)
+            lengths = torch.full((B,), T, dtype=torch.int64, device=x.device)
         for layer in self.layers:
-            x = layer(x, valid)
+            x = layer(x, lengths)
         return x
 
 

@@ -29,6 +29,7 @@ SOURCES = {
     "logmel": "logmel.cu",
     "lip": "lip_preprocess.cu",
     "prefix_beam": "prefix_beam.cu",
+    "bilstm": "bilstm.cu",
 }
 
 NVCC_FLAGS = [

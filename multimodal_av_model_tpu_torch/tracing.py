@@ -23,7 +23,10 @@ A span records nothing while ``torch.compile`` or ``torch.export`` traces
 being captured into a CUDA graph.  Spans stay in memory until ``collect``.
 
 ``count(name, n)`` adds to a counter of the innermost open span of the
-calling thread (outside every span it is dropped).  On the card the
+calling thread (outside every span it is dropped); ``count(name, n,
+thread=ident)`` to that of the thread ``ident`` instead, for work another
+thread does on its behalf (autograd's device thread runs a CUDA backward
+while its caller waits in ``train.backward``).  On the card the
 recorder sets ``torch.cuda.set_sync_debug_mode("warn")`` and counts each
 synchronising call (a blocking copy either way, ``.cpu()``, ``.item()``,
 a stream synchronise) as ``host_syncs`` of the innermost span instead of
@@ -52,7 +55,10 @@ name; about 20 a unit, none inside a per-frame loop):
 ``encoders.visual``,     ``models/av_model.py:MultiSpeakerAVModel.forward``
 ``encoders.audio``,      and ``models/avhubert.py:AVHubertCTC.forward``
 ``fusion``, ``decoder``
-``fusion.temporal``      the BiLSTM or transformer call in ``models/fusion.py``
+``fusion.temporal``      the BiLSTM or transformer call in ``models/fusion.py``;
+                         each ``mmav::lstm_scan`` call (on the card one K4
+                         launch), counted as ``lstm_kernel``, and its
+                         backward's under ``train.backward``
 ``encoders.layers``      AV-HuBERT's transformer layers (``AVHubertCTC``)
 =======================  ===================================================
 """
@@ -75,6 +81,7 @@ _CUDA = False
 _SYNC_MESSAGE = "called a synchronizing CUDA operation"
 _tls = threading.local()
 _records: list["_Span"] = []
+_open: dict[int, list] = {}            # the stacks of the threads with spans open, by thread id
 _ids = itertools.count()
 # While syncs are counted: (the previous sync debug mode, the warnings state, showwarning).
 _saved = None
@@ -105,13 +112,18 @@ class _Span:
             self.events = (torch.cuda.Event(enable_timing=True),
                            torch.cuda.Event(enable_timing=True))
             self.events[0].record()
+        if not stack:
+            _open[threading.get_ident()] = stack
         stack.append(self)
         self.start_ns = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         self.end_ns = time.perf_counter_ns()
-        _stack().pop()
+        stack = _stack()
+        stack.pop()
+        if not stack:
+            _open.pop(threading.get_ident(), None)
         if self.events is not None:
             self.events[1].record()
         self._range.__exit__(*exc)
@@ -126,10 +138,12 @@ def span(name: str):
     return _Span(name)
 
 
-def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` of the calling thread's innermost open span."""
+def count(name: str, n: int = 1, thread: int | None = None) -> None:
+    """Add ``n`` to counter ``name`` of the innermost open span of the calling
+    thread, or of ``thread`` (its ``threading.get_ident()``) for work done on
+    its behalf in another thread."""
     if _ON:
-        stack = _stack()
+        stack = _stack() if thread is None else _open.get(thread)
         if stack:
             c = stack[-1].counters
             c[name] = c.get(name, 0) + n

@@ -406,3 +406,187 @@ def test_prefix_beam_kernel_rejects_what_it_does_not_take(cuda):
         pbs.prefix_beam_search_decode(lp, lens.float())
     with pytest.raises(ValueError):
         pbs.prefix_beam_search_decode(lp, lens, blank_id=10)
+
+
+# K4: the LSTM recurrence (csrc/bilstm.cu) against the plain loop.
+
+
+def _lstm_inputs(cuda, R, T, H, lengths, seed=20, D=2):
+    """f64 inputs at the model's scales: z ~ N(0, 1) (the input projections),
+    W_hh ~ U(+-1/sqrt(H)), bias ~ N(0, 0.1)."""
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(R, T, D, 4 * H, generator=g, dtype=torch.float64)
+    w = (torch.rand(D, 4 * H, H, generator=g, dtype=torch.float64) * 2 - 1) / H ** 0.5
+    b = 0.1 * torch.randn(D, 4 * H, generator=g, dtype=torch.float64)
+    dy = torch.randn(R, T, D, H, generator=g, dtype=torch.float64)
+    lens = torch.as_tensor(lengths, dtype=torch.int64)
+    return tuple(x.to(cuda) for x in (z, w, b, dy, lens))
+
+
+def _lstm_run(fn, z, w, b, dy, lens, dtype):
+    """``y`` and the gradients of ``(y * dy).sum()`` for ``z``, ``w``, ``b``
+    in ``dtype``, through ``fn`` (the operator or the plain loop), in f64."""
+    z, w, b = (x.to(dtype).requires_grad_() for x in (z, w, b))
+    y = fn(z, lens, w, b)
+    grads = torch.autograd.grad((y.double() * dy).sum(), (z, w, b))
+    return [x.detach().double() for x in (y, *grads)]
+
+
+def _lstm_plain(z, lens, w, b):
+    from multimodal_av_model_tpu_torch.ops import lstm_scan as ls
+    return ls._forward_plain(z, lens, w, b, False)[0]
+
+
+def _lstm_errors(cuda, R, T, H, lengths, dtype, seed=20):
+    """Max abs error of the kernel and of the plain loop in ``dtype``, each
+    against the f64 plain loop: ``{name: (kernel, plain)}`` for y, dz, dW, db."""
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
+    args = _lstm_inputs(cuda, R, T, H, lengths, seed)
+    ref = _lstm_run(_lstm_plain, *args, torch.float64)
+    got = _lstm_run(lstm_scan, *args, dtype)
+    plain = _lstm_run(_lstm_plain, *args, dtype)
+    torch.cuda.synchronize()
+    lens = args[4].cpu()
+    for r, n in enumerate(lens.tolist()):          # exactly 0 past each length
+        assert not got[0][r, n:].any() and not got[1][r, n:].any()
+    names = ("y", "dz", "dw", "db")
+    return {k: ((g - f).abs().max().item(), (p - f).abs().max().item())
+            for k, g, p, f in zip(names, got, plain, ref)}
+
+
+@pytest.mark.parametrize("R", [8, 16])
+def test_lstm_kernel_at_the_cells_shape_bf16(cuda, R):
+    """[128, 2, R, 2048] in bf16 (a request's 8 rows, a train_b8 step's 16),
+    lengths U[64, 128]: against the f64 loop the kernel's error in y and in
+    every gradient is at most the bf16 plain loop's, with 10 % slack."""
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan_plan
+    lengths = np.random.default_rng(21).integers(64, 129, R)
+    plan = lstm_scan_plan("forward", R, 512, 2)
+    assert plan["cs"] == 16 and plan["w_in_smem"]
+    for k, (kern, plain) in _lstm_errors(cuda, R, 128, 512, lengths, torch.bfloat16).items():
+        assert kern <= 1.1 * plain, (k, kern, plain)
+
+
+@pytest.mark.parametrize("R", [8, 16])
+def test_lstm_kernel_at_the_cells_shape_f32(cuda, R):
+    """The same in f32, where W_hh (4 MiB a direction) does not fit the
+    cluster and each CTA reads its slice from L2: within 2e-5 of f64."""
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan_plan
+    lengths = np.random.default_rng(22).integers(64, 129, R)
+    assert not lstm_scan_plan("forward", R, 512, 4)["w_in_smem"]
+    for k, (kern, plain) in _lstm_errors(cuda, R, 128, 512, lengths, torch.float32).items():
+        assert kern <= max(1.1 * plain, 2e-5), (k, kern, plain)
+
+
+LSTM_LENGTHS = {"ones": [1, 1, 1], "full": [9, 9, 9, 9, 9], "equal": [5] * 4,
+                "different": [9, 1, 4, 7, 2, 8, 3], "with_zero": [0, 9, 3]}
+
+
+@pytest.mark.parametrize("H", [8, 16, 20, 32, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(LSTM_LENGTHS))
+def test_lstm_kernel_small_and_odd_hidden(cuda, H, dtype, case):
+    """In bf16 one CTA at small H and 4 at H = 256, in f32 W_hh from scratch
+    in clusters of 1 to 16; H of 8 and 20, whose CTAs hold units past H, copy
+    inputs and outputs element by element.  Lengths of 1, of T, all equal,
+    all different and a row of 0 frames."""
+    lengths = LSTM_LENGTHS[case]
+    errors = _lstm_errors(cuda, len(lengths), 9, H, lengths, dtype, seed=H)
+    for k, (kern, plain) in errors.items():
+        assert kern <= max(1.1 * plain, 2e-5 if dtype == torch.float32 else 0.0), (k, kern, plain)
+
+
+def test_lstm_kernel_reverse_direction_starts_at_the_last_valid_frame(cuda):
+    """The backward direction's first step is a zero-carry step on frame
+    len - 1: h = o tanh(i g) from that frame's gates alone."""
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
+    z, w, b, _, lens = _lstm_inputs(cuda, 3, 10, 32, [10, 6, 1])
+    with torch.no_grad():
+        y = lstm_scan(z.float(), lens, w.float(), b.float())
+    for r, n in enumerate(lens.tolist()):
+        i, f, g, o = (z[r, n - 1, 1] + b[1]).float().chunk(4)
+        want = torch.sigmoid(o) * torch.tanh(torch.sigmoid(i) * torch.tanh(g))
+        torch.testing.assert_close(y[r, n - 1, 1], want, rtol=1e-5, atol=1e-6)
+        assert not y[r, n:].any()
+
+
+def test_bilstm_on_the_card_matches_the_plain_loop_through_both_layers(cuda):
+    """Two stacked layers in bf16 at the flagship's width, 8 rows: the output
+    and the gradients of the input and of every parameter against the f64
+    plain loop, within the bf16 plain loop's error and 10 %."""
+    import torch.nn.functional as F
+    from multimodal_av_model_tpu_torch.models.layers import BiLSTM
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
+    g = torch.Generator().manual_seed(23)
+    model = BiLSTM(512, 512, 2).to(cuda)
+    for p in model.parameters():
+        p.data = ((torch.rand(p.shape, generator=g) * 2 - 1) / 512 ** 0.5).to(cuda)
+    x = torch.randn(8, 128, 512, generator=g).to(cuda)
+    dy = torch.randn(8, 128, 1024, generator=g, dtype=torch.float64).to(cuda)
+    lens = torch.from_numpy(np.random.default_rng(23).integers(64, 129, 8)).to(cuda)
+
+    def run(dtype, scan):
+        xi = x.double().requires_grad_()
+        params = [p.detach().double().requires_grad_() for p in model.parameters()]
+        h = xi.to(dtype)
+        for layer in range(2):
+            w_ih, w_hh, b_hh = (q.to(dtype) for q in params[3 * layer:3 * layer + 3])
+            z = F.linear(h, w_ih.flatten(0, 1)).view(8, 128, 2, 2048)
+            h = scan(z, lens, w_hh, b_hh).reshape(8, 128, 1024)
+        grads = torch.autograd.grad((h.double() * dy).sum(), (xi, *params))
+        return [h.detach().double()] + [t.double() for t in grads]
+
+    assert [n for n, _ in model.named_parameters()][:3] == [
+        "layers.0.w_ih", "layers.0.w_hh", "layers.0.b_hh"]
+    ref = run(torch.float64, _lstm_plain)
+    got, plain = run(torch.bfloat16, lstm_scan), run(torch.bfloat16, _lstm_plain)
+    for f, k, p in zip(ref, got, plain):
+        assert (k - f).abs().max() <= 1.1 * (p - f).abs().max()
+    with torch.no_grad():                          # the module's own path is the operator
+        torch.testing.assert_close(model(x, lens).double(), ref[0], rtol=0, atol=1e-4)
+
+
+def test_bilstm_is_two_launches_forward_and_two_backward(cuda):
+    """A BiLSTM forward is 2 K4 launches and its backward 2 more, in the
+    launch count and in the recorder's ``lstm_kernel`` counter (the backward's
+    from autograd's device thread, under the span the caller waits in)."""
+    from multimodal_av_model_tpu_torch import tracing
+    from multimodal_av_model_tpu_torch.models.layers import BiLSTM
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
+    model = BiLSTM(64, 64, 2, torch.bfloat16).to(cuda)
+    for p in model.parameters():
+        torch.nn.init.uniform_(p, -0.1, 0.1)
+    x = torch.randn(4, 32, 64, device=cuda)
+    tracing.enable("cuda")
+    try:
+        before = lstm_scan.launches
+        with tracing.span("fusion.temporal"):
+            y = model(x, torch.tensor([32, 20, 5, 1], device=cuda))
+        assert lstm_scan.launches == before + 2
+        with tracing.span("train.backward"):
+            y.float().sum().backward()
+        assert lstm_scan.launches == before + 4
+        spans = {s["name"]: s for s in tracing.collect()}
+    finally:
+        tracing.disable()
+        tracing.collect()
+    assert spans["fusion.temporal"]["counters"]["lstm_kernel"] == 2
+    assert spans["train.backward"]["counters"]["lstm_kernel"] == 2
+
+
+def test_lstm_kernel_rejects_what_it_does_not_take(cuda):
+    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
+    z = torch.zeros(2, 5, 2, 64, device=cuda)
+    w = torch.zeros(2, 64, 16, device=cuda)
+    b = torch.zeros(2, 64, device=cuda)
+    lens = torch.full((2,), 5, device=cuda)
+    with pytest.raises(TypeError):
+        lstm_scan(z.double(), lens, w.double(), b.double())
+    with pytest.raises(ValueError):
+        lstm_scan(z, lens.float(), w, b)
+    with pytest.raises(ValueError):
+        lstm_scan(z, lens, w[:1], b)
+    with pytest.raises(ValueError):
+        lstm_scan(z, lens, w.bfloat16(), b)
+    with pytest.raises(ValueError):
+        lstm_scan(torch.zeros(2, 5, 1, 64, device=cuda), lens, w[:1], b[:1])

@@ -206,6 +206,52 @@ def test_counters_go_to_the_innermost_span_of_their_thread(recorder):
     assert rows["inner"]["host_syncs"] == 1 and rows["outer"]["n"] == 0.5
 
 
+def test_a_count_for_another_thread_lands_in_its_innermost_span(recorder):
+    """Autograd's device thread runs a CUDA backward, with no span of its own,
+    while the caller waits inside ``train.backward``: a count made there for
+    the caller's thread lands in that span.  A count from a thread with no
+    open span, and one for a thread whose spans have closed, is dropped."""
+    caller = threading.get_ident()
+
+    def worker():
+        tracing.count("lstm_kernel", 2, thread=caller)
+        tracing.count("host_syncs", 1)
+
+    with tracing.span("train.backward"):
+        with tracing.span("inner"):
+            th = threading.Thread(target=worker)
+            th.start()
+            th.join(timeout=30)
+    th = threading.Thread(target=worker)
+    th.start()
+    th.join(timeout=30)
+    rows = {s["name"]: s["counters"] for s in tracing.collect()}
+    assert rows == {"inner": {"lstm_kernel": 2}, "train.backward": {}}
+    assert not tracing._open
+
+
+def test_lstm_kernel_counts_under_the_temporal_span(tiny, recorder):
+    """Each ``mmav::lstm_scan`` call counts 1 as ``lstm_kernel`` of the
+    innermost span: a request's 2 BiLSTM layers under ``fusion.temporal``; a
+    training step's 2 there and their 2 backward calls under
+    ``train.backward``."""
+    cfg, t, raw = tiny
+    with tracing.unit(1):
+        t.transcribe(_preprocess(raw))
+    trainer = MultiSpeakerTrainer(cfg, t.model, None, device="cpu")
+    state = trainer.init_state(0)
+    with tracing.unit(2):
+        trainer.train_step(state, _preprocess(raw))
+    counted = {}
+    for sp in tracing.collect():
+        n = sp["counters"].get("lstm_kernel")
+        if n:
+            key = (sp["unit"], sp["name"])
+            counted[key] = counted.get(key, 0) + n
+    assert counted == {(1, "fusion.temporal"): 2, (2, "fusion.temporal"): 2,
+                       (2, "train.backward"): 2}
+
+
 def test_spans_are_ranges_of_a_profile(recorder):
     def run(i):
         with tracing.span("outer"):

@@ -136,7 +136,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device", file=sys.stderr)
         return 2
-    from multimodal_av_model_tpu_torch.ops import logmel, resize
+    from multimodal_av_model_tpu_torch.ops import logmel, lstm_scan, resize
 
     rng = np.random.default_rng(0)
     x = torch.from_numpy((0.3 * rng.standard_normal((4, 128 * 534))).astype(np.float32)).cuda()
@@ -147,6 +147,17 @@ def main() -> int:
     plan = resize.lip_band_plan(128, 128, 3, 96, 96, 1)
     measure(torch, "lip", resize, lambda: resize.lip_preprocess_cuda(frames, 96),
             plan["n_bands"] * frames.shape[0])
+    z, w, b, dy = (torch.randn(shape, generator=torch.Generator().manual_seed(k)).cuda()
+                   .bfloat16() for k, shape in enumerate([(8, 128, 2, 2048), (2, 2048, 512),
+                                                          (2, 2048), (8, 128, 2, 512)]))
+    w, lens = w / 512 ** 0.5, torch.from_numpy(rng.integers(64, 129, 8)).cuda()
+
+    def lstm():                                 # a request's rows: forward, then backward
+        _, saved = lstm_scan.lstm_scan_op(z, lens, w, b, True)
+        lstm_scan.lstm_scan_backward_op(dy, lens, w, saved)
+
+    measure(torch, "bilstm", lstm_scan, lstm,
+            2 * lstm_scan.lstm_scan_plan("forward", 8, 512, 2)["cs"])
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
