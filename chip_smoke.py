@@ -271,6 +271,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def add_launches(total: dict, more) -> dict:
+    """``total`` with ``more``, the K1, K2, K3 and K4 launches in the order of
+    ``ops.launch_counts``, added."""
+    return {k: n + m for (k, n), m in zip(total.items(), more)}
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -790,10 +796,7 @@ def serving_phase(torch, rng, tok):
     from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
 
     cfg = Config()                                  # the shipped flagship defaults
     dtype = torch_dtype(cfg.model.dtype)
@@ -820,26 +823,18 @@ def serving_phase(torch, rng, tok):
     captured.clear()
 
     torch.cuda.reset_peak_memory_stats()
-    log_mel_spectrogram_cuda.launches = 0
-    lip_preprocess_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     lat, all_texts, per_request = [], [], []
     with k4_recording() as k4_calls:
         for raw in requests:                        # the main path
-            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                      prefix_beam.launches, lstm_scan.launches)
+            before = launch_counts()
             t0 = time.perf_counter()
             texts = serve(raw)
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
             all_texts.append(texts)
-            per_request.append((log_mel_spectrogram_cuda.launches - before[0],
-                                lip_preprocess_cuda.launches - before[1],
-                                prefix_beam.launches - before[2], lstm_scan.launches - before[3]))
-    launches = {"logmel": log_mel_spectrogram_cuda.launches,
-                "lip_preprocess": lip_preprocess_cuda.launches,
-                "prefix_beam": prefix_beam.launches, "lstm_scan": lstm_scan.launches}
+            per_request.append(tuple(launch_counts(before).values()))
+    launches = launch_counts(since)
     peak = torch.cuda.max_memory_allocated()
 
     n_req = len(requests)
@@ -1008,10 +1003,7 @@ def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
     from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
     from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
     launches = {"logmel": 0, "lip_preprocess": 0, "prefix_beam": 0, "lstm_scan": 0}
@@ -1039,23 +1031,16 @@ def train_phase(torch, rng, tok, runs=((8, "none", 10), (32, "frontend", 5)),
             step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        log_mel_spectrogram_cuda.launches = 0
-        lip_preprocess_cuda.launches = 0
-        prefix_beam.launches = 0
-        lstm_scan.launches = 0
+        since = launch_counts()
         times, metrics = [], []
         for _ in range(n_steps):                    # the main path
             t0 = time.perf_counter()
             metrics.append(step())
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3, k4 = prefix_beam.launches, lstm_scan.launches
+        k1, k2, k3, k4 = launch_counts(since).values()
         peak = torch.cuda.max_memory_allocated()
-        launches["logmel"] += k1
-        launches["lip_preprocess"] += k2
-        launches["prefix_beam"] += k3
-        launches["lstm_scan"] += k4
+        launches = add_launches(launches, (k1, k2, k3, k4))
         losses = [m["loss"].item() for m in metrics]
         gnorms = [m["grad_norm"].item() for m in metrics]
         with FlopCounterMode(display=False) as counter:
@@ -1122,11 +1107,8 @@ def fit_phase(torch, tok, smi: str):
     )
     from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
     from multimodal_av_model_tpu_torch.infer import Transcriber
-    from multimodal_av_model_tpu_torch.ops import logmel
+    from multimodal_av_model_tpu_torch.ops import launch_counts, logmel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
     # K1 at the one shape of this phase no other phase holds: a --synthetic
@@ -1148,11 +1130,11 @@ def fit_phase(torch, tok, smi: str):
 
     def counting(name):
         def call(*args, **kwargs):
-            before = log_mel_spectrogram_cuda.launches
+            before = launch_counts()
             out = originals[name](*args, **kwargs)
-            if log_mel_spectrogram_cuda.launches - before != 1:
-                raise SystemExit(f"fit: {name} launched K1 "
-                                 f"{log_mel_spectrogram_cuda.launches - before} times")
+            k1 = launch_counts(before)["logmel"]
+            if k1 != 1:
+                raise SystemExit(f"fit: {name} launched K1 {k1} times")
             calls[name] += 1
             return out
         return call
@@ -1188,17 +1170,13 @@ def fit_phase(torch, tok, smi: str):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             tee = _Tee(sys.stdout)
-            log_mel_spectrogram_cuda.launches = 0
-            lip_preprocess_cuda.launches = 0
-            prefix_beam.launches = 0
-            lstm_scan.launches = 0
+            since = launch_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(tee):
                 cli.main(args)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-            k3, k4 = prefix_beam.launches, lstm_scan.launches
+            k1, k2, k3, k4 = launch_counts(since).values()
             n = sum(calls.values())
             k4_want = 4 * calls["train_step"] + 2 * (calls["eval_step"] + calls["transcribe"])
             log(f"[fit] {tag}: {dt:.1f} s; peak device memory "
@@ -1243,10 +1221,7 @@ def fit_phase(torch, tok, smi: str):
                      [f"train.checkpoint_dir={os.path.join(root, 'long')}", "train.max_epochs=1",
                       "data.num_pairs_per_epoch=128"], 2)):
                 text, k1, k2, k3, k4 = run(tag, common + extra, k2_per_call)
-                launches["logmel"] += k1
-                launches["lip_preprocess"] += k2
-                launches["prefix_beam"] += k3
-                launches["lstm_scan"] += k4
+                launches = add_launches(launches, (k1, k2, k3, k4))
                 rows += [(tag,) + r for r in epochs(text)]
                 if tag == "resume to epoch 3" and "at epoch 3" not in text:
                     raise SystemExit("fit: the second call did not resume at epoch 3")
@@ -1358,10 +1333,7 @@ def quant_phase(torch, served) -> dict:
     import copy
 
     from multimodal_av_model_tpu_torch import infer
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
 
     fp_t, requests, plan = served[:3]
     t0 = time.perf_counter()
@@ -1398,26 +1370,18 @@ def quant_phase(torch, served) -> dict:
         q_t.transcribe(_flagship_batch(torch, raw))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    log_mel_spectrogram_cuda.launches = 0
-    lip_preprocess_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     lat, per_request = [], []
     try:
         infer.decode_ids = recording("int8")
         for raw in requests:                        # the main path
-            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                      prefix_beam.launches, lstm_scan.launches)
+            before = launch_counts()
             t0 = time.perf_counter()
             q_t.transcribe(_flagship_batch(torch, raw))
             torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
-            per_request.append((log_mel_spectrogram_cuda.launches - before[0],
-                                lip_preprocess_cuda.launches - before[1],
-                                prefix_beam.launches - before[2], lstm_scan.launches - before[3]))
-        launches = {"logmel": log_mel_spectrogram_cuda.launches,
-                    "lip_preprocess": lip_preprocess_cuda.launches,
-                    "prefix_beam": prefix_beam.launches, "lstm_scan": lstm_scan.launches}
+            per_request.append(tuple(launch_counts(before).values()))
+        launches = launch_counts(since)
         peak = torch.cuda.max_memory_allocated()
         infer.decode_ids = recording("fp")
         for raw in requests:                        # the fp texts, not counted
@@ -1525,9 +1489,7 @@ def stream_audio_phase(torch, rng, tok):
     """[stream-audio]: 30 s through ``StreamingAudioTranscriber`` in 2 s
     chunks (8 s context, prefix beam), then 8 streams of 20 s through a
     ``StreamingPool``, at full width."""
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.streaming import (
         StreamingAudioTranscriber,
         StreamingPool,
@@ -1555,9 +1517,7 @@ def stream_audio_phase(torch, rng, tok):
     s.flush()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    log_mel_spectrogram_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     lat, text = [], ""
     for i in range(0, len(audio), block):            # the main path
         t0 = time.perf_counter()
@@ -1566,7 +1526,7 @@ def stream_audio_phase(torch, rng, tok):
     t0 = time.perf_counter()
     text += s.flush()
     flush_ms = (time.perf_counter() - t0) * 1e3
-    k1, k3, k4 = log_mel_spectrogram_cuda.launches, prefix_beam.launches, lstm_scan.launches
+    k1, _, k3, k4 = launch_counts(since).values()
     peak = torch.cuda.max_memory_allocated()
     launches = {"stream_audio": {"logmel": k1, "lip_preprocess": 0, "prefix_beam": k3,
                                  "lstm_scan": k4}}
@@ -1608,9 +1568,7 @@ def stream_audio_phase(torch, rng, tok):
     pool._step = counting_step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    log_mel_spectrogram_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     sids = [pool.open() for _ in audios]
     t0 = time.perf_counter()
     n_chars = 0
@@ -1621,7 +1579,7 @@ def stream_audio_phase(torch, rng, tok):
         n_chars += len(pool.flush(sid))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k3, k4 = log_mel_spectrogram_cuda.launches, prefix_beam.launches, lstm_scan.launches
+    k1, _, k3, k4 = launch_counts(since).values()
     peak = torch.cuda.max_memory_allocated()
     hook.remove()
     pool._step = step
@@ -1646,10 +1604,8 @@ def serve_phase(torch, rng, tok, audio_model) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     from multimodal_av_model_tpu_torch.infer import AudioTranscriber, decode_ids
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.serve import AudioService
 
     cfg, model = audio_model
@@ -1669,14 +1625,12 @@ def serve_phase(torch, rng, tok, audio_model) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    log_mel_spectrogram_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=32) as ex:              # the main path
         results = list(ex.map(call, waves))
     wall = time.perf_counter() - t0
-    k1, k3, k4 = log_mel_spectrogram_cuda.launches, prefix_beam.launches, lstm_scan.launches
+    k1, _, k3, k4 = launch_counts(since).values()
     peak = torch.cuda.max_memory_allocated()
     svc.close()
     n_req = svc.batcher.stats.requests - base[0]
@@ -1731,12 +1685,9 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.audio_io import write_wav
     from multimodal_av_model_tpu_torch.data.avi import write_avi
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam_search_decode
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.train import save_checkpoint
 
     cfg = Config()
@@ -1804,10 +1755,7 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
                 f"data.vocab_path={os.path.join(REPO, cfg.data.vocab_path)}", "--device=cuda"]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        log_mel_spectrogram_cuda.launches = 0
-        lip_preprocess_cuda.launches = 0
-        prefix_beam.launches = 0
-        lstm_scan.launches = 0
+        since = launch_counts()
         tee = _Tee(sys.stdout)
         streaming._PrefixBeamStream.advance = rec_advance
         streaming._PrefixBeamStream.tail = rec_tail
@@ -1824,8 +1772,7 @@ def stream_av_phase(torch, tok, smi: str) -> dict:
             streaming._PrefixBeamStream.tail = tail
             streaming.StreamingAVTranscriber._decode_window = decode_window
             streaming.prefix_beam_stream_step = stream_step
-        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3, k4 = prefix_beam.launches, lstm_scan.launches
+        k1, k2, k3, k4 = launch_counts(since).values()
         peak = torch.cuda.max_memory_allocated()
         n_win = len(window_ms)
         if (n_win == 0 or k1 != n_win or k2 != 0 or len(emitted) != 2 or k3 != len(steps)
@@ -1907,10 +1854,7 @@ def export_phase(torch, served) -> dict:
         Transcriber,
         export_transcriber,
     )
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
 
     fp_t, requests, plan, serving_lat = served
     chosen = [i for i, T in enumerate(plan) if T == 128]
@@ -1934,31 +1878,21 @@ def export_phase(torch, served) -> dict:
                           for x in artifact.program.state_dict.values())
             artifact.transcribe(example)                 # warm-up
             torch.cuda.synchronize()
-            log_mel_spectrogram_cuda.launches = 0
-            lip_preprocess_cuda.launches = 0
-            prefix_beam.launches = 0
-            lstm_scan.launches = 0
+            since = launch_counts()
             lat, batches, inside = [], [], []
             for i in chosen:                             # the main path
                 t0 = time.perf_counter()
                 batch = _flagship_batch(torch, requests[i])
-                before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                          prefix_beam.launches, lstm_scan.launches)
+                before = launch_counts()
                 texts = artifact.transcribe(batch)
                 torch.cuda.synchronize()
                 lat.append((time.perf_counter() - t0) * 1e3)
-                inside.append((log_mel_spectrogram_cuda.launches - before[0],
-                               lip_preprocess_cuda.launches - before[1],
-                               prefix_beam.launches - before[2], lstm_scan.launches - before[3]))
+                inside.append(tuple(launch_counts(before).values()))
                 batches.append(batch)
                 if len(texts) != 4:
                     raise SystemExit(f"export: {len(texts)} texts for a request of 4")
-            k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-            k3, k4 = prefix_beam.launches, lstm_scan.launches
-            launches["logmel"] += k1
-            launches["lip_preprocess"] += k2
-            launches["prefix_beam"] += k3
-            launches["lstm_scan"] += k4
+            k1, k2, k3, k4 = launch_counts(since).values()
+            launches = add_launches(launches, (k1, k2, k3, k4))
             same = []
             for batch in batches:
                 with torch.no_grad():
@@ -2000,10 +1934,7 @@ def temporal_tf_phase(torch, rng, tok) -> dict:
     from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
 
     reference_phase(torch, rng, "transformer", "temporal-tf")
     cfg = Config()
@@ -2023,26 +1954,18 @@ def temporal_tf_phase(torch, rng, tok) -> dict:
     serve(requests[0])                               # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    log_mel_spectrogram_cuda.launches = 0
-    lip_preprocess_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     lat, per_request = [], []
     for raw in requests:                             # the main path
-        before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                  prefix_beam.launches, lstm_scan.launches)
+        before = launch_counts()
         t0 = time.perf_counter()
         texts = serve(raw)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-        per_request.append((log_mel_spectrogram_cuda.launches - before[0],
-                            lip_preprocess_cuda.launches - before[1],
-                            prefix_beam.launches - before[2], lstm_scan.launches - before[3]))
+        per_request.append(tuple(launch_counts(before).values()))
         if len(texts) != 4:
             raise SystemExit(f"temporal-tf: {len(texts)} texts for a request of 4")
-    launches = {"logmel": log_mel_spectrogram_cuda.launches,
-                "lip_preprocess": lip_preprocess_cuda.launches,
-                "prefix_beam": prefix_beam.launches, "lstm_scan": lstm_scan.launches}
+    launches = launch_counts(since)
     peak = torch.cuda.max_memory_allocated()
     if any(p != (1, 2, 1, 0) for p in per_request):
         raise SystemExit(f"temporal-tf: launches per request {per_request} (expected 1, 2, "
@@ -2080,10 +2003,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
     from multimodal_av_model_tpu_torch.data.validate import validate_manifest
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
     from multimodal_av_model_tpu_torch.train.probe import (
         collect_frame_features,
@@ -2137,10 +2057,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
         state, _ = trainer.train_step(state, b)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    log_mel_spectrogram_cuda.launches = 0
-    lip_preprocess_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     losses = []
     t0 = time.perf_counter()
     for b in train_batches[2:]:                     # the main path
@@ -2149,8 +2066,7 @@ def structured_phase(torch, tok, smi: str) -> dict:
     losses = [x.item() for x in losses]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-    k3, k4 = prefix_beam.launches, lstm_scan.launches
+    k1, k2, k3, k4 = launch_counts(since).values()
     peak = torch.cuda.max_memory_allocated()
     if k1 != n_steps or k2 != 0 or k4 != 0 or not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"structured: K1 {k1}, K2 {k2}, K4 {k4} over {n_steps} steps, losses "
@@ -2180,30 +2096,24 @@ def structured_phase(torch, tok, smi: str) -> dict:
 
 def _timed_steps(torch, step, n_warm: int, n_steps: int):
     """``n_warm`` calls of ``step`` (which returns a loss tensor), then the
-    main path: ``n_steps`` timed calls, each synchronised, with both launch
-    counts set to 0 just before and read just after -> ``(times, losses, K1,
-    K2, peak bytes)``."""
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    main path: ``n_steps`` timed calls, each synchronised, with the launches
+    counted from just before to just after -> ``(times, losses, K1, K2, K3,
+    K4, peak bytes)``."""
+    from multimodal_av_model_tpu_torch.ops import launch_counts
 
     for _ in range(n_warm):
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    log_mel_spectrogram_cuda.launches = 0
-    lip_preprocess_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     times, losses = [], []
     for _ in range(n_steps):
         t0 = time.perf_counter()
         losses.append(step())
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-    return times, [x.item() for x in losses], k1, k2, torch.cuda.max_memory_allocated()
+    k1, k2, k3, k4 = launch_counts(since).values()
+    return times, [x.item() for x in losses], k1, k2, k3, k4, torch.cuda.max_memory_allocated()
 
 
 def _ms(times) -> str:
@@ -2220,8 +2130,6 @@ def family_ref_phase(torch, tok) -> None:
     CPU with the same draws."""
     from multimodal_av_model_tpu_torch.data.mixing import MASK_PAD
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.specaugment import apply_spec_augment, draw_spec_augment
     from multimodal_av_model_tpu_torch.ops.ssl import make_span_mask
     from multimodal_av_model_tpu_torch.train.single_modality import (
@@ -2302,8 +2210,6 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
 
     from multimodal_av_model_tpu_torch.config import Config
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.train.single_modality import (
         make_audio_trainer,
         synthetic_audio_batches,
@@ -2324,8 +2230,7 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
     def step():
         return trainer.train_step(state, batch)[1]
 
-    times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
-    k3, k4 = prefix_beam.launches, lstm_scan.launches
+    times, losses, k1, k2, k3, k4, peak = _timed_steps(torch, step, 2, n_steps)
     with FlopCounterMode(display=False) as counter:
         step()
         torch.cuda.synchronize()
@@ -2345,8 +2250,8 @@ def family_audio_phase(torch, tok, smi: str) -> dict:
         raise SystemExit(f"family-audio: losses {losses}")
     a = cfg.model.audio
     a.specaug_freq_masks = a.specaug_time_masks = 2
-    times2, losses2, k1b, k2b, _ = _timed_steps(torch, step, 0, 3)
-    k3, k4 = k3 + prefix_beam.launches, k4 + lstm_scan.launches
+    times2, losses2, k1b, k2b, k3b, k4b, _ = _timed_steps(torch, step, 0, 3)
+    k3, k4 = k3 + k3b, k4 + k4b
     a.specaug_freq_masks = a.specaug_time_masks = 0
     log(f"[family-audio] with SpecAugment (2 frequency stripes <= {a.specaug_freq_width} bins, "
         f"2 time stripes <= {a.specaug_time_frac} of the valid frames): 3 steps, "
@@ -2366,8 +2271,6 @@ def family_visual_phase(torch, tok, smi: str) -> dict:
     from torch.utils.flop_counter import FlopCounterMode
 
     from multimodal_av_model_tpu_torch.config import Config
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.train.single_modality import (
         make_visual_trainer,
         synthetic_visual_batches,
@@ -2387,8 +2290,7 @@ def family_visual_phase(torch, tok, smi: str) -> dict:
     def step():
         return trainer.train_step(state, batch)[1]
 
-    times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
-    k3, k4 = prefix_beam.launches, lstm_scan.launches
+    times, losses, k1, k2, k3, k4, peak = _timed_steps(torch, step, 2, n_steps)
     with FlopCounterMode(display=False) as counter:
         step()
         torch.cuda.synchronize()
@@ -2431,8 +2333,6 @@ def ssl_phase(torch, tok, dirs: dict, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.mixing import MASK_PAD
     from multimodal_av_model_tpu_torch.data.pairs import RandomPairSampler
     from multimodal_av_model_tpu_torch.data.pipeline import FilePairSource, bucketed_batches
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.ops.ssl import make_span_mask
     from multimodal_av_model_tpu_torch.train.ssl_pretrain import MaskedAudioPretrainer
 
@@ -2486,8 +2386,7 @@ def ssl_phase(torch, tok, dirs: dict, smi: str) -> dict:
         state, loss = ssl.train_step(state, batch["audio"], batch["mask1"] != MASK_PAD, spans)
         return loss
 
-    times, losses, k1, k2, peak = _timed_steps(torch, step, 2, n_steps)
-    k3, k4 = prefix_beam.launches, lstm_scan.launches
+    times, losses, k1, k2, k3, k4, peak = _timed_steps(torch, step, 2, n_steps)
     batches.close()
     after = probe()
     log(f"[ssl] MaskedAudioPretrainer {n_params / 1e6:.1f}M params, f32, init {init_s:.1f} s; "
@@ -2519,10 +2418,7 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
     from multimodal_av_model_tpu_torch import main as cli
     from multimodal_av_model_tpu_torch.data.manifest import build_data_list, train_val_test_split
     from multimodal_av_model_tpu_torch.models.audio import AudioEncoder
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
     cfg = _families_config(dirs)
@@ -2549,18 +2445,15 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
         forwards[0] = steps[0] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        log_mel_spectrogram_cuda.launches = 0
-        lip_preprocess_cuda.launches = 0
-        prefix_beam.launches = 0
-        lstm_scan.launches = 0
+        since = launch_counts()
         tee = _Tee(sys.stdout)
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(tee):
             cli.main(common + args)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        k1, k2, n = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches, forwards[0]
-        k3, k4 = prefix_beam.launches, lstm_scan.launches
+        k1, k2, k3, k4 = launch_counts(since).values()
+        n = forwards[0]
         k4_want = 2 * (n + steps[0]) if "grafted" in tag else 0
         log(f"[families-cli] {tag}: {dt:.1f} s; peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {n} audio-encoder forwards, "
@@ -2606,10 +2499,7 @@ def families_cli_phase(torch, tok, dirs: dict, root: str, smi: str) -> dict:
                   f"train.audio_init_ckpt={os.path.join(ck['ssl'], 'last.ckpt')}",
                   f"train.visual_init_ckpt={os.path.join(ck['visual'], 'last.ckpt')}"], 2)):
             text, k1, k2n, k3, k4 = run(tag, args, k2)
-            launches["logmel"] += k1
-            launches["lip_preprocess"] += k2n
-            launches["prefix_beam"] += k3
-            launches["lstm_scan"] += k4
+            launches = add_launches(launches, (k1, k2n, k3, k4))
             epochs(tag, text)
             lines = text.splitlines()
             if tag.endswith("2 epochs") and "[epoch 2]" not in text:
@@ -2730,11 +2620,8 @@ def legacy_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.legacy_preprocess import build_all_pair_samples
     from multimodal_av_model_tpu_torch.data.manifest import build_data_list
     from multimodal_av_model_tpu_torch.data.synth_corpus import write_synthetic_corpus
-    from multimodal_av_model_tpu_torch.ops import logmel
+    from multimodal_av_model_tpu_torch.ops import launch_counts, logmel
     from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
     from multimodal_av_model_tpu_torch.text import KoreanSyllableVocab
     from multimodal_av_model_tpu_torch.train.legacy import (
         LegacyTrainer,
@@ -2778,19 +2665,16 @@ def legacy_phase(torch, tok, smi: str) -> dict:
         vocab = KoreanSyllableVocab()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        log_mel_spectrogram_cuda.launches = 0
-        lip_preprocess_cuda.launches = 0
-        prefix_beam.launches = 0
-        lstm_scan.launches = 0
+        since = launch_counts()
         t0 = time.perf_counter()
         samples = [load_legacy_sample(d, vocab, device="cuda") for d in sample_dirs]
         load_s = time.perf_counter() - t0
-        k1_load = log_mel_spectrogram_cuda.launches
+        k1_load, k2_load, _, _ = launch_counts(since).values()
         shapes = sorted({(max(s["frames_A"].shape[0], s["frames_B"].shape[0]), s["mel"].shape[0])
                          for s in samples})
-        if k1_load != len(samples) or lip_preprocess_cuda.launches != 0:
+        if k1_load != len(samples) or k2_load != 0:
             raise SystemExit(f"legacy: loading {len(samples)} samples launched K1 {k1_load}, "
-                             f"K2 {lip_preprocess_cuda.launches}")
+                             f"K2 {k2_load}")
         if any(len(s["label_A"]) == 0 or len(s["label_B"]) == 0 for s in samples):
             raise SystemExit("legacy: a sample has an empty syllable label")
         log(f"[legacy] load_legacy_sample x {len(samples)} on the card: {load_s:.2f} s "
@@ -2830,8 +2714,7 @@ def legacy_phase(torch, tok, smi: str) -> dict:
         state = trainer.fit(state, batches, epochs=epochs, log_fn=lines.append)
         del trainer.train_step
         after = held_loss()
-        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3, k4 = prefix_beam.launches, lstm_scan.launches
+        k1, k2, k3, k4 = launch_counts(since).values()
         peak = torch.cuda.max_memory_allocated()
         for line in lines:
             log(f"[legacy] fit: {line}")
@@ -2974,10 +2857,7 @@ def reference_import_phase(torch, rng, tok, smi: str):
     from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
     from multimodal_av_model_tpu_torch.infer import Transcriber
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.train.checkpoints import restore_checkpoint
 
     cfg = Config()
@@ -3035,23 +2915,18 @@ def reference_import_phase(torch, rng, tok, smi: str):
         transcriber.transcribe(_flagship_batch(torch, requests[0]))     # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        log_mel_spectrogram_cuda.launches = 0
-        lip_preprocess_cuda.launches = 0
-        prefix_beam.launches = 0
-        lstm_scan.launches = 0
+        since = launch_counts()
         lat, per_request = [], []
         for raw in requests[1:]:                    # the main path
-            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+            before = launch_counts()
             t0 = time.perf_counter()
             texts = transcriber.transcribe(_flagship_batch(torch, raw))
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
-            per_request.append((log_mel_spectrogram_cuda.launches - before[0],
-                                lip_preprocess_cuda.launches - before[1]))
+            per_request.append(tuple(launch_counts(before).values())[:2])
             if len(texts) != 4 or not all(isinstance(x, str) for p in texts for x in p):
                 raise SystemExit("reference-import: expected one text per speaker")
-        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3, k4 = prefix_beam.launches, lstm_scan.launches
+        k1, k2, k3, k4 = launch_counts(since).values()
         log(f"[reference-import] Transcriber.from_checkpoint of the imported file "
             f"({cfg.model.dtype}) {load_s:.1f} s; 3 requests B=4 bucket 128: "
             f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms; launches per request "
@@ -3111,11 +2986,7 @@ def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
         extract_clips,
         have_mediapipe,
     )
-    from multimodal_av_model_tpu_torch.ops import resize
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts, resize
 
     root = tempfile.mkdtemp(prefix="mmav_lip_extract_")
     try:
@@ -3211,21 +3082,16 @@ def lip_extract_phase(torch, rng, tok, transcriber, smi: str) -> dict:
             requests.append(collate_pairs_raw([s], spec))
         transcriber.transcribe(_flagship_batch(torch, requests[0]))     # warm-up
         torch.cuda.synchronize()
-        log_mel_spectrogram_cuda.launches = 0
-        lip_preprocess_cuda.launches = 0
-        prefix_beam.launches = 0
-        lstm_scan.launches = 0
+        since = launch_counts()
         lat, per_request, texts = [], [], []
         for raw in requests:                         # the main path
-            before = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches)
+            before = launch_counts()
             t0 = time.perf_counter()
             texts += transcriber.transcribe(_flagship_batch(torch, raw))
             torch.cuda.synchronize()
             lat.append(time.perf_counter() - t0)
-            per_request.append((log_mel_spectrogram_cuda.launches - before[0],
-                                lip_preprocess_cuda.launches - before[1]))
-        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3, k4 = prefix_beam.launches, lstm_scan.launches
+            per_request.append(tuple(launch_counts(before).values())[:2])
+        k1, k2, k3, k4 = launch_counts(since).values()
         log(f"[lip-extract] {len(requests)} requests from the extracted clips (B=1, buckets "
             f"{[r['lip1_raw'].shape[1] for r in requests]}): "
             f"{', '.join(f'{x * 1e3:.1f}' for x in lat)} ms; launches per request {per_request}; "
@@ -3416,10 +3282,7 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
     from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
     from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.parallel import full_tensor, make_mesh
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
     from multimodal_av_model_tpu_torch.train.checkpoints import host_snapshot
@@ -3469,17 +3332,13 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
             raise SystemExit("dist: the meshed step disagrees with the unmeshed one")
         del g_plain, g_mesh
 
-        def steps(t, state, count=False):
+        def steps(t, state):
             for _ in range(2):
                 (b,) = device_preprocessed_batches([raw])
                 t.train_step(state, b)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            if count:
-                log_mel_spectrogram_cuda.launches = 0
-                lip_preprocess_cuda.launches = 0
-                prefix_beam.launches = 0
-                lstm_scan.launches = 0
+            since = launch_counts()
             times, losses = [], []
             for _ in range(n_steps):                # the main path when counted
                 t0 = time.perf_counter()
@@ -3487,13 +3346,12 @@ def dist_phase(torch, rng, tok, smi: str, n_steps: int = 8) -> dict:
                 _, m = t.train_step(state, b)
                 losses.append(m["loss"].item())
                 times.append(time.perf_counter() - t0)
-            k = (log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches,
-                 prefix_beam.launches, lstm_scan.launches)
+            k = tuple(launch_counts(since).values())
             return times, losses, torch.cuda.max_memory_allocated(), k
 
         for tag, t, state, count in (("unmeshed", plain, p_state, False),
                                      ("meshed FSDP", meshed, m_state, True)):
-            times, losses, peak, (k1, k2, k3, k4) = steps(t, state, count)
+            times, losses, peak, (k1, k2, k3, k4) = steps(t, state)
             log(f"[dist] {tag} B=8: {n_steps} steps, {np.median(times) * 1e3:.1f} ms median "
                 f"({min(times) * 1e3:.1f}-{max(times) * 1e3:.1f}), "
                 f"{8 * n_steps / sum(times):.2f} utt/s, peak device memory "
@@ -3559,10 +3417,7 @@ def cli_child(argv: list[str]) -> int:
 
     sys.path.insert(0, REPO)
     from multimodal_av_model_tpu_torch import main as cli
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
     n = {"train_step": 0}
@@ -3573,14 +3428,11 @@ def cli_child(argv: list[str]) -> int:
         return step(self, *args, **kwargs)
 
     MultiSpeakerTrainer.train_step = counted
-    log_mel_spectrogram_cuda.launches = 0
-    lip_preprocess_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     cli.main(argv)
+    k1, k2, k3, k4 = launch_counts(since).values()
     print("[cli-child] " + json.dumps({
-        "k1": log_mel_spectrogram_cuda.launches, "k2": lip_preprocess_cuda.launches,
-        "k3": prefix_beam.launches, "k4": lstm_scan.launches, "train_steps": n["train_step"],
+        "k1": k1, "k2": k2, "k3": k3, "k4": k4, "train_steps": n["train_step"],
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
     return 0
 
@@ -3642,10 +3494,7 @@ def dist_cli_phase(torch, tok, smi: str) -> dict:
                     or child["k4"] != 4 * child["train_steps"] + 2 * n_eval):
                 raise SystemExit(f"dist-cli: {tag}: epochs {len(epochs)}, launches {child} "
                                  f"(K4 4 a train step, 2 an eval batch)")
-            launches["logmel"] += child["k1"]
-            launches["lip_preprocess"] += child["k2"]
-            launches["prefix_beam"] += child["k3"]
-            launches["lstm_scan"] += child["k4"]
+            launches = add_launches(launches, (child[k] for k in ("k1", "k2", "k3", "k4")))
         log(f"[dist-cli] card {smi}")
         return launches
     finally:
@@ -3666,8 +3515,6 @@ def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
 
     from multimodal_av_model_tpu_torch.config import Config
     from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.parallel import make_cp_audio_encoder, make_mesh
 
     cfg = Config().model
@@ -3692,11 +3539,10 @@ def longform_phase(torch, rng, smi: str, n_calls: int = 3) -> dict:
         for name, enc in encoders.items():
             with torch.no_grad():
                 outs[name] = enc(wave)
-                times, _, n1, n2, peak = _timed_steps(torch, lambda: enc(wave)[0].sum(), 0,
-                                                      n_calls)
+                times, _, n1, n2, n3, n4, peak = _timed_steps(
+                    torch, lambda: enc(wave)[0].sum(), 0, n_calls)
             if name != "full attention":            # the main path
-                k1, k2, k3 = k1 + n1, k2 + n2, k3 + prefix_beam.launches
-                k4 += lstm_scan.launches
+                k1, k2, k3, k4 = k1 + n1, k2 + n2, k3 + n3, k4 + n4
             ms, peak = float(np.median(times)) * 1e3, peak / 2**30
             last, middle, _ = outs[name]
             ref_last, ref_middle, _ = outs["full attention"]
@@ -3737,8 +3583,6 @@ def pp_phase(torch, rng, smi: str, n_steps: int = 5, microbatches: int = 4) -> d
     from multimodal_av_model_tpu_torch.config import Config
     from multimodal_av_model_tpu_torch.models import AudioEncoder, init_weights
     from multimodal_av_model_tpu_torch.models.audio import ConformerBlock
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
     from multimodal_av_model_tpu_torch.parallel import (
         PIPE_AXIS,
         bubble_fraction,
@@ -3809,8 +3653,7 @@ def pp_phase(torch, rng, smi: str, n_steps: int = 5, microbatches: int = 4) -> d
                 module.zero_grad(set_to_none=True)
                 return fn().detach().sum()
 
-            times, _, k1, k2, peak = _timed_steps(torch, step, 1, n_steps)
-            k3, k4 = prefix_beam.launches, lstm_scan.launches
+            times, _, k1, k2, k3, k4, peak = _timed_steps(torch, step, 1, n_steps)
             log(f"[pp] {tag}: forward + backward {float(np.median(times)) * 1e3:.1f} ms "
                 f"(median of {n_steps}), peak device memory {peak / 2**30:.2f} GiB")
         launches = {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
@@ -3848,10 +3691,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     )
     from multimodal_av_model_tpu_torch.infer import Transcriber, decode_ids
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
     from multimodal_av_model_tpu_torch.train.trainer import place_batch
 
@@ -3925,16 +3765,12 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     torch.cuda.synchronize()
     captured.clear()
     torch.cuda.reset_peak_memory_stats()
-    log_mel_spectrogram_cuda.launches = 0
-    lip_preprocess_cuda.launches = 0
-    prefix_beam.launches = 0
-    lstm_scan.launches = 0
+    since = launch_counts()
     t0 = time.perf_counter()                                            # the main path
     texts = transcriber.transcribe(_flagship_batch(torch, raw))
     torch.cuda.synchronize()
     req_ms = (time.perf_counter() - t0) * 1e3
-    k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-    k3, k4 = prefix_beam.launches, lstm_scan.launches
+    k1, k2, k3, k4 = launch_counts(since).values()
     hook.remove()
     for s in ("1", "2"):
         lp = captured[0]["log_probs" + s].float()
@@ -3948,10 +3784,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     if (k1, k2, k3, k4) != (1, 2, 1, 2) or len(texts) != 4:
         raise SystemExit(f"{tag}: request launches K1 {k1}, K2 {k2}, K3 {k3}, K4 {k4} "
                          f"(expected 1, 2, 1 and 2)")
-    launches["logmel"] += k1
-    launches["lip_preprocess"] += k2
-    launches["prefix_beam"] += k3
-    launches["lstm_scan"] += k4
+    launches = add_launches(launches, (k1, k2, k3, k4))
     del transcriber, model, captured
 
     # Full width: the B = 8 step of each pass on bench.py's shapes.
@@ -3986,7 +3819,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     for name in ("double", "shared"):
         step = make_step(name == "shared")[0]
         before = allocator_calls()
-        times, _, _, _, peak = _timed_steps(torch, step, 0, 5)
+        times, *_, peak = _timed_steps(torch, step, 0, 5)
         calls = allocator_calls() - before
         alone[name] = times
         log(f"[{tag}] B=8 {name} pass alone: {_ms(times)} per step; peak device memory "
@@ -4007,13 +3840,12 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
     for name in ("shared", "double", "double", "shared"):   # in turns; the main path
         r = rows[name]
         before = allocator_calls()
-        times, losses, k1, k2, peak = _timed_steps(torch, r["step"], 0, 5)
+        times, losses, k1, k2, k3, k4, peak = _timed_steps(torch, r["step"], 0, 5)
         r["calls"] += allocator_calls() - before
         r["times"] += times
         r["losses"] += losses
         r["k1"], r["k2"], r["peak"] = r["k1"] + k1, r["k2"] + k2, max(r["peak"], peak)
-        r["k3"] += prefix_beam.launches
-        r["k4"] += lstm_scan.launches
+        r["k3"], r["k4"] = r["k3"] + k3, r["k4"] + k4
     for name, r in rows.items():
         with FlopCounterMode(display=False) as counter:
             r["step"]()
@@ -4037,10 +3869,7 @@ def shared_pass_phase(torch, rng, tok, smi: str) -> dict:
                              f"{r['k4']} over {n} steps (expected 1, 2 and 4 per step)")
         if not all(math.isfinite(x) for x in losses):
             raise SystemExit(f"{tag}: non-finite losses {losses}")
-    launches["logmel"] += rows["double"]["k1"]
-    launches["lip_preprocess"] += rows["double"]["k2"]
-    launches["prefix_beam"] += rows["double"]["k3"]
-    launches["lstm_scan"] += rows["double"]["k4"]
+    launches = add_launches(launches, (rows["double"][k] for k in ("k1", "k2", "k3", "k4")))
     ratio = rows["double"]["enc"] / rows["shared"]["enc"]
     cost = np.median(rows["double"]["times"]) / np.median(rows["shared"]["times"])
     cost_alone = np.median(alone["double"]) / np.median(alone["shared"])
@@ -4078,10 +3907,7 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
     from multimodal_av_model_tpu_torch.data.pipeline import FilePairSource
     from multimodal_av_model_tpu_torch.data.synth_corpus import write_raw_media_corpus
     from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel
-    from multimodal_av_model_tpu_torch.ops.logmel import log_mel_spectrogram_cuda
-    from multimodal_av_model_tpu_torch.ops.lstm_scan import lstm_scan
-    from multimodal_av_model_tpu_torch.ops.prefix_beam_search import prefix_beam
-    from multimodal_av_model_tpu_torch.ops.resize import lip_preprocess_cuda
+    from multimodal_av_model_tpu_torch.ops import launch_counts
     from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
 
     tag = "raw-media"
@@ -4134,10 +3960,7 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
         state = trainer.init_state(cfg.data.seed)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        log_mel_spectrogram_cuda.launches = 0
-        lip_preprocess_cuda.launches = 0
-        prefix_beam.launches = 0
-        lstm_scan.launches = 0
+        since = launch_counts()
         times, pulls, losses = [], [], []
         batches = device_preprocessed_batches(raws)     # the main path
         for _ in raws:
@@ -4148,8 +3971,7 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
             state, m = trainer.train_step(state, b)
             losses.append(m["loss"].item())
             times.append(time.perf_counter() - t0)
-        k1, k2 = log_mel_spectrogram_cuda.launches, lip_preprocess_cuda.launches
-        k3, k4 = prefix_beam.launches, lstm_scan.launches
+        k1, k2, k3, k4 = launch_counts(since).values()
         log(f"[{tag}] 3 flagship steps at full width (B=8 speaker-distinct pairs, bucket 64): "
             f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms (the first with cuDNN's warm-up; "
             f"each from the pull of its raw batch, of which the pull, its host-to-device "

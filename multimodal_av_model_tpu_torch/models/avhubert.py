@@ -51,10 +51,11 @@ from torch import nn
 from ..config import ModelConfig
 from ..data.mixing import MASK_PAD
 from ..ops.logmel import log_mel_spectrogram_cuda
+from ..ops.lstm_scan import length_mask
 from ..tracing import span
 from .av_model import nchw_clip_to_channels_last
 from .decoder import CTCDecoder
-from .layers import Dense, LayerNorm, MultiHeadAttention, _param, dropout, length_mask
+from .layers import Dense, LayerNorm, MultiHeadAttention, _param, dropout
 from .visual import VisualEncoder
 
 STACK = 4      # filterbank frames (10 ms) in one video frame (40 ms, 25 fps)

@@ -16,8 +16,9 @@ from torch import nn
 
 from ..config import FusionConfig
 from ..data.mixing import MASK_OTHER_SOLO, MASK_PAD
+from ..ops.lstm_scan import length_mask
 from ..tracing import span
-from .layers import BiLSTM, Dense, MultiHeadAttention, TransformerTemporalBlock, length_mask
+from .layers import BiLSTM, Dense, MultiHeadAttention, TransformerTemporalBlock
 
 
 def compact_speech_frames(audio_feat, mask):

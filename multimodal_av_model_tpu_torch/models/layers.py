@@ -20,7 +20,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from ..ops.lstm_scan import lstm_scan
+from ..ops.lstm_scan import _gru_scan, _lstm_scan, length_mask, lstm_scan
+from ..ops.specaugment import block_rows
 
 
 def _param(*shape) -> nn.Parameter:
@@ -254,13 +255,6 @@ def dropout(x, rate: float, generator: torch.Generator | None, shape=None,
     return torch.where(mask, x / keep, 0.0)
 
 
-def block_rows(whole: torch.Tensor, rows: tuple[int, int], parts: int = 1) -> torch.Tensor:
-    """The rows of ``whole`` (a draw over the whole batch) that block
-    ``rows[0]`` of ``rows[1]`` holds, in each of ``parts`` equal parts along
-    dim 0, the parts' blocks stacked in order (``dropout``'s placement)."""
-    return whole.unflatten(0, (parts, rows[1], -1))[:, rows[0]].flatten(0, 1)
-
-
 class MultiHeadAttention(nn.Module):
     """``flax.linen.MultiHeadDotProductAttention``: q/k/v/out projections,
     query scaled by ``1/sqrt(head_dim)``, masked logits filled with
@@ -367,37 +361,6 @@ class TransformerTemporalBlock(nn.Module):
         return self.final_norm(x)
 
 
-def length_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
-    """``[B] -> [B, T]`` boolean validity mask."""
-    return torch.arange(T, device=lengths.device)[None, :] < lengths[:, None]
-
-
-def _lstm_scan(z: torch.Tensor, keep: torch.Tensor, w_hh: torch.Tensor,
-               bias: torch.Tensor) -> torch.Tensor:
-    """The recurrence of ``D`` LSTM directions advanced together.
-
-    ``z [T, D, B, 4H]`` holds each frame's input projections (gates i, f,
-    g, o), ``keep [T, D, B, 1]`` the frames that advance each direction,
-    ``w_hh [D, H, 4H]`` and ``bias [D, 1, 4H]`` the recurrent side (flax
-    ``OptimizedLSTMCell``: the one bias is the recurrent one).  The carry
-    starts at 0 and freezes on the frames ``keep`` leaves out, whose output
-    is 0.  Returns ``[T, D, B, H]``."""
-    T, D, B, H4 = z.shape
-    h = z.new_zeros(D, B, H4 // 4)
-    c = z.new_zeros(D, B, H4 // 4)
-    ys = []
-    for t in range(T):
-        gates = z[t] + torch.baddbmm(bias, h, w_hh)
-        i, f, g, o = gates.chunk(4, dim=-1)
-        nc = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        nh = torch.sigmoid(o) * torch.tanh(nc)
-        k = keep[t]
-        c = torch.where(k, nc, c)
-        h = torch.where(k, nh, h)
-        ys.append(torch.where(k, nh, 0.0))
-    return torch.stack(ys)
-
-
 class LSTMLayer(nn.Module):
     """One LSTM direction ``[B, T, D] -> [B, T, H]`` (``layers.py:86-132``),
     the masked scan the BiLSTM is held against: past each length the carry
@@ -487,34 +450,6 @@ class BiLSTM(nn.Module):
         for layer in self.layers:
             x = layer(x, lengths)
         return x
-
-
-def _gru_scan(z: torch.Tensor, keep: torch.Tensor, w_hh: torch.Tensor,
-              b_hn: torch.Tensor) -> torch.Tensor:
-    """The recurrence of ``D`` GRU directions advanced together.
-
-    ``z [T, D, B, 3H]`` holds each frame's input projections ``x W_i + b_i``
-    (gates r, z, n), ``keep [T, D, B, 1]`` the frames that advance each
-    direction, ``w_hh [D, H, 3H]`` and ``b_hn [D, 1, H]`` the recurrent side.
-    flax's ``GRUCell``: ``r`` and ``z`` have no recurrent bias and ``n =
-    tanh(x W_in + b_in + r (h W_hn + b_hn))``, ``h' = (1 - z) n + z h``.  The
-    carry starts at 0 and freezes on the frames ``keep`` leaves out, whose
-    output is 0.  Returns ``[T, D, B, H]``."""
-    T, D, B, H3 = z.shape
-    H = H3 // 3
-    h = z.new_zeros(D, B, H)
-    ys = []
-    for t in range(T):
-        hh = torch.bmm(h, w_hh)                                    # [D, B, 3H]
-        zi = z[t]
-        r = torch.sigmoid(zi[..., :H] + hh[..., :H])
-        u = torch.sigmoid(zi[..., H:2 * H] + hh[..., H:2 * H])
-        n = torch.tanh(zi[..., 2 * H:] + r * (hh[..., 2 * H:] + b_hn))
-        nh = (1.0 - u) * n + u * h
-        k = keep[t]
-        h = torch.where(k, nh, h)
-        ys.append(torch.where(k, nh, 0.0))
-    return torch.stack(ys)
 
 
 class GRULayer(nn.Module):

@@ -8,6 +8,10 @@ in ``.gitignore``), or under the directory ``set_build_root`` names
 source, so an edited source is rebuilt and a built one is reused.  Nothing
 here runs at import time: this module is imported on machines that have no
 CUDA toolkit, where only the plain versions of the kernels run.
+
+Every launch of every kernel goes through a ``Launcher``: the library's
+entry point, typed once at the first launch, called on the current stream,
+its return code checked and the launch counted.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -32,6 +38,9 @@ SOURCES = {
     "bilstm": "bilstm.cu",
 }
 
+# Shared memory a block can use on the H100 (227 KB).
+SMEM_LIMIT = 232_448
+
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +48,7 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_launchers: list["Launcher"] = []
 
 
 def nvcc_path() -> str:
@@ -117,12 +127,50 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_launch(lib: ctypes.CDLL, prefix: str, code: int) -> None:
-    """Raise if a launch returned a CUDA error (a refused launch never runs,
-    and a later synchronize would not report it)."""
-    if code != 0:
-        fn = getattr(lib, f"{prefix}_error_string")
-        fn.restype = ctypes.c_char_p
-        fn.argtypes = [ctypes.c_int]
-        raise RuntimeError(f"{prefix} launch failed: CUDA error {code} "
-                           f"({fn(code).decode()})")
+class Launcher:
+    """The entry point ``<prefix>_<symbol>`` of kernel ``name``'s library:
+    ``argtypes`` are its arguments but the last, the stream; it returns an
+    ``int``, the launch's CUDA error.  It is bound and typed at its first
+    launch, after ``on_load(lib)`` checks the library, and kept.
+
+    ``launcher(device, counted, *args)`` launches on ``device``'s current
+    stream, raises if the launch returned a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it) and adds 1 to
+    ``counted.launches``: the count kept on the kernel's public entry, which
+    ``ops.launch_counts`` reads."""
+
+    def __init__(self, name: str, prefix: str, argtypes: list, symbol: str = "launch",
+                 on_load=None):
+        self.name, self.prefix, self.symbol = name, prefix, f"{prefix}_{symbol}"
+        self.argtypes = [*argtypes, ctypes.c_void_p]
+        self.on_load = on_load
+        self.lib = self.fn = None
+        _launchers.append(self)
+
+    def _bind(self):
+        lib = load(self.name)
+        if self.on_load is not None:
+            self.on_load(lib)
+        fn = getattr(lib, self.symbol)
+        fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+        self.lib, self.fn = lib, fn
+        return fn
+
+    def __call__(self, device, counted, *args) -> None:
+        fn = self.fn if self.fn is not None else self._bind()
+        code = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if code != 0:
+            err = getattr(self.lib, f"{self.prefix}_error_string")
+            err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
+            raise RuntimeError(f"{self.prefix} launch failed: CUDA error {code} "
+                               f"({err(code).decode()})")
+        counted.launches += 1
+
+
+def rebind(name: str) -> None:
+    """Bind kernel ``name``'s launchers again at their next launch, to the
+    library ``_libs`` then holds for it (``tools/kernel_phases.py`` puts an
+    instrumented build there)."""
+    for launcher in _launchers:
+        if launcher.name == name:
+            launcher.fn = None

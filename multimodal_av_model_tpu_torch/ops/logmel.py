@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .cuda_build import SMEM_LIMIT
 
 
 def hz_to_mel(f):
@@ -99,8 +100,6 @@ def log_mel_spectrogram(signal: torch.Tensor, sample_rate: int = 16000, n_fft: i
     return torch.log(mel + log_eps) if apply_log else mel
 
 
-# Shared memory a block can use on the H100 (227 KB).
-SMEM_LIMIT = 232_448
 CLUSTER = 4        # CTAs per cluster = 16-frame m-tiles per cluster
 TILE_M = 16        # frames per m-tile; a cluster's 4 m-tiles are the 64 rows of a wgmma
 NT_CTA = 14        # 8-column n-tiles per CTA: 2 warpgroups of wgmma N = 56
@@ -108,7 +107,7 @@ STAGE_K = 5        # k-steps (of 8) per stage of the basis pipeline (2 slots)
 MEL_WIDTH = 16     # a mel filter's support, as the kernel reads it, is a multiple of this
 MEL_CHUNKS = 4     # ... of at most 4 (supports of 16, 32, 48 or 64 bins)
 THREADS = 256      # threads per CTA: 2 warpgroups
-# The same geometry is fixed in csrc/logmel.cu; _library checks the two agree.
+# The same geometry is fixed in csrc/logmel.cu; _check_geometry holds the two equal.
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -244,23 +243,21 @@ def _kernel_tables(n_fft: int, n_mels: int, sample_rate: int, f_min: float,
                  for a in (basis_tiles(dft_matrix(n_fft, bins, 8 * ksteps)), lo, w))
 
 
-@functools.lru_cache(maxsize=1)
-def _library():
-    """The built kernel library and its launch function, typed.  Raises if the
-    kernel's geometry is not the one ``logmel_plan`` lays out (the launch
-    itself refuses a shared-memory size other than its own)."""
-    lib = cuda_build.load("logmel")
+def _check_geometry(lib) -> None:
+    """Raise if the kernel's geometry is not the one ``logmel_plan`` lays out
+    (the launch itself refuses a shared-memory size other than its own)."""
     geometry = (ctypes.c_int * 6)()
     lib.mmav_logmel_geometry(geometry)
     expected = (CLUSTER, TILE_M, NT_CTA, STAGE_K, MEL_WIDTH, THREADS)
     if tuple(geometry) != expected:
         raise RuntimeError(f"log-mel kernel: csrc/logmel.cu has geometry {tuple(geometry)}, "
                            f"logmel_plan assumes {expected}")
-    launch = lib.mmav_logmel_launch
-    launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
-                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    launch.restype = ctypes.c_int
-    return lib, launch
+
+
+_launch = cuda_build.Launcher(
+    "logmel", "mmav_logmel",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_float] + [ctypes.c_int] * 3,
+    on_load=_check_geometry)
 
 
 def _log_mel_launch(signal: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
@@ -294,18 +291,14 @@ def _log_mel_launch(signal: torch.Tensor, sample_rate: int, n_fft: int, hop_leng
                          f"and mel supports of {plan['mel_width']} bins (at most "
                          f"{MEL_CHUNKS * MEL_WIDTH}) inside the padded bins: {plan['mel_fits']}")
 
-    lib, launch = _library()
     basis, mel_lo, mel_w = _kernel_tables(n_fft, n_mels, sample_rate, f_min, f_max,
                                           plan["bins"], plan["ksteps"], str(signal.device))
     out = torch.empty((B, plan["T"], n_mels), dtype=torch.float32, device=signal.device)
-    stream = torch.cuda.current_stream(signal.device).cuda_stream
-    code = launch(signal.data_ptr(), basis.data_ptr(), mel_lo.data_ptr(), mel_w.data_ptr(),
-                  out.data_ptr(), S, plan["T"], n_fft, hop_length, plan["pad"],
-                  plan["tiles_per_row"], plan["n_mtiles"], plan["rows_tile"], n_mels,
-                  plan["ksteps"], plan["mel_width"], log_eps, int(apply_log), plan["ctas"],
-                  plan["smem_bytes"], stream)
-    cuda_build.check_launch(lib, "mmav_logmel", code)
-    log_mel_spectrogram_cuda.launches += 1
+    _launch(signal.device, log_mel_spectrogram_cuda, signal.data_ptr(), basis.data_ptr(),
+            mel_lo.data_ptr(), mel_w.data_ptr(), out.data_ptr(), S, plan["T"], n_fft, hop_length,
+            plan["pad"], plan["tiles_per_row"], plan["n_mtiles"], plan["rows_tile"], n_mels,
+            plan["ksteps"], plan["mel_width"], log_eps, int(apply_log), plan["ctas"],
+            plan["smem_bytes"])
     return out
 
 

@@ -1,4 +1,5 @@
-"""The recurrence of an LSTM layer, both directions at once, as one operator.
+"""The recurrence of an LSTM layer, both directions at once, as one operator,
+and the plain masked recurrences (LSTM and GRU) of the model's layers.
 
 ``mmav::lstm_scan(z, lengths, w_hh, bias, save) -> (y, saved)`` advances
 both directions (``D`` = 2) of an LSTM layer over ``z [R, T, D, 4H]``, each frame's
@@ -8,8 +9,8 @@ and ``bias [D, 4H]``.  Direction 0 runs forward in time; direction 1 runs
 backward from each row's last valid frame with a zero carry.  Frames at or
 past ``lengths [R]`` output exactly 0.  ``y [R, T, D, H]`` is in ``z``'s
 dtype, so a bidirectional layer's output is ``y.view(R, T, 2H)``.  These are
-``models/layers.py:_lstm_scan``'s semantics over the padded flip that
-``FusedBiLSTMLayer`` used before this operator.
+``_lstm_scan``'s semantics over the padded flip that ``FusedBiLSTMLayer``
+used before this operator.
 
 On a CUDA tensor each operator is one launch of ``csrc/bilstm.cu`` (K4), the
 frame loop inside the kernel, or it raises.  With ``save`` the forward also
@@ -36,11 +37,80 @@ import torch
 
 from .. import tracing
 from . import cuda_build
+from .cuda_build import SMEM_LIMIT
 
-# Shared memory a block can use on the H100 (227 KB); rows a cluster takes at
-# most (the kernel's row tiles of 8, 2 of them); CTAs a cluster at most (the
-# non-portable maximum on the H100).
-SMEM_LIMIT = 232_448
+
+def length_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    """``[B] -> [B, T]`` boolean validity mask."""
+    return torch.arange(T, device=lengths.device)[None, :] < lengths[:, None]
+
+
+def _masked_scan(cell, z: torch.Tensor, keep: torch.Tensor, carry: tuple) -> torch.Tensor:
+    """The loop of the plain recurrences: ``cell(z[t], carry) -> (new carry,
+    output)`` over the frames of ``z [T, ...]``, from ``carry``.  On the
+    frames ``keep [T, ...]`` leaves out the carry freezes and the output is
+    0.  Returns the outputs stacked, ``[T, ...]``."""
+    ys = []
+    for t in range(z.shape[0]):
+        new, y = cell(z[t], carry)
+        k = keep[t]
+        carry = tuple(torch.where(k, n, c) for n, c in zip(new, carry))
+        ys.append(torch.where(k, y, 0.0))
+    return torch.stack(ys)
+
+
+def _lstm_scan(z: torch.Tensor, keep: torch.Tensor, w_hh: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """The recurrence of ``D`` LSTM directions advanced together: the CPU
+    kernel of ``mmav::lstm_scan`` and the loop K4 is held against.
+
+    ``z [T, D, B, 4H]`` holds each frame's input projections (gates i, f,
+    g, o), ``keep [T, D, B, 1]`` the frames that advance each direction,
+    ``w_hh [D, H, 4H]`` and ``bias [D, 1, 4H]`` the recurrent side (flax
+    ``OptimizedLSTMCell``: the one bias is the recurrent one).  The carry
+    starts at 0 and freezes on the frames ``keep`` leaves out, whose output
+    is 0.  Returns ``[T, D, B, H]``."""
+    _, D, B, H4 = z.shape
+
+    def cell(zt, carry):
+        h, c = carry
+        i, f, g, o = (zt + torch.baddbmm(bias, h, w_hh)).chunk(4, dim=-1)
+        nc = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        nh = torch.sigmoid(o) * torch.tanh(nc)
+        return (nh, nc), nh
+
+    zero = z.new_zeros(D, B, H4 // 4)
+    return _masked_scan(cell, z, keep, (zero, zero))
+
+
+def _gru_scan(z: torch.Tensor, keep: torch.Tensor, w_hh: torch.Tensor,
+              b_hn: torch.Tensor) -> torch.Tensor:
+    """The recurrence of ``D`` GRU directions advanced together.
+
+    ``z [T, D, B, 3H]`` holds each frame's input projections ``x W_i + b_i``
+    (gates r, z, n), ``keep [T, D, B, 1]`` the frames that advance each
+    direction, ``w_hh [D, H, 3H]`` and ``b_hn [D, 1, H]`` the recurrent side.
+    flax's ``GRUCell``: ``r`` and ``z`` have no recurrent bias and ``n =
+    tanh(x W_in + b_in + r (h W_hn + b_hn))``, ``h' = (1 - z) n + z h``.  The
+    carry starts at 0 and freezes on the frames ``keep`` leaves out, whose
+    output is 0.  Returns ``[T, D, B, H]``."""
+    _, D, B, H3 = z.shape
+    H = H3 // 3
+
+    def cell(zt, carry):
+        h, = carry
+        hh = torch.bmm(h, w_hh)                                    # [D, B, 3H]
+        r = torch.sigmoid(zt[..., :H] + hh[..., :H])
+        u = torch.sigmoid(zt[..., H:2 * H] + hh[..., H:2 * H])
+        n = torch.tanh(zt[..., 2 * H:] + r * (hh[..., 2 * H:] + b_hn))
+        nh = (1.0 - u) * n + u * h
+        return (nh,), nh
+
+    return _masked_scan(cell, z, keep, (z.new_zeros(D, B, H),))
+
+
+# Rows a cluster takes at most (the kernel's row tiles of 8, 2 of them); CTAs
+# a cluster at most (the non-portable maximum on the H100).
 _MAX_ROWS = 16
 _CLUSTERS = (1, 2, 4, 8, 16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -130,16 +200,12 @@ def _from_scan(x: torch.Tensor) -> torch.Tensor:
 def _keep(lengths: torch.Tensor, T: int) -> torch.Tensor:
     """``[T, 2, R, 1]``: the frames that advance each direction, in
     processing order (the padded flip puts direction 1's padding first)."""
-    from ..models.layers import length_mask       # models/layers.py imports this module
-
     v = length_mask(lengths, T).transpose(0, 1)
     return torch.stack([v, v.flip(0)], dim=1)[..., None]
 
 
 def _plain(z, lengths, w_hh, bias):
     """``y [R, T, D, H]`` by the plain loop ``_lstm_scan``."""
-    from ..models.layers import _lstm_scan
-
     keep = _keep(lengths.to(z.device), z.shape[1])
     return _from_scan(_lstm_scan(_to_scan(z), keep, w_hh.transpose(1, 2), bias[:, None, :]))
 
@@ -151,20 +217,15 @@ def _forward_plain(z, lengths, w_hh, bias, save):
     return _plain(z, lengths, w_hh, bias).contiguous(), z.new_empty((0,), dtype=torch.float32)
 
 
-@functools.lru_cache(maxsize=1)
-def _library():
-    """The built kernel library and its two launch functions, typed."""
-    lib = cuda_build.load("bilstm")
-    fns = []
-    # (dtype, z or dy, lengths, len64, then w, bias, y, saved, scratch forward or
-    # w, saved, dz, scratch backward, nine ints of shape and plan, the stream)
-    for name, n_ptr in (("mmav_lstm_forward_launch", 5), ("mmav_lstm_backward_launch", 4)):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fns.append(fn)
-    return lib, fns[0], fns[1]
+# (dtype, z or dy, lengths, len64, then w, bias, y, saved, scratch forward or
+# w, saved, dz, scratch backward, nine ints of shape and plan)
+_HEAD = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+_launch_forward = cuda_build.Launcher("bilstm", "mmav_lstm",
+                                      _HEAD + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9,
+                                      symbol="forward_launch")
+_launch_backward = cuda_build.Launcher("bilstm", "mmav_lstm",
+                                       _HEAD + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9,
+                                       symbol="backward_launch")
 
 
 def _check(x, lengths, w_hh, what: str):
@@ -206,15 +267,11 @@ def _forward_launch(z, lengths, w_hh, bias, save):
     plan = lstm_scan_plan("forward", R, H, z.element_size())
     z, w_hh, bias, lengths = z.contiguous(), w_hh.contiguous(), bias.contiguous(), lengths.to(dev)
     scratch = _scratch(plan, D, z.dtype, dev)
-    lib, launch, _ = _library()
-    code = launch(_DTYPES[z.dtype], z.data_ptr(), lengths.data_ptr(),
-                  int(lengths.dtype == torch.int64), w_hh.data_ptr(), bias.data_ptr(),
-                  y.data_ptr(), saved.data_ptr() if save else None,
-                  None if scratch is None else scratch.data_ptr(), R, T, D, H, plan["cs"],
-                  plan["U"], plan["rows"], int(plan["w_in_smem"]), plan["smem_bytes"],
-                  torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check_launch(lib, "mmav_lstm", code)
-    lstm_scan.launches += 1
+    _launch_forward(dev, lstm_scan, _DTYPES[z.dtype], z.data_ptr(), lengths.data_ptr(),
+                    int(lengths.dtype == torch.int64), w_hh.data_ptr(), bias.data_ptr(),
+                    y.data_ptr(), saved.data_ptr() if save else None,
+                    None if scratch is None else scratch.data_ptr(), R, T, D, H, plan["cs"],
+                    plan["U"], plan["rows"], int(plan["w_in_smem"]), plan["smem_bytes"])
     tracing.count("lstm_kernel", 1)
     return y, saved
 
@@ -234,14 +291,11 @@ def _backward_launch(dy, lengths, w_hh, saved):
     dy, w_hh, saved, lengths = (dy.contiguous(), w_hh.contiguous(), saved.contiguous(),
                                 lengths.to(dev))
     scratch = _scratch(plan, D, dy.dtype, dev)
-    lib, _, launch = _library()
-    code = launch(_DTYPES[dy.dtype], dy.data_ptr(), lengths.data_ptr(),
-                  int(lengths.dtype == torch.int64), w_hh.data_ptr(), saved.data_ptr(),
-                  dz.data_ptr(), None if scratch is None else scratch.data_ptr(), R, T, D, H,
-                  plan["cs"], plan["U"], plan["rows"], int(plan["w_in_smem"]),
-                  plan["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check_launch(lib, "mmav_lstm", code)
-    lstm_scan.launches += 1
+    _launch_backward(dev, lstm_scan, _DTYPES[dy.dtype], dy.data_ptr(), lengths.data_ptr(),
+                     int(lengths.dtype == torch.int64), w_hh.data_ptr(), saved.data_ptr(),
+                     dz.data_ptr(), None if scratch is None else scratch.data_ptr(), R, T, D, H,
+                     plan["cs"], plan["U"], plan["rows"], int(plan["w_in_smem"]),
+                     plan["smem_bytes"])
     return dz
 
 

@@ -42,6 +42,7 @@ import torch
 
 from .. import tracing
 from . import cuda_build
+from .cuda_build import SMEM_LIMIT
 
 _NEG_INF = -1e30
 
@@ -183,9 +184,7 @@ def _prefix_beam_plain(log_probs, lengths, prefixes, lens, pb, pnb, lm, beam_wid
     return prefixes, lens, pb, pnb, ids, out_len, _logaddexp(pb[:, 0], pnb[:, 0])
 
 
-# Shared memory a block can use on the H100 (227 KB); the frames whose top-K
-# the kernel stages at once, at most.
-SMEM_LIMIT = 232_448
+# The frames whose top-K the kernel stages at once, at most.
 _TILE_FRAMES = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -209,16 +208,10 @@ def prefix_beam_plan(T: int, W: int, K: int, C: int) -> dict:
             "smem_bytes": smem + (8 * W * C if rows_in_smem else 0)}
 
 
-@functools.lru_cache(maxsize=1)
-def _library():
-    """The built kernel library and its launch function, typed."""
-    lib = cuda_build.load("prefix_beam")
-    launch = lib.mmav_prefix_beam_launch
-    launch.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
-                       + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    launch.restype = ctypes.c_int
-    return lib, launch
+_launch = cuda_build.Launcher(
+    "prefix_beam", "mmav_prefix_beam",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 13
+    + [ctypes.c_int] * 9 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2)
 
 
 def _prefix_beam_launch(log_probs, lengths, prefixes, lens, pb, pnb, lm, beam_width, top_k,
@@ -280,15 +273,11 @@ def _prefix_beam_launch(log_probs, lengths, prefixes, lens, pb, pnb, lm, beam_wi
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    lib, launch = _library()
-    code = launch(log_probs.data_ptr(), _DTYPES[log_probs.dtype], lengths.data_ptr(),
-                  int(lengths.dtype == torch.int64), ptr(prefixes), ptr(lens), ptr(pb),
-                  ptr(pnb), ptr(lm), out[0].data_ptr(), ptr(scratch),
-                  *(x.data_ptr() for x in out[1:]), B, T, V, W, C, K, plan["tile"],
-                  blank_id, pad_id, lm_weight, length_bonus, int(plan["rows_in_smem"]),
-                  plan["smem_bytes"], torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check_launch(lib, "mmav_prefix_beam", code)
-    prefix_beam.launches += 1
+    _launch(dev, prefix_beam, log_probs.data_ptr(), _DTYPES[log_probs.dtype], lengths.data_ptr(),
+            int(lengths.dtype == torch.int64), ptr(prefixes), ptr(lens), ptr(pb), ptr(pnb),
+            ptr(lm), out[0].data_ptr(), ptr(scratch), *(x.data_ptr() for x in out[1:]), B, T, V,
+            W, C, K, plan["tile"], blank_id, pad_id, lm_weight, length_bonus,
+            int(plan["rows_in_smem"]), plan["smem_bytes"])
     tracing.count("prefix_beam_kernel", 1)
     return out
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from .cuda_build import SMEM_LIMIT
 
 
 def _lerp_weights(out_size: int, in_size: int, device):
@@ -77,9 +78,7 @@ def lip_frames_preprocess(frames: torch.Tensor, out_size: int = 96) -> torch.Ten
 
 _SUPPORTED = {torch.uint8: 1, torch.float32: 0}
 
-# Shared memory a block can use on the H100 (227 KB), and the source rows a
-# band aims to stage (32 rows of a 128-wide RGB crop are 12 KB).
-SMEM_LIMIT = 232_448
+# The source rows a band aims to stage (32 rows of a 128-wide RGB crop are 12 KB).
 _BAND_SOURCE_ROWS = 32
 
 
@@ -126,14 +125,7 @@ def _device_tables(H: int, W: int, out_h: int, out_w: int, C: int, elem_bytes: i
     return plan, torch.from_numpy(idx).to(device), torch.from_numpy(frac).to(device)
 
 
-@functools.lru_cache(maxsize=1)
-def _library():
-    """The built kernel library and its launch function, typed."""
-    lib = cuda_build.load("lip")
-    launch = lib.mmav_lip_launch
-    launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    return lib, launch
+_launch = cuda_build.Launcher("lip", "mmav_lip", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11)
 
 
 def _lip_launch(frames: torch.Tensor, out_size: int) -> torch.Tensor:
@@ -154,13 +146,10 @@ def _lip_launch(frames: torch.Tensor, out_size: int) -> torch.Tensor:
         raise ValueError(f"lip kernel: a band needs {plan['smem_bytes']} bytes of shared "
                          f"memory, more than {SMEM_LIMIT}")
     out = torch.empty((N, 1, out_size, out_size), dtype=torch.float32, device=frames.device)
-    lib, launch = _library()
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    code = launch(frames.data_ptr(), out.data_ptr(), idx.data_ptr(), frac.data_ptr(),
-                  N, H, W, C, out_size, out_size, plan["rows_per_band"], plan["n_bands"],
-                  plan["stage_bytes"], plan["smem_bytes"], _SUPPORTED[frames.dtype], stream)
-    cuda_build.check_launch(lib, "mmav_lip", code)
-    lip_preprocess_cuda.launches += 1
+    _launch(frames.device, lip_preprocess_cuda, frames.data_ptr(), out.data_ptr(),
+            idx.data_ptr(), frac.data_ptr(), N, H, W, C, out_size, out_size,
+            plan["rows_per_band"], plan["n_bands"], plan["stage_bytes"], plan["smem_bytes"],
+            _SUPPORTED[frames.dtype])
     return out
 
 

@@ -36,6 +36,14 @@ class SpecAugmentDraws:
     time_start: torch.Tensor
 
 
+def block_rows(whole: torch.Tensor, rows: tuple[int, int], parts: int = 1) -> torch.Tensor:
+    """The rows of ``whole`` (a draw over the whole batch) that block
+    ``rows[0]`` of ``rows[1]`` holds, in each of ``parts`` equal parts along
+    dim 0, the parts' blocks stacked in order (the placement of these draws
+    and of ``models/layers.py:dropout``'s mask)."""
+    return whole.unflatten(0, (parts, rows[1], -1))[:, rows[0]].flatten(0, 1)
+
+
 def draw_spec_augment(generator: torch.Generator, frame_valid: torch.Tensor, n_bins: int,
                       freq_masks: int = 2, freq_mask_width: int = 27, time_masks: int = 2,
                       time_mask_frac: float = 0.05, rows: tuple[int, int] = (0, 1),
@@ -47,9 +55,7 @@ def draw_spec_augment(generator: torch.Generator, frame_valid: torch.Tensor, n_b
     ``rows`` and ``parts`` place these ``B`` rows in a batch split over a
     mesh, as ``models/layers.py:dropout`` does: every draw is made for the
     whole batch and these rows of it kept, so the ranks draw what one
-    device drawing for the whole batch would (``layers.block_rows``)."""
-    from ..models.layers import block_rows       # here: models imports this module
-
+    device drawing for the whole batch would (``block_rows``)."""
     B = frame_valid.shape[0]
     dev = frame_valid.device
     valid_len = frame_valid.sum(dim=1).clamp(min=1)                       # [B]

@@ -37,8 +37,8 @@ from multimodal_av_model_tpu_torch import graft_entry
 from multimodal_av_model_tpu_torch import main as pmain
 from multimodal_av_model_tpu_torch.compat import from_jax_variables, train_state_from_jax
 from multimodal_av_model_tpu_torch.models import MultiSpeakerAVModel, init_weights
-from multimodal_av_model_tpu_torch.models.layers import block_rows, dropout
-from multimodal_av_model_tpu_torch.ops.specaugment import draw_spec_augment
+from multimodal_av_model_tpu_torch.models.layers import dropout
+from multimodal_av_model_tpu_torch.ops.specaugment import block_rows, draw_spec_augment
 from multimodal_av_model_tpu_torch.parallel.spawn import meshed_train_steps, run_ranks
 from multimodal_av_model_tpu_torch.text import CharTokenizer
 from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer, restore_checkpoint

@@ -1,5 +1,6 @@
 """Launch plans and arithmetic of the port's two CUDA kernels, checked on the
-CPU (the kernels themselves run only on the card: tests/test_torch_kernels.py).
+CPU (the kernels themselves run only on the card: tests/test_torch_kernels.py),
+and the one launch path and launch-count reader that all four kernels share.
 
 K1 (``csrc/logmel.cu``) computes the windowed DFT as a 3xTF32 tensor-core
 product and the mel projection in f32 over each filter's support.  Here a
@@ -11,8 +12,10 @@ K2 (``csrc/lip_preprocess.cu``) stages bands of source rows; its band plan
 must cover every source row the band's lerps read.
 """
 
+import ctypes
 import importlib.util
 import os
+import types
 
 import numpy as np
 import pytest
@@ -324,3 +327,64 @@ def test_phase_markers_become_one_stamp_each(kernel):
     for k in range(len(names)):
         assert src.count(f"kp_stamp({k});") == 1
     assert f"kp_stamp({len(names)});" not in src and not tool.MARKER.search(src)
+
+
+# -- the one launch path and its counts ------------------------------------------
+
+def test_launch_counts_cover_every_kernel_and_the_cpu_launches_none():
+    """``ops.launch_counts`` has one key for each library of
+    ``cuda_build.SOURCES`` (each of which has its launchers), and a plain CPU
+    call of every operator, K4's backward too, leaves every count as it was."""
+    from multimodal_av_model_tpu_torch.ops import launch_counts, lstm_scan, prefix_beam_search
+
+    counts = launch_counts()
+    assert list(counts) == ["logmel", "lip_preprocess", "prefix_beam", "lstm_scan"]
+    assert len(counts) == len(cuda_build.SOURCES)
+    assert {launcher.name for launcher in cuda_build._launchers} == set(cuda_build.SOURCES)
+    g = torch.Generator().manual_seed(0)
+    mel = logmel.log_mel_op(torch.randn(2, 4000, generator=g), 16000, 400, 160, 400, 80, 0.0,
+                            None, 1e-6, True, True)
+    lips = resize.lip_preprocess_op(torch.randint(0, 256, (2, 20, 20, 3), dtype=torch.uint8), 8)
+    lp = torch.log_softmax(torch.randn(2, 6, 9, generator=g), dim=-1)
+    beam = prefix_beam_search.prefix_beam_op(lp, torch.tensor([6, 4]), None, None, None, None,
+                                             None, 3, 4, 0, -1, 0.0, 0.0)
+    z, w, b = (torch.randn(shape, generator=g, requires_grad=True)
+               for shape in ((3, 5, 2, 16), (2, 16, 4), (2, 16)))
+    y, _ = lstm_scan.lstm_scan_op(z, torch.tensor([5, 2, 0]), w, b, True)
+    y.sum().backward()
+    assert mel.shape == (2, 26, 80) and lips.shape == (2, 1, 8, 8) and beam[4].shape == (2, 6)
+    assert z.grad is not None and launch_counts(counts) == dict.fromkeys(counts, 0)
+
+
+def test_launcher_passes_the_stream_checks_the_code_and_counts(monkeypatch):
+    """``cuda_build.Launcher`` on a stand-in entry point: the stream goes
+    last; a nonzero return raises with the library's error string and counts
+    nothing; a zero one adds 1 to the entry's ``launches``; ``rebind`` drops
+    the bound entry points of one kernel only."""
+    monkeypatch.setattr(cuda_build, "_launchers", list(cuda_build._launchers))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=1234))
+    calls, code = [], [0]
+
+    def error_string(c):
+        return b"invalid argument"
+
+    def entry():
+        pass
+
+    entry.launches = 0
+    launcher = cuda_build.Launcher("logmel", "mmav_logmel", [ctypes.c_int])
+    assert launcher.symbol == "mmav_logmel_launch" and launcher.argtypes[-1] is ctypes.c_void_p
+    launcher.lib = types.SimpleNamespace(mmav_logmel_error_string=error_string)
+    launcher.fn = lambda *args: calls.append(args) or code[0]
+    launcher(torch.device("cpu"), entry, 7)
+    assert calls == [(7, 1234)] and entry.launches == 1
+    code[0] = 9
+    with pytest.raises(RuntimeError, match=r"mmav_logmel launch failed: CUDA error 9 "
+                                           r"\(invalid argument\)"):
+        launcher(torch.device("cpu"), entry, 8)
+    assert entry.launches == 1
+    other = cuda_build.Launcher("lip", "mmav_lip", [])
+    other.fn = print
+    cuda_build.rebind("logmel")
+    assert launcher.fn is None and other.fn is print

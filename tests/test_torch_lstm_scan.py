@@ -9,8 +9,9 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from multimodal_av_model_tpu_torch.models.layers import BiLSTM, _lstm_scan, length_mask
+from multimodal_av_model_tpu_torch.models.layers import BiLSTM
 from multimodal_av_model_tpu_torch.ops import lstm_scan as ls
+from multimodal_av_model_tpu_torch.ops.lstm_scan import _lstm_scan, length_mask
 
 LENGTHS = {"ones": [1, 1, 1], "full": [7, 7, 7, 7], "equal": [4, 4, 4],
            "different": [7, 1, 4, 6, 2], "with_zero": [0, 7, 3]}
