@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import tracing
 from ..ops.lstm_scan import _gru_scan, _lstm_scan, length_mask, lstm_scan
 from ..ops.specaugment import block_rows
 
@@ -72,6 +74,12 @@ class BatchNorm(nn.Module):
     batch`` with the *biased* batch variance, unless ``update_stats`` is off
     (the recompute of a checkpointed region, see ``remat``).
 
+    A bf16 or f16 input goes to ``F.batch_norm`` as it is, in either memory
+    format, beside the f32 parameters and statistics: one pass over the
+    16-bit activation, its statistics and the normalisation computed in f32
+    and the output rounded once, as a cast to f32 and back would give within
+    one ulp, without the two f32 copies (counted as ``bn_one_pass``).
+
     ``group``: a process group over which the batch is split (the mesh's
     ``data`` axis, set by ``parallel.bind_data_axis``).  The statistics are
     then those of the whole batch, as under ``pjit``: the sum, then the sum
@@ -105,14 +113,7 @@ class BatchNorm(nn.Module):
         return mean, var, n
 
     def forward(self, x, train: bool = False):
-        # The f32 copy of x is an unnamed temporary: held by a local, it would
-        # stay alive beside y and its cast (one more activation at the peak).
-        if not train:
-            y = F.batch_norm(x.to(torch.promote_types(x.dtype, torch.float32)),
-                             self.running_mean, self.running_var, self.weight, self.bias,
-                             False, 0.0, self.eps)
-            return y.to(self.dtype)
-        if self.group is not None:
+        if train and self.group is not None:
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
             view = [1, -1] + [1] * (x.ndim - 2)
             mean, var, n = self._global_stats(xf)
@@ -124,12 +125,17 @@ class BatchNorm(nn.Module):
                     self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
                     self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
             return y.to(self.dtype)
+        if x.dtype in (torch.bfloat16, torch.float16):
+            tracing.count("bn_one_pass")
+        if not train:
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                             False, 0.0, self.eps)
+            return y.to(self.dtype)
         # At momentum 1 the fused op writes the batch mean and the unbiased
         # batch variance into these buffers, computed once with the output.
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x.to(torch.promote_types(x.dtype, torch.float32)), mean, var,
-                         self.weight, self.bias, True, 1.0, self.eps)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
         if self.update_stats:
             n = x.numel() // x.shape[1]
             m = self.momentum
@@ -187,14 +193,23 @@ def running_stats_frozen(modules):
             m.update_stats = b
 
 
+@contextlib.contextmanager
+def _recompute(modules, caller: int):
+    with running_stats_frozen(modules), tracing.counting_for(caller):
+        yield
+
+
 def remat(fn, modules, *args):
     """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
     recomputed in the backward instead of kept.  The recompute leaves the
     running statistics of the ``BatchNorm``s in ``modules`` alone, so they
-    update once per forward, as under flax's ``nn.checkpoint``."""
+    update once per forward, as under flax's ``nn.checkpoint``, and counts
+    for the thread that ran the forward (on the card autograd's device
+    thread recomputes)."""
+    caller = threading.get_ident()
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False, preserve_rng_state=False,
-        context_fn=lambda: (contextlib.nullcontext(), running_stats_frozen(modules)))
+        context_fn=lambda: (contextlib.nullcontext(), _recompute(modules, caller)))
 
 
 class PReLU(nn.Module):

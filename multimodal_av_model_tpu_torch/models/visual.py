@@ -6,8 +6,12 @@ time-folded 2D convolution: the 5 temporal taps become the input channels of a
 7x7 conv over the ``B*T`` frame batch (tap k of channel c is input channel
 ``k*C + c`` and reads frame ``t + k - 2``).  The flax HWIO kernel
 ``[7,7,5,64]`` is this conv's OIHW ``[64,5,7,7]``.  The max-pool pads with
--inf.  Inside, the layout is PyTorch's NCHW; the public input stays the JAX
-``[B, T, H, W, C]``.  ``train`` selects batch statistics in the BatchNorms
+-inf.  Inside, the tensors are NCHW by shape; the public input stays the JAX
+``[B, T, H, W, C]``.  In a 16-bit compute dtype the trunk keeps its
+activations channels_last (NHWC in memory) from the tap stack to the mean
+pool, the layout cuDNN's bf16 and f16 convolutions run in, so nothing inside
+converts them; f32 and f64 stay NCHW (``memory_format``).  ``train`` selects
+batch statistics in the BatchNorms
 (and updates their running statistics); ``config.remat`` recomputes part of
 the encoder in the backward (``visual.py:60-73,123-130``,
 ``av_model.py:49-62``), the running statistics still updating once.
@@ -25,8 +29,30 @@ from .layers import Dense, _param, make_act, make_norm, remat
 REMAT_MODES = ("none", "frontend", "stage1", "full")
 
 
+def memory_format(dtype: torch.dtype) -> torch.memory_format:
+    """The trunk's layout in compute dtype ``dtype``: channels_last for bf16
+    and f16, NCHW for f32 and f64."""
+    return torch.channels_last if dtype in (torch.bfloat16, torch.float16) \
+        else torch.contiguous_format
+
+
+def tap_stack(lips, taps: int, dtype: torch.dtype):
+    """``[B, T, H, W, C]`` -> ``[B*T, taps*C, H, W]`` in ``dtype`` and its
+    ``memory_format``: input channel ``k*C + c`` is channel c of frame
+    ``t + k - taps // 2``, zeros past either end of the clip.  The taps are
+    concatenated on the last axis, so the stack is made channels_last in the
+    one copy; f32 and f64 take one more, to NCHW."""
+    B, T, H, W, C = lips.shape
+    pad = taps // 2
+    xp = F.pad(lips.to(dtype), (0, 0, 0, 0, 0, 0, pad, pad))   # zero frames at both ends
+    x = torch.cat([xp[:, k:k + T] for k in range(taps)], dim=-1)  # [B, T, H, W, taps*C]
+    x = x.reshape(B * T, H, W, taps * C).permute(0, 3, 1, 2)
+    return x.contiguous(memory_format=memory_format(dtype))
+
+
 class Conv2d(nn.Module):
-    """Bias-free 2D conv with f32 weights, computed in ``dtype``."""
+    """Bias-free 2D conv with f32 weights, computed in ``dtype``; the weight
+    is cast to ``dtype`` and the trunk's ``memory_format`` in one copy."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int, padding: int,
                  dtype: torch.dtype):
@@ -35,7 +61,8 @@ class Conv2d(nn.Module):
         self.stride, self.padding, self.dtype = stride, padding, dtype
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(self.dtype), None, self.stride, self.padding)
+        w = self.weight.to(self.dtype, memory_format=memory_format(self.dtype))
+        return F.conv2d(x, w, None, self.stride, self.padding)
 
 
 class BasicBlock(nn.Module):
@@ -122,12 +149,8 @@ class VisualEncoder(nn.Module):
         return F.max_pool2d(x, kernel_size=3, stride=2, padding=1)
 
     def _forward(self, lips, train: bool, mode: str):
-        B, T, H, W, C = lips.shape
-        K, pad = self.time_taps, self.time_taps // 2
-        x = lips.to(self.dtype).permute(0, 1, 4, 2, 3)             # [B, T, C, H, W]
-        xp = F.pad(x, (0, 0, 0, 0, 0, 0, pad, pad))                # zero frames at both ends
-        x = torch.cat([xp[:, k:k + T] for k in range(K)], dim=2)  # [B, T, K*C, H, W]
-        x = x.reshape(B * T, K * C, H, W)
+        B, T = lips.shape[:2]
+        x = tap_stack(lips, self.time_taps, self.dtype)
         if mode in ("frontend", "stage1"):
             x = remat(self._frontend, [self.frontend_norm], x, train)
         else:

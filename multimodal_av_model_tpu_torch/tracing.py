@@ -26,11 +26,12 @@ being captured into a CUDA graph.  Spans stay in memory until ``collect``.
 calling thread (outside every span it is dropped); ``count(name, n,
 thread=ident)`` to that of the thread ``ident`` instead, for work another
 thread does on its behalf (autograd's device thread runs a CUDA backward
-while its caller waits in ``train.backward``).  On the card the
-recorder sets ``torch.cuda.set_sync_debug_mode("warn")`` and counts each
-synchronising call (a blocking copy either way, ``.cpu()``, ``.item()``,
-a stream synchronise) as ``host_syncs`` of the innermost span instead of
-printing it; ``disable`` restores the previous mode.
+while its caller waits in ``train.backward``), and so does every ``count``
+inside ``counting_for(ident)`` (a checkpointed region recomputed there).
+On the card the recorder sets ``torch.cuda.set_sync_debug_mode("warn")``
+and counts each synchronising call (a blocking copy either way, ``.cpu()``,
+``.item()``, a stream synchronise) as ``host_syncs`` of the innermost span
+instead of printing it; ``disable`` restores the previous mode.
 
 The spans the program opens, and where (``avbench/metrics`` reads them by
 name; about 20 a unit, none inside a per-frame loop):
@@ -53,8 +54,10 @@ name; about 20 a unit, none inside a per-frame loop):
 ``train.allreduce``      ``_average_grads``: the gradient all-reduce of a
                          meshed step without FSDP
 ``encoders.visual``,     ``models/av_model.py:MultiSpeakerAVModel.forward``
-``encoders.audio``,      and ``models/avhubert.py:AVHubertCTC.forward``
-``fusion``, ``decoder``
+``encoders.audio``,      and ``models/avhubert.py:AVHubertCTC.forward``;
+``fusion``, ``decoder``  each bf16 or f16 ``BatchNorm`` call
+                         (``models/layers.py``) counted as ``bn_one_pass``,
+                         and a recomputed one's under ``train.backward``
 ``fusion.temporal``      the BiLSTM or transformer call in ``models/fusion.py``;
                          each ``mmav::lstm_scan`` call (on the card one K4
                          launch), counted as ``lstm_kernel``, and its
@@ -143,6 +146,8 @@ def count(name: str, n: int = 1, thread: int | None = None) -> None:
     thread, or of ``thread`` (its ``threading.get_ident()``) for work done on
     its behalf in another thread."""
     if _ON:
+        if thread is None:
+            thread = getattr(_tls, "counts_for", None)
         stack = _stack() if thread is None else _open.get(thread)
         if stack:
             c = stack[-1].counters
@@ -157,6 +162,18 @@ def _unit(uid):
         yield
     finally:
         _tls.unit = before
+
+
+@contextlib.contextmanager
+def counting_for(thread: int):
+    """Inside, the calling thread's ``count`` calls count for ``thread`` (a
+    ``threading.get_ident()``), as ``count(..., thread=thread)`` would."""
+    before = getattr(_tls, "counts_for", None)
+    _tls.counts_for = thread
+    try:
+        yield
+    finally:
+        _tls.counts_for = before
 
 
 def unit(uid):
