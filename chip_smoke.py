@@ -226,16 +226,26 @@ Phases, each printing a line; any failure exits non-zero:
     ``load_pair_raw`` -> ``collate_pairs_raw`` ->
     ``device_preprocessed_batches`` (K1 1 and K2 2 a step); the write,
     extraction and step seconds.
+38. ``[whisper-flamingo]``: ``model.arch=whisper_flamingo`` with its widths
+    cut (2 + 2 Whisper layers of 256, a 2-layer video encoder of 256) at
+    the benchmark cell's K1 and K2 shapes: B = 16 mixtures padded to
+    Whisper's 30 s window (``[16, 480000]``, 80 Slaney bins) and
+    ``[16, 256]`` clips of 128x128x3 crops to 88x88; after a warm-up step,
+    one pull of a batch through ``device_preprocessed_batches`` with
+    ``pipeline_options`` and its ``train_step`` launch K1 once and K2 twice,
+    and K1 in Slaney mode with ``whisper_log_mel`` after it holds to its
+    plain version on that step's mixture (rtol 2e-3 and atol 1e-2 on the
+    mel power, rtol = atol = 2e-3 on the features).
 
 The ``launches`` of the ``kernels`` JSON add the serving requests of phase 5,
 the timed training steps of phase 9, the CLI calls of phase 10 and the main
-paths of phases 13, 15-17, 18-20, 22-25, 27-29, 31, 32 and 34-37 (each
+paths of phases 13, 15-17, 18-20, 22-25, 27-29, 31, 32 and 34-38 (each
 path's own count is under ``launches_by_path``, K3's and K4's as K1's and
 K2's).
 ``--only=`` with some of ``k3``, ``k4``, ``family-ref``, ``family-audio``,
 ``family-visual``, ``families``, ``legacy-ref``, ``legacy``, ``reference-import``, ``lip-extract``,
 ``hostops``, ``runtime`` (which runs phase 5 first), ``dist``, ``dist-cli``,
-``longform``, ``pp``, ``shared-pass`` and ``raw-media`` runs the card and
+``longform``, ``pp``, ``shared-pass``, ``raw-media`` and ``whisper-flamingo`` runs the card and
 build lines and those phases alone
 (a rehearsal: no kernels JSON, no result line).  The last three lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -3990,9 +4000,85 @@ def raw_media_phase(torch, tok, smi: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+def whisper_flamingo_phase(torch, rng, smi: str, B: int = 16, frames: int = 240,
+                           bucket: int = 256, device: str = "cuda") -> dict:
+    """[whisper-flamingo]: one ``MultiSpeakerTrainer.train_step`` of
+    ``model.arch=whisper_flamingo`` on ``B`` = 16 mixtures at K1's and K2's
+    shapes of the benchmark's cell (the mixture padded to Whisper's 30 s
+    window, ``[16, 480000]`` at 80 Slaney bins; ``[16, 256]`` clips of
+    128x128x3 crops to 88x88) with the widths cut (2 + 2 Whisper layers of
+    256, a 2-layer video encoder of 256, Whisper's vocabulary): after one
+    warm-up step, the launches of one pull of the batch and its step (K1 1,
+    K2 2), and K1 in Slaney mode with ``whisper_log_mel`` after it against
+    their plain versions on that step's own mixture, at the bars of
+    ``test_logmel_kernel_at_80_slaney_bins``."""
+    from multimodal_av_model_tpu_torch.config import Config, torch_dtype
+    from multimodal_av_model_tpu_torch.data.collate import make_bucket_specs
+    from multimodal_av_model_tpu_torch.data.device_pipeline import device_preprocessed_batches
+    from multimodal_av_model_tpu_torch.models import build_av_model
+    from multimodal_av_model_tpu_torch.models.whisper_flamingo import pipeline_options
+    from multimodal_av_model_tpu_torch.ops import launch_counts, logmel
+    from multimodal_av_model_tpu_torch.train import MultiSpeakerTrainer
+
+    tag = "whisper-flamingo"
+    cfg = Config()
+    m = cfg.model
+    m.arch, m.frontend.n_mels, m.frontend.mel_scale = "whisper_flamingo", 80, "slaney"
+    w = m.whisper_flamingo
+    w.n_audio_state = w.n_text_state = w.video_dim = 256
+    w.n_audio_head = w.n_text_head = 4
+    w.n_audio_layer = w.n_text_layer = 2
+    a = m.avhubert
+    a.embed_dim, a.num_layers, a.num_heads, a.ffn_dim, a.conv_pos = 256, 2, 4, 1024, 16
+    a.dropout = a.attention_dropout = a.activation_dropout = 0.0
+    m.visual.output_dim = 256
+    cfg.data.audio_samples_per_video_frame = 640
+    spec = make_bucket_specs((bucket,), 640, 60)[0]
+    raws = [make_train_batch(rng, B, spec, crop=128, frames=frames, label_len=40,
+                             vocab=w.eot) for _ in range(2)]
+    trainer = MultiSpeakerTrainer(cfg, build_av_model(m, torch_dtype(m.dtype)), None,
+                                  device=device)
+    state = trainer.init_state(0)
+    options = pipeline_options(m)
+    pull = device_preprocessed_batches(raws, out_size=88, device=device, **options)
+    state, _ = trainer.train_step(state, next(pull))          # the warm-up step
+    torch.cuda.synchronize()
+    since = launch_counts()
+    batch = next(pull)
+    state, metrics = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    k1, k2, k3, k4 = launch_counts(since).values()
+    audio = batch["audio"]
+    fe = m.frontend
+    kw = dict(n_mels=80, apply_log=False, mel_scale="slaney")
+    got = logmel.log_mel_spectrogram_cuda(audio, **kw)
+    ref = logmel.log_mel_spectrogram(audio, **kw)
+    frames_w = 2 * w.n_audio_ctx
+    err = float((got - ref).abs().max())
+    feat_err = float((logmel.whisper_log_mel(got, frames_w)
+                      - logmel.whisper_log_mel(ref, frames_w)).abs().max())
+    ok_mel = torch.allclose(got, ref, rtol=2e-3, atol=1e-2)
+    ok_feat = torch.allclose(logmel.whisper_log_mel(got, frames_w),
+                             logmel.whisper_log_mel(ref, frames_w), rtol=2e-3, atol=2e-3)
+    loss = float(metrics["loss"])
+    log(f"[{tag}] one train_step of model.arch=whisper_flamingo (widths cut, K1 and K2 at the "
+        f"cell's shapes): mixture {tuple(audio.shape)} (window {options['window']}), lips "
+        f"{tuple(batch['lip1'].shape)}, decoder rows {tuple(batch['tokens1'].shape)}; loss "
+        f"{loss:.4f}; launches K1 {k1} K2 {k2} K3 {k3} K4 {k4}; K1 slaney "
+        f"{tuple(got.shape)} max|kernel-plain| {err:.3g} (rtol 2e-3, atol 1e-2) "
+        f"{'ok' if ok_mel else 'FAILED'}; whisper_log_mel max gap {feat_err:.3g} (rtol=atol="
+        f"2e-3) {'ok' if ok_feat else 'FAILED'}; card {smi}")
+    if tuple(audio.shape) != (B, options["window"]) or (k1, k2, k3, k4) != (1, 2, 0, 0):
+        raise SystemExit(f"{tag}: mixture {tuple(audio.shape)}, launches K1 {k1} K2 {k2} K3 "
+                         f"{k3} K4 {k4} (expected [{B}, {options['window']}], 1, 2, 0, 0)")
+    if not (ok_mel and ok_feat and math.isfinite(loss)):
+        raise SystemExit(f"{tag}: K1 {err}, features {feat_err}, loss {loss}")
+    return {"logmel": k1, "lip_preprocess": k2, "prefix_beam": k3, "lstm_scan": k4}
+
+
 PHASES = ("k3", "family-ref", "family-audio", "family-visual", "families", "legacy-ref", "legacy",
           "reference-import", "lip-extract", "hostops", "runtime", "dist", "dist-cli", "longform",
-          "pp", "shared-pass", "raw-media", "k4")
+          "pp", "shared-pass", "raw-media", "k4", "whisper-flamingo")
 UPSTREAM = PHASES[5:9]
 
 
@@ -4074,7 +4160,8 @@ def main() -> int:
              "longform": lambda: longform_phase(torch, rng, smi),
              "pp": lambda: pp_phase(torch, rng, smi),
              "shared-pass": lambda: shared_pass_phase(torch, rng, tok, smi),
-             "raw-media": lambda: raw_media_phase(torch, tok, smi)}[name]()
+             "raw-media": lambda: raw_media_phase(torch, tok, smi),
+             "whisper-flamingo": lambda: whisper_flamingo_phase(torch, rng, smi)}[name]()
         if set(only) & set(UPSTREAM):
             upstream_phases(torch, rng, tok, smi, only)
         log(f"[partial] {','.join(only)} done; no kernels JSON and no result line")
@@ -4108,6 +4195,7 @@ def main() -> int:
     pp_launches = pp_phase(torch, rng, smi)
     shared_pass_launches = shared_pass_phase(torch, rng, tok, smi)
     raw_media_launches = raw_media_phase(torch, tok, smi)
+    whisper_flamingo_launches = whisper_flamingo_phase(torch, rng, smi)
     kernels = [k1, k2, k3, k4]
     for tag, k, calls in (("k1", k1, k1_calls), ("k2", k2, k2_calls), ("k3", k3, None),
                           ("k4", k4, None)):
@@ -4129,7 +4217,8 @@ def main() -> int:
                    "dist": dist_launches[k["name"]], "dist_cli": dist_cli_launches[k["name"]],
                    "longform": longform_launches[k["name"]], "pp": pp_launches[k["name"]],
                    "shared_pass": shared_pass_launches[k["name"]],
-                   "raw_media": raw_media_launches[k["name"]]}
+                   "raw_media": raw_media_launches[k["name"]],
+                   "whisper_flamingo": whisper_flamingo_launches[k["name"]]}
         k["launches"] = sum(by_path.values())
         k["launches_by_path"] = by_path
         if calls is None:                           # K3, K4: graph replay's time only

@@ -36,6 +36,9 @@ class AudioFrontendConfig:
     f_max: float | None = None        # None -> sample_rate / 2
     log_eps: float = 1e-6
     center: bool = True
+    # The filterbank's mel scale: "htk" (torchaudio's default, unnormalised)
+    # or "slaney" (librosa's default, each filter's area normalised: Whisper's).
+    mel_scale: str = "htk"
 
 
 @dataclass
@@ -155,6 +158,34 @@ class AVHubertConfig:
 
 
 @dataclass
+class WhisperFlamingoConfig:
+    """Whisper-Flamingo (``model.arch = "whisper_flamingo"``;
+    github.com/roudimit/whisper-flamingo, arXiv:2406.10082): Whisper's audio
+    encoder and text decoder (openai/whisper ``whisper/model.py``,
+    arXiv:2212.04356) with a Flamingo gated cross-attention block over the
+    lips at the head of every decoder layer (arXiv:2204.14198).  Defaults are
+    Whisper large-v2.  The video encoder is AV-HuBERT's on video alone, sized
+    by ``avhubert`` and ``visual`` (its ``output_dim`` is
+    ``avhubert.embed_dim``, ``video_dim``); the log-mel front end reads
+    ``frontend`` (Whisper: 80 ``slaney`` bins, ``center=True``) over a window
+    of ``2 * n_audio_ctx`` frames of ``frontend.hop_length`` samples."""
+
+    n_audio_ctx: int = 1500
+    n_audio_state: int = 1280
+    n_audio_head: int = 20
+    n_audio_layer: int = 32
+    n_text_ctx: int = 448
+    n_text_state: int = 1280
+    n_text_head: int = 20
+    n_text_layer: int = 32
+    n_vocab: int = 51865
+    video_dim: int = 1024
+    # <|startoftranscript|> <|ko|> <|transcribe|> <|notimestamps|>, and <|endoftext|>.
+    prompt: tuple[int, ...] = (50258, 50264, 50359, 50363)
+    eot: int = 50257
+
+
+@dataclass
 class ModelConfig:
     frontend: AudioFrontendConfig = field(default_factory=AudioFrontendConfig)
     audio: AudioEncoderConfig = field(default_factory=AudioEncoderConfig)
@@ -169,19 +200,29 @@ class ModelConfig:
     # mask (``config.py:164-171``).
     shared_audio_pass: bool = True
     # Which two-speaker model the entry points build (models/av_model.py:
-    # build_av_model): "flagship" (MultiSpeakerAVModel) or "avhubert"
-    # (models/avhubert.py, configured by ``avhubert``).
+    # build_av_model): "flagship" (MultiSpeakerAVModel), "avhubert"
+    # (models/avhubert.py, configured by ``avhubert``) or "whisper_flamingo"
+    # (models/whisper_flamingo.py, configured by ``whisper_flamingo``).
     arch: str = "flagship"
     avhubert: AVHubertConfig = field(default_factory=AVHubertConfig)
+    whisper_flamingo: WhisperFlamingoConfig = field(default_factory=WhisperFlamingoConfig)
 
 
-def require_flagship(model: "ModelConfig | None", what: str) -> None:
-    """Raise for ``what``, a path that only the flagship model has, when
-    ``model`` selects another ``arch``."""
-    if model is not None and model.arch != "flagship":
-        raise ValueError(f"{what} runs the flagship model only; model.arch={model.arch!r} "
-                         "trains (train_step, evaluate) and transcribes (Transcriber) on one "
-                         "device")
+# What each ``model.arch`` runs, said when a path refuses it.
+ARCH_RUNS = {"flagship": "runs every path",
+             "avhubert": "trains (train_step, evaluate) and transcribes (Transcriber) on one "
+                         "device",
+             "whisper_flamingo": "trains through MultiSpeakerTrainer.train_step alone"}
+CTC_ARCHS = ("flagship", "avhubert")        # the models that decode with CTC
+
+
+def require_arch(model: "ModelConfig | None", what: str, archs=("flagship",)) -> None:
+    """Raise for ``what``, a path that runs the models of ``archs`` alone,
+    when ``model`` selects another ``arch``."""
+    if model is not None and model.arch not in archs:
+        raise ValueError(f"{what} runs model.arch {' or '.join(archs)} only; "
+                         f"model.arch={model.arch!r} "
+                         + ARCH_RUNS.get(model.arch, "is none of them"))
 
 
 @dataclass

@@ -34,7 +34,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from .config import Config, require_flagship, torch_dtype
+from .config import CTC_ARCHS, Config, require_arch, torch_dtype
 from .models.av_model import AudioOnlyCTC, MultiSpeakerAVModel, build_av_model
 from .ops.beam_search import beam_search_decode
 from .ops.ctc import ctc_greedy_decode
@@ -124,8 +124,9 @@ class Transcriber:
     quantize_min_size: int = 4096
 
     def __post_init__(self):
+        require_arch(self.config.model, "Transcriber (CTC decoding)", CTC_ARCHS)
         if self.quantize:
-            require_flagship(self.config.model, "int8 serving")
+            require_arch(self.config.model, "int8 serving")
         self.forward, self.model = served(self.model, self.device, self.quantize,
                                            self.quantize_min_size)
         self.lm = load_fusion_lm(self.config.decode.lm_path, self.device)
@@ -243,7 +244,7 @@ def export_transcriber(t: Transcriber, out_dir: str, example_batch: dict,
     program computes on ``t.device``, where it is traced (devices are part
     of the graph).  Returns ``{"seconds", "nodes", "bytes"}``: the export's
     time, the graph's node count and ``model.pt2``'s size."""
-    require_flagship(t.config.model, "the serving export")
+    require_arch(t.config.model, "the serving export")
     os.makedirs(out_dir, exist_ok=True)
     lm = load_fusion_lm(t.config.decode.lm_path, t.device)
     program = ServingProgram(t, use_beam).eval()

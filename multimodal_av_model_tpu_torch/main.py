@@ -22,6 +22,8 @@ Mirrors ``multimodal_av_model_tpu/main.py``: ``build_data``
   ``--eval`` and ``--infer`` on one device; the paths that serve the
   flagship alone (``--stream``, ``--export``, the other families,
   ``decode.quantize``, a ``torchrun`` mesh) refuse it;
+* ``model.arch=whisper_flamingo`` (``models/whisper_flamingo.py``) trains
+  through ``MultiSpeakerTrainer.train_step`` alone: the CLI refuses it;
 * training the flagship (``--family=av``, the default):
   ``train.freeze_visual_trunk`` freezes the visual encoder,
   ``train.visual_init_ckpt`` grafts the visual encoder of a port checkpoint
@@ -483,13 +485,17 @@ def main(argv: list[str] | None = None) -> None:
 
     import torch
 
-    from .config import from_flat_overrides
+    from .config import CTC_ARCHS, from_flat_overrides, require_arch
     from .text import CharTokenizer
 
     if device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the port runs on the card; pass --device=cpu "
                          "to run on the CPU")
     cfg = from_flat_overrides(overrides)
+    try:
+        require_arch(cfg.model, "the CLI", CTC_ARCHS)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if cfg.model.arch != "flagship" and (stream is not None or family != "av" or export_dir
                                          or cfg.decode.quantize):
         raise SystemExit(f"model.arch={cfg.model.arch} trains, evaluates (--eval) and "

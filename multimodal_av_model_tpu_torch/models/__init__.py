@@ -13,6 +13,7 @@ from .fusion import CrossAttentionFusion
 from .layers import BiGRU, GRULayer, init_weights
 from .legacy import LipEncoder, MelAudioEncoder, MultimodalCTCKoreanModel, init_legacy_weights
 from .visual import VisualEncoder
+from .whisper_flamingo import WhisperFlamingo
 
 __all__ = [
     "AVHubertCTC",
@@ -28,6 +29,7 @@ __all__ = [
     "MultiSpeakerAVModel",
     "VisualEncoder",
     "VisualOnlyCTC",
+    "WhisperFlamingo",
     "build_av_model",
     "downsample_mask_to",
     "init_legacy_weights",

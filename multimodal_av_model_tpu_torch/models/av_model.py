@@ -16,8 +16,8 @@ transformer temporal model is built with dropout 0, as in JAX).
 ``av_model.py:164-178``, each in eval and train mode; their parameter names
 are the flagship's (``audio_encoder``, ``visual_encoder``, ``decoder.head``),
 so their encoders graft into it.  ``build_av_model`` builds the two-speaker
-model that ``model.arch`` selects: this flagship, or AV-HuBERT
-(``models/avhubert.py``).
+model that ``model.arch`` selects: this flagship, AV-HuBERT
+(``models/avhubert.py``) or Whisper-Flamingo (``models/whisper_flamingo.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..config import ModelConfig, require_flagship
+from ..config import ModelConfig, require_arch
 from ..data.mixing import MASK_PAD
 from ..tracing import span
 from .audio import AudioEncoder
@@ -53,7 +53,7 @@ class MultiSpeakerAVModel(nn.Module):
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        require_flagship(config, "MultiSpeakerAVModel")
+        require_arch(config, "MultiSpeakerAVModel")
         self.config, self.dtype = config, dtype
         fused_out = 2 * config.fusion.fused_dim
         self.visual_encoder = VisualEncoder(config.visual, dtype)
@@ -127,17 +127,25 @@ class MultiSpeakerAVModel(nn.Module):
 
 
 def build_av_model(config: ModelConfig, dtype: torch.dtype = torch.float32) -> nn.Module:
-    """The two-speaker CTC model that ``config.arch`` selects: "flagship"
-    (``MultiSpeakerAVModel``) or "avhubert" (``avhubert.AVHubertCTC``).  Both
-    take the collate layout and return ``log_probs{1,2}`` and
-    ``input_lengths{1,2}``; only the flagship has the contrastive taps."""
+    """The two-speaker model that ``config.arch`` selects: "flagship"
+    (``MultiSpeakerAVModel``), "avhubert" (``avhubert.AVHubertCTC``) or
+    "whisper_flamingo" (``whisper_flamingo.WhisperFlamingo``).  All take the
+    collate layout; the two CTC models return ``log_probs{1,2}`` and
+    ``input_lengths{1,2}`` (only the flagship has the contrastive taps),
+    Whisper-Flamingo takes each speaker's decoder ids and returns
+    ``logits{1,2}``."""
     if config.arch == "flagship":
         return MultiSpeakerAVModel(config, dtype)
     if config.arch == "avhubert":
         from .avhubert import AVHubertCTC
 
         return AVHubertCTC(config, dtype)
-    raise ValueError(f"unknown model.arch {config.arch!r}; known: flagship, avhubert")
+    if config.arch == "whisper_flamingo":
+        from .whisper_flamingo import WhisperFlamingo
+
+        return WhisperFlamingo(config, dtype)
+    raise ValueError(f"unknown model.arch {config.arch!r}; known: flagship, avhubert, "
+                     "whisper_flamingo")
 
 
 class AudioOnlyCTC(nn.Module):
@@ -148,7 +156,7 @@ class AudioOnlyCTC(nn.Module):
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        require_flagship(config, "the audio-only model")
+        require_arch(config, "the audio-only model")
         self.config, self.dtype = config, dtype
         self.audio_encoder = AudioEncoder(config.audio, config.frontend, dtype)
         self.decoder = CTCDecoder(config.decoder, config.audio.output_dim, dtype)
@@ -174,7 +182,7 @@ class VisualOnlyCTC(nn.Module):
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        require_flagship(config, "the visual-only model")
+        require_arch(config, "the visual-only model")
         self.config, self.dtype = config, dtype
         self.visual_encoder = VisualEncoder(config.visual, dtype)
         self.decoder = CTCDecoder(config.decoder, config.visual.output_dim, dtype)

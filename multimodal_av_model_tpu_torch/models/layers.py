@@ -281,21 +281,26 @@ class MultiHeadAttention(nn.Module):
 
     ``num_heads`` is the heads this module computes: under tensor parallelism
     (``parallel/tp.py``) the projections hold ``num_heads / tp`` heads of
-    ``head_dim`` each, and the plan lowers it to that."""
+    ``head_dim`` each, and the plan lowers it to that.  ``key_bias=False``:
+    the key projection has no bias (Whisper's).  The keys and values may be
+    a memory of another length than the queries."""
 
-    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, dropout_rate: float = 0.0):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype, dropout_rate: float = 0.0,
+                 key_bias: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.query = Dense(dim, dim, dtype=dtype)
-        self.key = Dense(dim, dim, dtype=dtype)
+        self.key = Dense(dim, dim, bias=key_bias, dtype=dtype)
         self.value = Dense(dim, dim, dtype=dtype)
         self.out = Dense(dim, dim, dtype=dtype)
         self.dtype, self.dropout_rate = dtype, dropout_rate
 
-    def forward(self, q_in, kv_in, mask=None, generator=None):
+    def forward(self, q_in, kv_in, mask=None, generator=None, causal: bool = False):
         """``mask`` broadcasts to ``[B, heads, Tq, Tk]``; True = attend.
-        ``generator``: train mode (dropout drawn from it); None: eval."""
+        ``generator``: train mode (dropout drawn from it); None: eval.
+        ``causal``: query ``i`` attends to keys ``j <= i`` alone (besides
+        ``mask``)."""
         B, Tq = q_in.shape[:2]
         H, hd = self.num_heads, self.head_dim
 
@@ -307,6 +312,10 @@ class MultiHeadAttention(nn.Module):
         v = heads(self.value(kv_in))
         q = q / math.sqrt(hd)
         logits = q @ k.transpose(-1, -2)                           # [B, H, Tq, Tk]
+        if causal:
+            Tk = logits.shape[-1]
+            tril = torch.ones(Tq, Tk, dtype=torch.bool, device=logits.device).tril()
+            mask = tril if mask is None else mask & tril
         if mask is not None:
             logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
         weights = dropout(torch.softmax(logits, dim=-1), self.dropout_rate, generator,

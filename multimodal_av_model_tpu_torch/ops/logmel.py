@@ -7,6 +7,9 @@ and the plain ``log_mel_spectrogram``) and
 kernel, here ``csrc/logmel.cu``).  Semantics are torchaudio's: centred frames
 with reflect padding, a periodic Hann window, the rFFT power, an HTK mel
 filterbank without normalisation, then ``log(mel + 1e-6)``, all in f32.
+``mel_scale="slaney"`` takes librosa's default filterbank instead (the Slaney
+scale, each filter's area normalised), which Whisper's front end uses; its
+epilogue (``whisper_log_mel``) runs as one pass over K1's mel power.
 
 ``log_mel_spectrogram_cuda`` is the entry the audio encoder calls.  It goes
 through the operator ``mmav::log_mel`` (``torch.library.custom_op``) on every
@@ -37,12 +40,43 @@ def mel_to_hz(m):
     return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
 
 
+def hz_to_slaney(f):
+    """Slaney's mel scale (librosa's default): linear below 1 kHz, 200/3 Hz a
+    mel, logarithmic above it, 27 mels for each factor of 6.4."""
+    f = np.asarray(f, dtype=np.float64)
+    log_part = 15.0 + np.log(np.maximum(f, 1e-10) / 1000.0) / (np.log(6.4) / 27.0)
+    return np.where(f >= 1000.0, log_part, f / (200.0 / 3.0))
+
+
+def slaney_to_hz(m):
+    m = np.asarray(m, dtype=np.float64)
+    return np.where(m >= 15.0, 1000.0 * np.exp(np.log(6.4) / 27.0 * (m - 15.0)),
+                    m * (200.0 / 3.0))
+
+
+def slaney_filterbank(n_freqs: int, n_mels: int, sample_rate: int, f_min: float,
+                      f_max: float) -> np.ndarray:
+    """librosa's ``filters.mel(htk=False, norm="slaney")`` as ``[n_freqs,
+    n_mels]``: triangles between ``n_mels + 2`` points evenly spaced on the
+    Slaney scale, each scaled by ``2 / (f_hi - f_lo)`` so its area is 1."""
+    freqs = np.linspace(0, sample_rate / 2, n_freqs)
+    pts = slaney_to_hz(np.linspace(hz_to_slaney(f_min), hz_to_slaney(f_max), n_mels + 2))
+    ramps = pts[:, None] - freqs[None, :]
+    diff = np.diff(pts)
+    tri = np.maximum(0.0, np.minimum(-ramps[:-2] / diff[:-1, None], ramps[2:] / diff[1:, None]))
+    return (tri * (2.0 / (pts[2:] - pts[:-2]))[:, None]).T.astype(np.float32)
+
+
 @functools.lru_cache(maxsize=8)
 def mel_filterbank(n_freqs: int, n_mels: int, sample_rate: int, f_min: float = 0.0,
-                   f_max: float | None = None) -> np.ndarray:
+                   f_max: float | None = None, mel_scale: str = "htk") -> np.ndarray:
     """Triangular HTK mel filterbank ``[n_freqs, n_mels]``, no normalisation
-    (torchaudio's defaults)."""
+    (torchaudio's defaults); ``mel_scale="slaney"``: ``slaney_filterbank``."""
     f_max = f_max if f_max is not None else sample_rate / 2.0
+    if mel_scale == "slaney":
+        return slaney_filterbank(n_freqs, n_mels, sample_rate, f_min, f_max)
+    if mel_scale != "htk":
+        raise ValueError(f"unknown mel_scale {mel_scale!r}; known: htk, slaney")
     all_freqs = np.linspace(0, sample_rate // 2, n_freqs)
     m_pts = np.linspace(hz_to_mel(f_min), hz_to_mel(f_max), n_mels + 2)
     f_pts = mel_to_hz(m_pts)
@@ -91,13 +125,23 @@ def log_mel_spectrogram(signal: torch.Tensor, sample_rate: int = 16000, n_fft: i
                         hop_length: int = 160, win_length: int | None = None,
                         n_mels: int = 80, f_min: float = 0.0, f_max: float | None = None,
                         log_eps: float = 1e-6, center: bool = True,
-                        apply_log: bool = True) -> torch.Tensor:
+                        apply_log: bool = True, mel_scale: str = "htk") -> torch.Tensor:
     """Plain version of K1: log-mel features ``[..., n_frames, n_mels]``."""
     magsq = stft_magsq(signal, n_fft, hop_length, win_length, center)
     fb = torch.from_numpy(mel_filterbank(n_fft // 2 + 1, n_mels, sample_rate,
-                                         f_min, f_max)).to(magsq.device)
+                                         f_min, f_max, mel_scale)).to(magsq.device)
     mel = magsq @ fb
     return torch.log(mel + log_eps) if apply_log else mel
+
+
+def whisper_log_mel(mel: torch.Tensor, frames: int) -> torch.Tensor:
+    """Whisper's epilogue (``whisper/audio.py:log_mel_spectrogram``) on K1's
+    mel power ``[B, T, n_mels]``: the first ``frames`` frames (Whisper drops
+    the STFT's last), ``L = log10(max(mel, 1e-10))``, ``L = max(L, max(L) -
+    8)`` with the max over each utterance, ``(L + 4) / 4``; f32."""
+    log_spec = mel[:, :frames].float().clamp(min=1e-10).log10()
+    top = log_spec.amax(dim=(1, 2), keepdim=True)
+    return (torch.maximum(log_spec, top - 8.0) + 4.0) / 4.0
 
 
 CLUSTER = 4        # CTAs per cluster = 16-frame m-tiles per cluster
@@ -125,7 +169,8 @@ def tf32_round(x: np.ndarray) -> np.ndarray:
 @functools.lru_cache(maxsize=32)
 def logmel_plan(B: int, S: int, n_fft: int = 400, hop_length: int = 160,
                 n_mels: int = 80, center: bool = True, sample_rate: int = 16000,
-                f_min: float = 0.0, f_max: float | None = None) -> dict:
+                f_min: float = 0.0, f_max: float | None = None,
+                mel_scale: str = "htk") -> dict:
     """Launch plan of the K1 kernel for a ``[B, S]`` waveform.
 
     Frames are cut into m-tiles of 16 within each row (``tiles_per_row`` per
@@ -158,7 +203,7 @@ def logmel_plan(B: int, S: int, n_fft: int = 400, hop_length: int = 160,
     n_mtiles = B * tiles_per_row
     rows_tile = TILE_M + (n_fft - 1) // hop_length
     hp, pm_ld = hop_length + 4, bins + 4
-    mel_lo, mel_w = mel_support(n_freqs, n_mels, sample_rate, f_min, f_max)
+    mel_lo, mel_w = mel_support(n_freqs, n_mels, sample_rate, f_min, f_max, mel_scale)
     mel_width = mel_w.shape[1]
     floats = (2 * STAGE_K * 16 * nt_cta * 8 + CLUSTER * rows_tile * hp
               + TILE_M * pm_ld + n_mels * (mel_width + 4) + n_mels)
@@ -215,13 +260,14 @@ def dft_matrix(n_fft: int, bins: int, rows: int | None = None) -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def mel_support(n_freqs: int, n_mels: int, sample_rate: int, f_min: float = 0.0,
-                f_max: float | None = None) -> tuple[np.ndarray, np.ndarray]:
+                f_max: float | None = None,
+                mel_scale: str = "htk") -> tuple[np.ndarray, np.ndarray]:
     """The filterbank as the kernel reads it: filter m's first bin ``lo[m]``
     (int32) and its weights ``w[m, :]`` over the next ``width`` bins (f32,
     zero past its support), ``width`` being the widest triangle rounded up to
     a multiple of ``MEL_WIDTH`` (16): the kernel reads supports of 16 to 64
     bins."""
-    fb = mel_filterbank(n_freqs, n_mels, sample_rate, f_min, f_max)
+    fb = mel_filterbank(n_freqs, n_mels, sample_rate, f_min, f_max, mel_scale)
     nz = [np.flatnonzero(fb[:, m]) for m in range(n_mels)]
     lo = np.array([z[0] if len(z) else 0 for z in nz], np.int32)
     widest = max(1, max(int(z[-1] - z[0] + 1) if len(z) else 0 for z in nz))
@@ -235,10 +281,11 @@ def mel_support(n_freqs: int, n_mels: int, sample_rate: int, f_min: float = 0.0,
 
 @functools.lru_cache(maxsize=8)
 def _kernel_tables(n_fft: int, n_mels: int, sample_rate: int, f_min: float,
-                   f_max: float | None, bins: int, ksteps: int, device: str):
+                   f_max: float | None, bins: int, ksteps: int, device: str,
+                   mel_scale: str = "htk"):
     """The DFT basis in tile order and the filterbank supports, on
     ``device``."""
-    lo, w = mel_support(n_fft // 2 + 1, n_mels, sample_rate, f_min, f_max)
+    lo, w = mel_support(n_fft // 2 + 1, n_mels, sample_rate, f_min, f_max, mel_scale)
     return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                  for a in (basis_tiles(dft_matrix(n_fft, bins, 8 * ksteps)), lo, w))
 
@@ -262,7 +309,8 @@ _launch = cuda_build.Launcher(
 
 def _log_mel_launch(signal: torch.Tensor, sample_rate: int, n_fft: int, hop_length: int,
                     win_length: int, n_mels: int, f_min: float, f_max: float | None,
-                    log_eps: float, center: bool, apply_log: bool) -> torch.Tensor:
+                    log_eps: float, center: bool, apply_log: bool,
+                    mel_scale: str = "htk") -> torch.Tensor:
     """The ``"cuda"`` kernel of ``mmav::log_mel``: launches ``csrc/logmel.cu``
     on a ``[B, S]`` waveform and counts one launch in
     ``log_mel_spectrogram_cuda.launches``.  Raises on anything the kernel
@@ -281,7 +329,8 @@ def _log_mel_launch(signal: torch.Tensor, sample_rate: int, n_fft: int, hop_leng
     if center and S <= n_fft // 2:
         raise ValueError(f"log-mel kernel: reflect padding needs more than "
                          f"{n_fft // 2} samples")
-    plan = logmel_plan(B, S, n_fft, hop_length, n_mels, center, sample_rate, f_min, f_max)
+    plan = logmel_plan(B, S, n_fft, hop_length, n_mels, center, sample_rate, f_min, f_max,
+                       mel_scale)
     if plan["T"] < 1:
         raise ValueError(f"log-mel kernel: no frame in S={S} samples")
     if not plan["supported"] or plan["smem_bytes"] > SMEM_LIMIT or not plan["mel_fits"]:
@@ -292,7 +341,8 @@ def _log_mel_launch(signal: torch.Tensor, sample_rate: int, n_fft: int, hop_leng
                          f"{MEL_CHUNKS * MEL_WIDTH}) inside the padded bins: {plan['mel_fits']}")
 
     basis, mel_lo, mel_w = _kernel_tables(n_fft, n_mels, sample_rate, f_min, f_max,
-                                          plan["bins"], plan["ksteps"], str(signal.device))
+                                          plan["bins"], plan["ksteps"], str(signal.device),
+                                          mel_scale)
     out = torch.empty((B, plan["T"], n_mels), dtype=torch.float32, device=signal.device)
     _launch(signal.device, log_mel_spectrogram_cuda, signal.data_ptr(), basis.data_ptr(),
             mel_lo.data_ptr(), mel_w.data_ptr(), out.data_ptr(), S, plan["T"], n_fft, hop_length,
@@ -310,19 +360,19 @@ log_mel_op = torch.library.custom_op(
     "mmav::log_mel", _log_mel_launch, mutates_args=(), device_types="cuda",
     schema="(Tensor signal, int sample_rate, int n_fft, int hop_length, int win_length, "
            "int n_mels, float f_min, float? f_max, float log_eps, bool center, "
-           "bool apply_log) -> Tensor")
+           "bool apply_log, str mel_scale=\"htk\") -> Tensor")
 
 
 @log_mel_op.register_kernel("cpu")
 def _log_mel_plain(signal, sample_rate, n_fft, hop_length, win_length, n_mels, f_min, f_max,
-                   log_eps, center, apply_log):
+                   log_eps, center, apply_log, mel_scale="htk"):
     return log_mel_spectrogram(signal, sample_rate, n_fft, hop_length, win_length, n_mels,
-                               f_min, f_max, log_eps, center, apply_log)
+                               f_min, f_max, log_eps, center, apply_log, mel_scale)
 
 
 @log_mel_op.register_fake
 def _log_mel_fake(signal, sample_rate, n_fft, hop_length, win_length, n_mels, f_min, f_max,
-                  log_eps, center, apply_log):
+                  log_eps, center, apply_log, mel_scale="htk"):
     B, S = signal.shape
     return signal.new_empty((B, num_frames(S, n_fft, hop_length, center), n_mels),
                             dtype=torch.float32)
@@ -333,7 +383,7 @@ def log_mel_spectrogram_cuda(signal: torch.Tensor, sample_rate: int = 16000,
                              win_length: int | None = None, n_mels: int = 80,
                              f_min: float = 0.0, f_max: float | None = None,
                              log_eps: float = 1e-6, center: bool = True,
-                             apply_log: bool = True) -> torch.Tensor:
+                             apply_log: bool = True, mel_scale: str = "htk") -> torch.Tensor:
     """K1: fused log-mel of a ``[B, S]`` (or ``[S]``) f32 waveform, through
     the operator ``mmav::log_mel`` on every device.
 
@@ -351,7 +401,7 @@ def log_mel_spectrogram_cuda(signal: torch.Tensor, sample_rate: int = 16000,
     out = log_mel_op(signal[None] if squeeze else signal, sample_rate, n_fft, hop_length,
                      win_length or n_fft, n_mels, float(f_min),
                      None if f_max is None else float(f_max), float(log_eps), bool(center),
-                     bool(apply_log))
+                     bool(apply_log), mel_scale)
     return out[0] if squeeze else out
 
 

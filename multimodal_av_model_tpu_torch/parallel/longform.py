@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from ..config import require_flagship
+from ..config import require_arch
 from ..models.audio import AudioEncoder
 from ..models.layers import MultiHeadAttention
 from .sequence import gather_kv_attention_batched, gather_time, local_block, ring_attention_batched
@@ -72,6 +72,6 @@ def make_cp_audio_encoder(model_cfg, mesh, seq_axis: str = "data", impl: str = "
     in ``dtype`` (f32 by default, as JAX's) (``longform.py:68-81``).  Every
     rank of ``seq_axis`` calls it on the same waveform and gets the whole
     output."""
-    require_flagship(model_cfg, "the long-form encoder")
+    require_arch(model_cfg, "the long-form encoder")
     attn = functools.partial(CPSelfAttention, mesh=mesh, seq_axis=seq_axis, impl=impl)
     return AudioEncoder(model_cfg.audio, model_cfg.frontend, dtype, attention=attn)

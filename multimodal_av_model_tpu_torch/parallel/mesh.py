@@ -145,10 +145,10 @@ def shard_batch(mesh, batch: dict, device) -> dict:
 def refuse_avhubert(model: torch.nn.Module, what: str) -> None:
     """Raise for ``what``, a layout that splits the flagship's modules, on a
     model built with another ``model.arch``."""
-    from ..config import ModelConfig, require_flagship
+    from ..config import ModelConfig, require_arch
 
     cfg = getattr(model, "config", None)
-    require_flagship(cfg if isinstance(cfg, ModelConfig) else None, what)
+    require_arch(cfg if isinstance(cfg, ModelConfig) else None, what)
 
 
 def bind_data_axis(model: torch.nn.Module, mesh) -> None:

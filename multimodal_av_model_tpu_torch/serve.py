@@ -175,10 +175,10 @@ class AudioService:
                  use_beam: bool = True, sample_rate: int = 16000,
                  max_queue: int | None = None,
                  deadline_ms: float | None = None):
-        from .config import require_flagship
+        from .config import require_arch
 
-        require_flagship(getattr(getattr(transcriber, "config", None), "model", None),
-                         "the audio service")
+        require_arch(getattr(getattr(transcriber, "config", None), "model", None),
+                     "the audio service")
         import numpy as np
 
         self._np = np

@@ -38,7 +38,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from .config import Config, require_flagship
+from .config import Config, require_arch
 from .infer import load_fusion_lm, served
 from .ops.prefix_beam_search import _NEG_INF, prefix_beam_state_init, prefix_beam_stream_step
 
@@ -165,7 +165,7 @@ class StreamingAudioTranscriber:
     quantize_min_size: int = 4096
 
     def __post_init__(self):
-        require_flagship(self.config.model, "streaming")
+        require_arch(self.config.model, "streaming")
         self._samples_per_frame, self._chunk, self._ctx = _audio_frame_sizes(
             self.config, self.chunk_seconds, self.context_seconds)
         self._window = self._ctx + self._chunk
@@ -288,7 +288,7 @@ class StreamingAVTranscriber:
     mask_fn: Callable | None = None
 
     def __post_init__(self):
-        require_flagship(self.config.model, "streaming")
+        require_arch(self.config.model, "streaming")
         self._spf = self.config.data.audio_samples_per_video_frame
         self._win_f = self.context_frames + self.chunk_frames
         self._win_s = self._win_f * self._spf
@@ -450,7 +450,7 @@ class StreamingPool:
     quantize_min_size: int = 4096
 
     def __post_init__(self):
-        require_flagship(self.config.model, "streaming")
+        require_arch(self.config.model, "streaming")
         self._spf, self._chunk, self._ctx = _audio_frame_sizes(
             self.config, self.chunk_seconds, self.context_seconds)
         self._window = self._ctx + self._chunk

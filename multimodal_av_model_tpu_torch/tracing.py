@@ -63,6 +63,15 @@ name; about 20 a unit, none inside a per-frame loop):
                          launch), counted as ``lstm_kernel``, and its
                          backward's under ``train.backward``
 ``encoders.layers``      AV-HuBERT's transformer layers (``AVHubertCTC``)
+``encoders.audio``,      in ``models/whisper_flamingo.py:WhisperFlamingo``:
+``encoders.visual``      K1, Whisper's epilogue and the audio encoder; the
+                         video encoder; each frozen pass, run without
+                         autograd, counted as ``frozen_forward`` (2 a step)
+``decoder``              Whisper-Flamingo's video projection and decoder
+``decoder.xattn``        each gated cross-attention block (one a layer)
+``preprocess``           with ``decoder_rows`` (Whisper-Flamingo's): each
+                         valid row's target tokens (text and eot) counted as
+                         ``decoder_tokens``
 =======================  ===================================================
 """
 

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import Config, ModelConfig, require_flagship
+from ..config import Config, ModelConfig, require_arch
 from ..data.mixing import MASK_PAD
 from ..models.audio import AudioEncoder
 from ..models.layers import Dense
@@ -42,7 +42,7 @@ class MaskedAudioPretrainModel(nn.Module):
 
     def __init__(self, config: ModelConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        require_flagship(config, "the SSL pretraining family")
+        require_arch(config, "the SSL pretraining family")
         self.config, self.dtype = config, dtype
         self.audio_encoder = AudioEncoder(config.audio, config.frontend, dtype,
                                           mask_embedding=True)

@@ -21,7 +21,14 @@ logs, early stop, preemption):
 * a model without contrastive taps (``model.arch = "avhubert"``, an
   early-fusion encoder that has no audio encoder to tap) trains on the CTC
   terms alone: ``contrast1`` and ``contrast2`` read 0, and
-  ``contrastive_only`` or a mesh raise.
+  ``contrastive_only`` or a mesh raise;
+* an attention decoder (``model.arch = "whisper_flamingo"``) trains on the
+  teacher-forced cross-entropy: each speaker's term is the mean over rows of
+  each row's token-mean over its targets (``targets{1,2}``, flush rows
+  weighted out), the two averaged (metrics ``loss, ce1, ce2, grad_norm``).
+  Its frozen modules (the model's ``frozen_prefixes``) hold no gradient and
+  no Adam state; it trains through ``train_step`` alone: ``eval_step``,
+  ``evaluate``, ``train_epoch``, ``fit`` and a mesh raise.
 
 The trainer runs on the card unless built with ``device="cpu"``.  Its state
 lives in a ``TrainState``; ``train_step(state, batch)`` updates it in place
@@ -60,7 +67,7 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
-from ..config import Config, require_flagship
+from ..config import CTC_ARCHS, Config, require_arch
 from ..infer import decode_ids, load_fusion_lm
 from ..models.av_model import MultiSpeakerAVModel
 from ..models.layers import init_weights
@@ -358,10 +365,10 @@ class MultiSpeakerTrainer:
         from ..parallel import DATA_AXIS, MODEL_AXIS, axis_size
 
         if self.mesh is not None:
-            require_flagship(self.config.model, "the meshed training step (data, tensor and "
+            require_arch(self.config.model, "the meshed training step (data, tensor and "
                                                 "FSDP parallelism)")
         if self.config.train.contrastive_only:
-            require_flagship(self.config.model, "train.contrastive_only (the contrastive "
+            require_arch(self.config.model, "train.contrastive_only (the contrastive "
                                                 "taps of the audio encoder)")
         self.device = torch.device(self.device)
         self.model = self.model.to(self.device)
@@ -376,7 +383,8 @@ class MultiSpeakerTrainer:
 
     def make_optimizer(self) -> GroupAdam:
         named = list(self.model.named_parameters())
-        labels = label_params([n for n, _ in named], self.frozen_prefixes,
+        frozen = tuple(self.frozen_prefixes) + getattr(self.model, "frozen_prefixes", ())
+        labels = label_params([n for n, _ in named], frozen,
                               self.config.train.audio_trainable_layers)
         return GroupAdam(named, labels, self.config.train)
 
@@ -412,10 +420,18 @@ class MultiSpeakerTrainer:
         """``trainer.py:222-287``: the total loss, the metrics and the model
         outputs, on a placed batch."""
         frozen_visual = any(p.startswith("visual_encoder") for p in self.frozen_prefixes)
+        tokens = {k: batch[k] for k in ("tokens1", "tokens2") if k in batch}
         with span("train.forward"):
             out = model(batch["lip1"], batch["lip2"], batch["audio"], batch["mask1"],
                         batch["mask2"], batch["lip1_lengths"], batch["lip2_lengths"],
-                        train=train, stop_visual_grad=frozen_visual, generator=generator)
+                        train=train, stop_visual_grad=frozen_visual, generator=generator,
+                        **tokens)
+        if "logits1" in out:
+            with span("train.losses"):
+                ce1, ce2 = (self._token_ce(out["logits" + s], batch["targets" + s],
+                                           batch.get("valid")) for s in "12")
+                loss = (ce1 + ce2) / 2
+            return loss, {"loss": loss, "ce1": ce1, "ce2": ce2}, out
         with span("train.losses"):
             ccfg = self.config.model.contrastive
             blank = self.config.model.decoder.blank_id
@@ -473,6 +489,21 @@ class MultiSpeakerTrainer:
                        "contrast1": con1, "contrast2": con2}
         return total, metrics, out
 
+    @staticmethod
+    def _token_ce(logits, targets, valid=None):
+        """The mean over rows (weighted by ``valid``) of each row's mean
+        cross-entropy over its target positions (``targets`` not
+        ``IGNORE``)."""
+        from ..data.device_pipeline import IGNORE
+
+        B, n, V = logits.shape
+        per = torch.nn.functional.cross_entropy(logits.reshape(B * n, V), targets.reshape(-1),
+                                                ignore_index=IGNORE, reduction="none")
+        per = per.view(B, n).sum(dim=1) / (targets != IGNORE).sum(dim=1).clamp(min=1)
+        if valid is None:
+            return per.mean()
+        return (per * valid).sum() / valid.sum().clamp(min=1.0)
+
     # -- steps ---------------------------------------------------------------
 
     def train_step(self, state: TrainState, batch: dict):
@@ -528,6 +559,7 @@ class MultiSpeakerTrainer:
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict):
         """Eval-mode losses and outputs, with greedy ids (``trainer.py:312-331``)."""
+        require_arch(self.config.model, "eval_step", CTC_ARCHS)
         _, metrics, out = self._losses(state.model, self._place(batch), None, False)
         blank = self.config.model.decoder.blank_id
         res = {k: out[k] for k in ("log_probs1", "input_lengths1", "log_probs2",
@@ -553,6 +585,7 @@ class MultiSpeakerTrainer:
         the first batch alone, and ``elapsed_s`` the epoch's seconds."""
         if state is None:
             raise ValueError("train_epoch needs a state (init_state)")
+        require_arch(self.config.model, "train_epoch", CTC_ARCHS)
         log_every = log_every or self.config.train.log_every
         timer = StepTimer()
         sr = self.config.data.sample_rate
@@ -611,6 +644,7 @@ class MultiSpeakerTrainer:
         """``trainer.py:441-493`` -> ``(avg_loss, avg_wer, cer, {"wer1",
         "wer2", "jer"})``; the loss is the CTC mean, decoding per
         ``config.decode`` (or greedy), rates from summed error counts."""
+        require_arch(self.config.model, "evaluate", CTC_ARCHS)
         refs1, hyps1, refs2, hyps2 = [], [], [], []
         total, n = 0.0, 0
         for batch in batches:
@@ -661,6 +695,7 @@ class MultiSpeakerTrainer:
         ``best.json``).  A SIGTERM or SIGINT (``handle_signals``) ends the
         epoch at the next step, saves ``last.ckpt`` as the previous epoch, so
         a resume redoes it, and returns."""
+        require_arch(self.config.model, "the training run (fit)", CTC_ARCHS)
         tcfg = self.config.train
         resume = start_epoch > 1
         ckpts = CheckpointManager(tcfg.checkpoint_dir, async_io=tcfg.async_checkpoint,

@@ -209,9 +209,11 @@ def test_tokenizer_matches_jax():
     assert tok.decode(ids) == jtok.decode(ids)
 
 
-# The port's own fields, which the JAX package has not: the model selector and
-# the AV-HuBERT block it selects (``multimodal_av_model_tpu_torch/config.py``).
-PORT_ONLY = {"model.arch", "model.avhubert"}
+# The port's own fields, which the JAX package has not: the model selector, the
+# AV-HuBERT and Whisper-Flamingo blocks it selects and the filterbank's mel
+# scale (``multimodal_av_model_tpu_torch/config.py``).
+PORT_ONLY = {"model.arch", "model.avhubert", "model.whisper_flamingo",
+             "model.frontend.mel_scale"}
 
 
 def _common_fields(t_obj, j_obj, path=""):

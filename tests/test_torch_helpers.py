@@ -197,9 +197,12 @@ def test_to_dict_is_jax_s_less_the_dropped_fields():
                                   "model.shared_audio_pass=false"])
     got, want = _leaves(tcfg.to_dict(cfg)), _leaves(jcfg.to_dict(j))
     assert set(want) - set(got) == DROPPED
-    # The port's own fields: the model selector and the AV-HuBERT block.
-    added = {k for k in got if k == "model.arch" or k.startswith("model.avhubert.")}
+    # The port's own fields: the model selector, the AV-HuBERT and
+    # Whisper-Flamingo blocks and the filterbank's mel scale.
+    added = {k for k in got if k in ("model.arch", "model.frontend.mel_scale")
+             or k.startswith(("model.avhubert.", "model.whisper_flamingo."))}
     assert added and got["model.arch"] == "flagship"
+    assert got["model.frontend.mel_scale"] == "htk"
     assert set(got) - added <= set(want)
     for k, v in got.items():
         if k not in added:

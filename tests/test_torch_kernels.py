@@ -17,6 +17,7 @@ from multimodal_av_model_tpu_torch.ops.logmel import (
     log_mel_spectrogram,
     log_mel_spectrogram_cuda,
     logmel_plan,
+    whisper_log_mel,
 )
 from multimodal_av_model_tpu_torch.ops import prefix_beam_search as pbs
 from multimodal_av_model_tpu_torch.ops.resize import (
@@ -97,6 +98,26 @@ def test_logmel_kernel_at_26_bins(cuda, shape):
     torch.testing.assert_close(log_mel_spectrogram_cuda(x, apply_log=False, **kw),
                                log_mel_spectrogram(x, apply_log=False, **kw),
                                rtol=2e-3, atol=1e-2)
+
+
+def test_logmel_kernel_at_80_slaney_bins(cuda):
+    """Whisper's front end: 80 Slaney bins, centred, on 16 mixtures of
+    Whisper's 30 s window (``[16, 480000]``, 3,001 frames, mel supports of 16
+    bins), K1's mel power at the other shapes' bars, and Whisper's features
+    (``whisper_log_mel``) after it at the log bars."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy((0.3 * rng.standard_normal((16, 480000))).astype(np.float32)).to(cuda)
+    kw = dict(n_mels=80, apply_log=False, mel_scale="slaney")
+    assert logmel_plan(16, 480000, mel_scale="slaney")["mel_width"] == 16
+    before = log_mel_spectrogram_cuda.launches
+    got = log_mel_spectrogram_cuda(x, **kw)
+    torch.cuda.synchronize()
+    assert log_mel_spectrogram_cuda.launches == before + 1
+    ref = log_mel_spectrogram(x, **kw)
+    assert got.shape == ref.shape == (16, 3001, 80)
+    torch.testing.assert_close(got, ref, rtol=2e-3, atol=1e-2)
+    torch.testing.assert_close(whisper_log_mel(got, 3000), whisper_log_mel(ref, 3000),
+                               rtol=2e-3, atol=2e-3)
 
 
 def test_avhubert_forward_on_the_card_matches_reference(cuda):

@@ -161,6 +161,44 @@ def test_avhubert_step_spans_form_the_tree_under_one_unit(recorder):
                        **{k: "train.forward" for k in model_spans}}
 
 
+def test_whisper_flamingo_step_spans_and_counters(recorder):
+    """Whisper-Flamingo: ``encoders.audio`` and ``encoders.visual`` (each
+    counting one ``frozen_forward``), ``decoder`` with one ``decoder.xattn``
+    a layer inside it, and ``decoder_tokens`` (each valid row's text and
+    eot) counted in ``preprocess``."""
+    from test_torch_whisper_flamingo import LIP, MIX, tiny_config
+
+    from avbench import traffic
+    from multimodal_av_model_tpu_torch.models import build_av_model
+    from multimodal_av_model_tpu_torch.models.whisper_flamingo import pipeline_options
+
+    cfg = tiny_config()
+    model = init_weights(build_av_model(cfg.model), torch.Generator().manual_seed(0))
+    trainer = MultiSpeakerTrainer(cfg, model, None, device="cpu")
+    state = trainer.init_state(0)
+    raw = traffic.raw_batches(MIX, 3)[0]
+    with tracing.unit(4):
+        (batch,) = device_preprocessed_batches([raw], out_size=LIP, device="cpu",
+                                               **pipeline_options(cfg.model))
+        _, metrics = trainer.train_step(state, batch)
+    spans = tracing.collect()
+    assert torch.isfinite(metrics["loss"]) and {s["unit"] for s in spans} == {4}
+    parents, counts = _tree(spans)
+    assert parents == {**PREPROCESS, "train.step": None, "train.forward": "train.step",
+                       "train.losses": "train.step", "train.backward": "train.step",
+                       "train.optimizer": "train.step", "encoders.audio": "train.forward",
+                       "encoders.visual": "train.forward", "decoder": "train.forward",
+                       "decoder.xattn": "decoder"}
+    assert counts["decoder.xattn"] == cfg.model.whisper_flamingo.n_text_layer
+    total = {}
+    for s in spans:
+        for k, v in s["counters"].items():
+            total[k] = total.get(k, 0) + v
+    assert total["frozen_forward"] == 2
+    assert total["decoder_tokens"] == int((raw["text1_lengths"] + 1).sum()
+                                          + (raw["text2_lengths"] + 1).sum())
+
+
 def test_allreduce_span_wraps_the_gradient_average(recorder, monkeypatch):
     """``train.allreduce`` (``_average_grads``, a meshed step without FSDP):
     the flattening, the all-reduce and the copy back, once a call; here over
